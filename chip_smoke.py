@@ -1,16 +1,22 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and magnitude-prune paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line on stdout:
+Phases, each printing JSON lines on stdout:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    compile every kernel of the port from ``csrc/`` (one nvcc per
             source, all started together), timed.
 3. kernels  each kernel against its plain PyTorch version at the main
-            path's shapes (input stage: B=64, 416x416, C in {32, 8}, bf16
-            and fp32), with the tolerance stated per case; kernel, plain
-            and library times with CUDA events; the roofline bound.
+            paths' shapes, with kernel, plain and library times from CUDA
+            events and the roofline bound. Input stage: B=64, 416x416, C in
+            {32, 8}, bf16 and fp32, tolerance stated per case. Top-k/mask
+            (count, tie count, apply): the flat layout of YOLOv2-VOC's 23
+            convs (50,634,592 weights, padded), per-layer (S=24) and global
+            (S=2), on the random weights, on bf16-valued weights (ties), and
+            re-pruning pruned weights (0.5 then 0.75; 0.75 then 0.5, where
+            the threshold is 0.0): counts equal, outputs bit-equal.
 4. main     YOLOv2-VOC 416 (random init, seed 0), FAST precision, the
             deployment config (conf 0.01, K 32, prefilter 128), the fused
             serving step with on-device letterbox from 384x512 frames at
@@ -22,6 +28,15 @@ Phases, each printing one JSON line on stdout:
 5. server   the serve CLI's build_server on 127.0.0.1 (--deployment
             --batch 64 --device cuda, random weights): /healthz, a few
             canvases through the dispatcher queue, /stats, shutdown.
+6. prune    the prune CLI on full-width YOLOv2-VOC (random weights from
+            seed 0 written as .weights), --mode magnitude then --mode
+            global at --sparsity 0.75 --device cuda. Each call must launch
+            the count kernel exactly 32 times and the tie-count and apply
+            kernels once; the written masks must equal the reference
+            (stable argsort) backend's on the card, with exactly
+            floor(0.75 n) zeros per layer (global: of all N). The written
+            .weights are reloaded and served at batch 64 as in phase 4,
+            through the input-stage kernel.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -42,10 +57,17 @@ BATCH = 64
 SRC_H, SRC_W = 384, 512
 NET = 416
 PRUNE_FRACTION = 0.75
+SPARSITY = 0.75
 SEED = 0
-# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W); the
+# top-k kernels' integer compares and adds are counted against the CUDA
+# cores' float32 rate, the data sheet's nearest figure for 32-bit ALU work
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+SERVING_KERNELS = ("input_stage",)
+# launches of one magnitude prune: 31 bisection rounds + the n_below count
+PRUNE_LAUNCHES = {"topk_count_le": 32, "topk_tie_counts": 1,
+                  "topk_apply": 1}
 
 
 class SmokeFailure(Exception):
@@ -84,6 +106,16 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "operations": n_ops}
 
 
 def reset_counts(kernels) -> None:
@@ -148,14 +180,11 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     elt = x.element_size()
     n_bytes = (x.numel() + w.numel() + got.numel()) * elt + b.numel() * 4
     n_ops = 2 * 27 * c_out * BATCH * NET * NET  # 4 phases x 27 taps x C
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[str(dtype).split(".")[1]] * 1e3
-    return {"c_out": c_out, "dtype": str(dtype).split(".")[1],
-            "max_abs_err": err, "tolerance": tol, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "operations": n_ops}
+    name = str(dtype).split(".")[1]
+    return {"c_out": c_out, "dtype": name, "max_abs_err": err,
+            "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            **bound(n_bytes, n_ops, PEAK_OPS_PER_S[name])}
 
 
 def phase_kernels(torch):
@@ -169,6 +198,130 @@ def phase_kernels(torch):
             cases[(c_out, r["dtype"])] = r
             emit({"phase": "kernels", "ok": True, "kernel": "input_stage",
                   **r})
+    return cases
+
+
+TOPK_VARIANTS = ("random", "ties", "reprune_50_75", "reprune_75_50")
+
+
+def _topk_layout(torch, spec, params, per_layer, variant):
+    """The flat prune inputs of one case (the port's layout of the convs)
+    and its sparsity: the random weights; bf16-valued weights stored as
+    fp32 (ties at the threshold); or weights pruned once by the reference
+    rule and pruned again, at 0.75 after 0.5 or at 0.5 after 0.75 (where
+    the threshold is 0.0 and the zeros are the ties)."""
+    from modelcompression_tpu_torch.compress import apply_masks, criteria
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    sparsity = SPARSITY
+    if variant == "ties":
+        params = {k: dict(p, w=p["w"].to(torch.bfloat16).float())
+                  for k, p in params.items()}
+    elif variant != "random":
+        first, sparsity = {"reprune_50_75": (0.5, 0.75),
+                           "reprune_75_50": (0.75, 0.5)}[variant]
+        masks_fn = criteria.magnitude_masks_perlayer if per_layer \
+            else criteria.magnitude_masks_global
+        params = apply_masks(params, masks_fn(params, spec, first))
+    return ct._prune_layout(params, spec, sparsity, per_layer, ())
+
+
+def topk_case(torch, spec, params, per_layer, variant):
+    """The three top-k/mask kernels against their plain versions on the
+    inputs a prune of this case feeds them (derived by the plain rule),
+    then timed: counts equal, outputs bit-equal (every output is a count
+    or a copy of an input)."""
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    from modelcompression_tpu_torch.ops import topk_mask as tm
+    keys, cat, sizes, seg, n_zero, S = _topk_layout(torch, spec, params,
+                                                   per_layer, variant)
+    n = cat.numel()
+    bits = tm.abs_bits(cat)
+    k = (n_zero - 1).clamp_min(0)
+    kth = tm.segmented_kth_bits(bits, seg, k, S)
+    tau = torch.where(n_zero > 0, kth, 0)
+    below = torch.where(tau > 0, tau - 1, 0)
+    n_below = torch.where((n_zero > 0) & (tau > 0),
+                          ct.count_le_plain(bits, seg, below, S), 0)
+    budget = torch.where(n_zero > 0, n_zero - n_below, 0)
+    per_chunk = ct.tie_counts_plain(bits, seg, tau, S)
+    pc = per_chunk.long()
+    chunk_off = torch.cumsum(pc.sum(1), 0) - pc.sum(1)
+    seg_start = torch.cumsum(pc.sum(0), 0) - pc.sum(0)
+    ones = torch.ones_like(cat)
+    rest = (bits, seg, tau, budget, seg_start, chunk_off)
+    label = f"top-k S={S} {variant}"
+    err = {"count_le": 0.0, "tie_counts": 0.0, "apply": 0.0}
+
+    def compare(key, got, want, what):
+        err[key] = max(err[key], (got.double() - want.double()).abs().max()
+                       .item())
+        check(torch.equal(got.view(torch.int32) if key == "apply" else got,
+                          want.view(torch.int32) if key == "apply" else want),
+              f"{label}: {what} differs from its plain version")
+
+    for mid in (kth, below):
+        compare("count_le", ct.count_le_cuda(bits, seg, mid, S),
+                ct.count_le_plain(bits, seg, mid, S), "count kernel")
+    compare("tie_counts", ct.tie_counts_cuda(bits, seg, tau, S), per_chunk,
+            "tie-count kernel")
+    outs = []
+    for src in (ones, cat):  # the mask (the CLI's path), the weights
+        got = ct.apply_threshold_cuda(src, *rest)
+        compare("apply", got, ct.apply_threshold_plain(src, *rest),
+                "apply kernel output (bit for bit)")
+        outs.append(got)
+    n_pruned = int((outs[0] == 0).sum())
+    check(n_pruned == int(n_zero.sum()), f"{label}: the mask prunes "
+          f"{n_pruned} weights, the rule {int(n_zero.sum())}")
+
+    def timed(key, kernel, plain, args, n_bytes, n_ops):
+        return {"max_abs_err": err[key],
+                "ms": time_ms(torch, lambda: kernel(*args), iters=10),
+                "plain_ms": time_ms(torch, lambda: plain(*args), iters=2,
+                                    warmup=1),
+                **bound(n_bytes, n_ops, PEAK_OPS_PER_S["float32"])}
+
+    chunks = per_chunk.shape[0]
+    r = {"S": S, "variant": variant, "n": n, "weights": sum(sizes),
+         "segments_at_threshold_zero": int((tau[:-1] == 0).sum()),
+         "ties_at_threshold": int(pc[:, :-1].sum()),  # padding excluded
+         # bytes: each input read once, each output written once
+         "count_le": timed("count_le", ct.count_le_cuda, ct.count_le_plain,
+                           (bits, seg, kth, S), 8 * n + 12 * S, 2 * n),
+         "tie_counts": timed("tie_counts", ct.tie_counts_cuda,
+                             ct.tie_counts_plain, (bits, seg, tau, S),
+                             8 * n + 4 * S + 4 * chunks * S, 2 * n),
+         "apply": timed("apply", ct.apply_threshold_cuda,
+                        ct.apply_threshold_plain, (ones,) + rest,
+                        16 * n + 12 * S + 8 * chunks, 4 * n),
+         "bisection_ms": time_ms(torch, lambda: tm.segmented_kth_bits(
+             bits, seg, k, S, count_le=ct.count_le_cuda), iters=3, warmup=1),
+         "kthvalue_ms": None}
+    if not per_layer:
+        # the one PyTorch call for the bisection's job: the k-th |w|
+        absw = cat[:sum(sizes)].abs()
+        kk = int(k[0]) + 1
+        kv = torch.kthvalue(absw, kk).values.reshape(1)
+        check(int(tm.abs_bits(kv)[0]) == int(kth[0]),
+              f"{label}: torch.kthvalue disagrees with the bisection")
+        if variant == "random":  # the main path's case; ~0.4 s a call
+            r["kthvalue_ms"] = time_ms(
+                torch, lambda: torch.kthvalue(absw, kk), iters=3, warmup=1)
+    return r
+
+
+def phase_topk_kernels(torch):
+    from modelcompression_tpu_torch.models import (
+        init_params, params_to, yolov2_voc,
+    )
+    spec = yolov2_voc()
+    params = params_to(init_params(spec, seed=SEED), "cuda")
+    cases = {}
+    for per_layer in (True, False):
+        for variant in TOPK_VARIANTS:
+            r = topk_case(torch, spec, params, per_layer, variant)
+            cases[(r["S"], variant)] = r
+            emit({"phase": "kernels", "ok": True, "kernel": "topk", **r})
     return cases
 
 
@@ -239,7 +392,11 @@ def _agrees_with_cpu(torch, spec, params):
             "valid_detections": int(post["cpu"][2].sum().item())}
 
 
-def phase_main(torch, kernels, card):
+def drive_serving(torch, kernels, spec, params, label):
+    """The fused serving step at batch 64 from 384x512 frames with the
+    deployment config, on the card: run once with every launch count at 0
+    (each kernel of the serving path must launch; outputs finite with the
+    stated shapes), then steady img/s from CUDA events."""
     from modelcompression_tpu_torch.core.precision import FAST
     from modelcompression_tpu_torch.evaluation import (
         EvalConfig, make_eval_step,
@@ -254,38 +411,40 @@ def phase_main(torch, kernels, card):
     img_h = torch.full((BATCH,), float(SRC_H), device="cuda")
     cfg = EvalConfig(conf_thresh=0.01, max_detections=32, nms_prefilter=128,
                      precision=FAST, device="cuda")
+    folded = params_to(fold_batchnorm(params, spec), "cuda")
+    step = make_eval_step(spec, cfg, src_hw=(SRC_H, SRC_W))
+    reset_counts(kernels)
+    outs = step(folded, images, img_w, img_h)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    for name in SERVING_KERNELS:
+        check(counts[name] >= 1, f"{label}: kernel {name} launched "
+              f"{counts[name]} times on the serving path")
+    c, k = spec.classes, cfg.max_detections
+    shapes = [(BATCH, c, k, 4), (BATCH, c, k), (BATCH, c, k),
+              (BATCH, c), (BATCH,)]
+    check([tuple(o.shape) for o in outs] == shapes,
+          f"{label}: output shapes {[tuple(o.shape) for o in outs]}")
+    check(all(torch.isfinite(o.float()).all().item()
+              for o in outs[:2]), f"{label}: non-finite outputs")
+    n_valid = int(outs[2].sum().item())
+    ms = time_ms(torch, lambda: step(folded, images, img_w, img_h),
+                 iters=10)
+    return {"ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
+            "conv_gflop_per_img": num_conv_flops(spec) / 1e9,
+            "conv1_filters": spec.layers[0].filters,
+            "launches": counts, "valid_detections": n_valid,
+            "n_any_max": int(outs[4].max().item())}
+
+
+def phase_main(torch, kernels, card):
     launches = {}
-    results = {}
     for label, spec, params in _models(torch):
-        folded = params_to(fold_batchnorm(params, spec), "cuda")
-        step = make_eval_step(spec, cfg, src_hw=(SRC_H, SRC_W))
-        reset_counts(kernels)
-        outs = step(folded, images, img_w, img_h)
-        torch.cuda.synchronize()
-        counts = read_counts(kernels)
-        for name, n in counts.items():
-            check(n >= 1, f"{label}: kernel {name} launched {n} times on "
-                  "the main path")
-        launches[label] = counts
-        c, k = spec.classes, cfg.max_detections
-        shapes = [(BATCH, c, k, 4), (BATCH, c, k), (BATCH, c, k),
-                  (BATCH, c), (BATCH,)]
-        check([tuple(o.shape) for o in outs] == shapes,
-              f"{label}: output shapes {[tuple(o.shape) for o in outs]}")
-        check(all(torch.isfinite(o.float()).all().item()
-                  for o in outs[:2]), f"{label}: non-finite outputs")
-        n_valid = int(outs[2].sum().item())
-        ms = time_ms(torch, lambda: step(folded, images, img_w, img_h),
-                     iters=10)
-        ref = _agrees_with_cpu(torch, spec, params)
-        results[label] = {"ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
-                          "conv_gflop_per_img": num_conv_flops(spec) / 1e9,
-                          "conv1_filters": spec.layers[0].filters,
-                          "launches": counts, "valid_detections": n_valid,
-                          "n_any_max": int(outs[4].max().item()),
-                          "cpu_reference": ref}
+        r = drive_serving(torch, kernels, spec, params, label)
+        r["cpu_reference"] = _agrees_with_cpu(torch, spec, params)
+        launches[label] = r["launches"]
         emit({"phase": "main", "ok": True, "model": label, "card": card,
-              **results[label]})
+              **r})
     return launches
 
 
@@ -321,8 +480,9 @@ def phase_server(torch, kernels, card):
             check(it.error is None, f"request failed: {it.error}")
             check(isinstance(it.result, list), "no detection list")
         counts = read_counts(kernels)
-        for name, n in counts.items():
-            check(n >= 1, f"server: kernel {name} launched {n} times")
+        for name in SERVING_KERNELS:
+            check(counts[name] >= 1, f"server: kernel {name} launched "
+                  f"{counts[name]} times")
         with urllib.request.urlopen(base + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
         check(stats["images"] >= n_req, f"/stats served {stats['images']}")
@@ -336,10 +496,97 @@ def phase_server(torch, kernels, card):
         thread.join(timeout=30)
 
 
-def kernel_entries(cases, launches):
-    """The ``kernels`` line: one entry per main-path case of each kernel
-    (the input stage runs bf16 at C=32 in the unpruned model and at C=8 in
-    the pruned one); ``launches`` is that model's main-path count."""
+def phase_prune(torch, kernels, card):
+    """The prune CLI on full-width YOLOv2-VOC in both magnitude modes, its
+    launches and masks checked, then the pruned weights served. Returns
+    each mode's launch counts."""
+    import tempfile
+
+    from modelcompression_tpu_torch.cli import prune
+    from modelcompression_tpu_torch.compress import criteria
+    from modelcompression_tpu_torch.models import (
+        cfg_path, init_params, load_cfg, load_weights, params_to,
+        save_weights,
+    )
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    cfg = cfg_path("yolov2-voc.cfg")
+    spec = load_cfg(cfg)
+    params = init_params(spec, seed=SEED)
+    dev_params = params_to(params, "cuda")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "yolov2-voc.weights")
+        save_weights(src, spec, params)
+        for mode, per_layer in (("magnitude", True), ("global", False)):
+            out = os.path.join(tmp, f"{mode}.weights")
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            rc = prune.main(["--cfg", cfg, "--weights", src, "--mode", mode,
+                             "--sparsity", str(SPARSITY), "--device", "cuda",
+                             "--out", out])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            counts = read_counts(kernels)
+            check(rc == 0, f"prune --mode {mode} exited {rc}")
+            want = {name: PRUNE_LAUNCHES.get(name, 0) for name, _ in kernels}
+            check(counts == want, f"prune --mode {mode}: launches {counts}, "
+                  f"expected {want}")
+            launches[mode] = counts
+            name = "perlayer" if per_layer else "global"
+            fn = getattr(ct, f"magnitude_masks_{name}")
+            ref_fn = getattr(criteria, f"magnitude_masks_{name}")
+            ref = ref_fn(dev_params, spec, SPARSITY)
+            masks = fn(dev_params, spec, SPARSITY)
+            written, _ = load_weights(out, spec)
+            for key, m in ref.items():
+                w = written[key]["w"].to(m.device)
+                check(torch.equal(masks[key], m), f"{mode}: the mask of "
+                      f"{key} differs from the reference backend's")
+                # the written weights are the params times that mask
+                check(torch.equal(w[m], dev_params[key]["w"][m])
+                      and not w[~m].any(), f"{mode}: the written weights of "
+                      f"{key} are not the reference-masked params")
+            zeros = {key: int((~m).sum()) for key, m in ref.items()}
+            sizes = {key: m.numel() for key, m in ref.items()}
+            if per_layer:
+                check(all(zeros[key] == int(SPARSITY * sizes[key])
+                          for key in ref), f"{mode}: per-layer zero counts")
+            else:
+                total = sum(sizes.values())
+                check(sum(zeros.values()) == int(SPARSITY * total),
+                      f"{mode}: {sum(zeros.values())} zeros of {total}")
+            r = {"mode": mode, "sparsity": SPARSITY,
+                 "achieved": sum(zeros.values()) / sum(sizes.values()),
+                 "weights": sum(sizes.values()), "launches": counts,
+                 "cli_s": cli_s, "masks_equal_reference": True,
+                 "masks_ms": time_ms(torch, lambda: fn(
+                     dev_params, spec, SPARSITY), iters=3, warmup=1),
+                 "reference_masks_ms": time_ms(torch, lambda: ref_fn(
+                     dev_params, spec, SPARSITY), iters=2, warmup=1),
+                 "served": drive_serving(torch, kernels, spec, written,
+                                         f"prune {mode}")}
+            emit({"phase": "prune", "ok": True, "card": card, **r})
+    return launches
+
+
+TOPK_ENTRIES = (
+    ("count_le", "topk_count_le", "pallas_topk.py:55"),
+    ("tie_counts", "topk_tie_counts", "pallas_topk.py:190"),
+    ("apply", "topk_apply", "pallas_topk.py:124"),
+)
+
+
+def kernel_entries(cases, launches, topk, prune_launches):
+    """The ``kernels`` line: one entry per main-path case of each kernel.
+    The input stage runs bf16 at C=32 in the unpruned model and at C=8 in
+    the pruned one; the top-k kernels run per layer (S=24, the magnitude
+    prune) and globally (S=2) on the random weights. ``launches`` is that
+    path's count. No single PyTorch call computes a top-k kernel's own
+    function. The count entries carry, beside one launch's ``ms``, the
+    whole 31-launch bisection's ``bisection_ms``; in global mode their
+    ``library_ms`` is torch.kthvalue on the |w| vector, the call that finds
+    the same k-th |w|, so it compares with ``bisection_ms`` (marked by
+    ``library_computes``)."""
     entries = []
     for c_out, name, model in ((32, "input_stage", "unpruned"),
                                (8, "input_stage[C=8]", "pruned75")):
@@ -352,6 +599,25 @@ def kernel_entries(cases, launches):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for s, mode in ((24, "magnitude"), (2, "global")):
+        r = topk[(s, "random")]
+        for key, source, body in TOPK_ENTRIES:
+            k = r[key]
+            entry = {
+                "name": f"{source}[S={s}]", "route": "cuda",
+                "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
+                "replaces": f"modelcompression_tpu/ops/{body}",
+                "launches": prune_launches[mode][source],
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": None}
+            if key == "count_le":
+                entry["bisection_ms"] = r["bisection_ms"]
+                if r["kthvalue_ms"] is not None:
+                    entry["library_ms"] = r["kthvalue_ms"]
+                    entry["library_computes"] = (
+                        "the k-th |w| of the whole 31-launch bisection")
+            entries.append(entry)
     return entries
 
 
@@ -381,9 +647,12 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
         phase_build(KERNELS)
         cases = phase_kernels(torch)
+        topk = phase_topk_kernels(torch)
         launches = phase_main(torch, KERNELS, card)
         phase_server(torch, KERNELS, card)
-        emit({"kernels": kernel_entries(cases, launches)})
+        prune_launches = phase_prune(torch, KERNELS, card)
+        emit({"kernels": kernel_entries(cases, launches, topk,
+                                        prune_launches)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,4 +1,4 @@
-"""Shared CLI plumbing, the serving subset of
+"""Shared CLI plumbing, the serving and pruning subset of
 ``modelcompression_tpu/cli/common.py``."""
 
 from __future__ import annotations
@@ -87,6 +87,12 @@ def resolve_serving_eval_config(args, spec=None):
                       soft_nms=getattr(args, "soft_nms", None) or "",
                       diou_nms=diou,
                       device=getattr(args, "device", "cuda"))
+
+
+def resolve_mask_backend(args) -> str:
+    """--use-pallas is an alias for --mask-backend pallas."""
+    return "pallas" if getattr(args, "use_pallas", False) \
+        else args.mask_backend
 
 
 def load_model(args, seed: int = 0):

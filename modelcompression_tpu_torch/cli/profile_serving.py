@@ -23,58 +23,25 @@ from __future__ import annotations
 
 import json
 import sys
-import time
 
 import torch
+
+from modelcompression_tpu_torch.cli._profiling import (
+    profile_window, time_ms,
+)
 
 BATCH, SRC_H, SRC_W, NET = 64, 384, 512, 416
 
 
-def _time_ms(fn, iters=10, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _profile(fn, steps=3):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): the CPU-op rows carry
-    # the same device time again
-    rows = [(e.key, e.device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+def _profile(fn):
+    """The shared profiler window plus the input-stage kernel's share of
+    the device time."""
+    summary, rows = profile_window(fn)
     busy_us = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
     stage = sum(r[1] for r in rows if "conv1_pool_kernel" in r[0])
-    return {
-        "steps": steps,
-        "wall_ms_per_step": wall_us / steps / 1e3,
-        "device_busy_ms_per_step": busy_us / steps / 1e3,
-        "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-        "input_stage_share_of_device": stage / busy_us if busy_us else 0.0,
-        "device_ops_per_step": sum(r[2] for r in rows) / steps,
-        "top_kernels": [{"name": k[:90], "ms_per_step": us / steps / 1e3,
-                         "calls_per_step": n / steps}
-                        for k, us, n in rows[:12]],
-    }
+    summary["input_stage_share_of_device"] = \
+        stage / busy_us if busy_us else 0.0
+    return summary
 
 
 def main() -> int:
@@ -119,7 +86,7 @@ def main() -> int:
             steps[fuse] = (lambda st=step: st(folded, images, img_w, img_h))
         ab = {"fused": [], "unfused": []}
         for fuse in (True, False, False, True) * 2:
-            ab["fused" if fuse else "unfused"].append(_time_ms(steps[fuse]))
+            ab["fused" if fuse else "unfused"].append(time_ms(steps[fuse]))
         with torch.inference_mode():
             x = letterbox_device(images, NET, NET, dtype=torch.bfloat16)
             raw = forward_folded(folded, x, s, FAST, fuse_input_stage=True)
@@ -133,11 +100,11 @@ def main() -> int:
                                         img_h[:, None, None], NET, NET,
                                         True), sc, valid
             stages = {
-                "letterbox": _time_ms(lambda: letterbox_device(
+                "letterbox": time_ms(lambda: letterbox_device(
                     images, NET, NET, dtype=torch.bfloat16)),
-                "forward": _time_ms(lambda: forward_folded(
+                "forward": time_ms(lambda: forward_folded(
                     folded, x, s, FAST, fuse_input_stage=True)),
-                "post": _time_ms(post),
+                "post": time_ms(post),
             }
         print(json.dumps({"model": label, "card": card,
                           "conv1_filters": s.layers[0].filters,

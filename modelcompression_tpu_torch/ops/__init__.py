@@ -5,13 +5,24 @@ launches its kernel and nowhere else. ``KERNELS`` lists them for callers
 that build every kernel up front or read every count (``chip_smoke.py``).
 """
 
+from modelcompression_tpu_torch.ops.cuda_topk import (
+    apply_threshold, apply_threshold_cuda, apply_threshold_plain, count_le,
+    count_le_cuda, count_le_plain, prune_flat, tie_counts, tie_counts_cuda,
+    tie_counts_plain,
+)
 from modelcompression_tpu_torch.ops.input_stage import (
     fused_conv1_pool, fused_conv1_pool_cuda, fused_conv1_pool_plain,
     input_stage_match,
 )
 
 # (csrc source name, wrapper) for every kernel of the port
-KERNELS = (("input_stage", fused_conv1_pool_cuda),)
+KERNELS = (("input_stage", fused_conv1_pool_cuda),
+           ("topk_count_le", count_le_cuda),
+           ("topk_tie_counts", tie_counts_cuda),
+           ("topk_apply", apply_threshold_cuda))
 
-__all__ = ["KERNELS", "fused_conv1_pool", "fused_conv1_pool_cuda",
-           "fused_conv1_pool_plain", "input_stage_match"]
+__all__ = ["KERNELS", "apply_threshold", "apply_threshold_cuda",
+           "apply_threshold_plain", "count_le", "count_le_cuda",
+           "count_le_plain", "fused_conv1_pool", "fused_conv1_pool_cuda",
+           "fused_conv1_pool_plain", "input_stage_match", "prune_flat",
+           "tie_counts", "tie_counts_cuda", "tie_counts_plain"]

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries go to ``modelcompression_tpu_torch/_build``
-(listed in ``.gitignore``), named by a hash of their source, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is built when a
+(listed in ``.gitignore``), named by a hash of their source and of the
+shared ``csrc/*.cuh`` headers, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is built when a
 module is imported: the first launch builds, or a caller (``chip_smoke.py``)
 builds every kernel up front with ``build_all``, one ``nvcc`` per source,
 all started together.
@@ -42,9 +43,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source
+    and of every shared header in ``csrc/`` it may include."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from modelcompression_tpu_torch.ops import cuda_topk as ct
 from modelcompression_tpu_torch.ops import input_stage as tis
+from modelcompression_tpu_torch.ops import topk_mask as ttm
 
 FP32_ATOL = 1e-5
 
@@ -98,3 +100,124 @@ def test_eval_step_cuda_matches_cpu_bitmatch(cuda_device):
     np.testing.assert_array_equal(vg, vc)
     np.testing.assert_array_equal(ag, ac)
     np.testing.assert_allclose(sg, sc, atol=1e-4)
+
+
+# ---- the magnitude top-k/mask kernels (exact: counts and copies of w) ------
+
+# (segment sizes, bf16-valued weights, share of exact zeros, sparsity)
+TOPK_CASES = {
+    # one segment, the last chunk and the last 1024-element round ragged
+    "ragged_S1": ([3 * ct.CHUNK + 1003], False, 0.0, 0.75),
+    "S24": (None, False, 0.0, 0.75),
+    "ties_S24": (None, True, 0.0, 0.75),
+    # 60% zeros pruned at 0.5: the threshold is 0.0 in every segment
+    "tau0_S24": (None, True, 0.6, 0.5),
+}
+
+
+def _unaligned(t):
+    """``t`` copied into a buffer at a 4-byte offset: the kernels must
+    take their scalar-load path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t)
+    return buf[1:]
+
+
+def _topk_case(name, device, unaligned):
+    sizes, ties, zeros, sparsity = TOPK_CASES[name]
+    rng = np.random.default_rng(len(name))
+    if sizes is None:  # 24 segments of mixed sizes, as YOLOv2's 23 + pad
+        sizes = [int(s) for s in rng.integers(1, 9000, 23)] + [5003]
+    n = sum(sizes)
+    w = rng.standard_normal(n).astype(np.float32)
+    if ties:
+        w = (w.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    w[rng.random(n) < zeros] = 0.0
+    seg = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    w = torch.from_numpy(w).to(device)
+    seg = torch.from_numpy(seg).to(device)
+    bits = ttm.abs_bits(w)
+    if unaligned:
+        w, bits, seg = (_unaligned(t) for t in (w, bits, seg))
+    n_zero = torch.tensor([int(sparsity * s) for s in sizes], device=device)
+    return w, bits, seg, n_zero, len(sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+def test_topk_kernels_match_plain(cuda_device, case, unaligned):
+    """Each kernel against its plain version on the same inputs, the
+    inputs a prune of this case feeds it."""
+    w, bits, seg, n_zero, S = _topk_case(case, cuda_device, unaligned)
+    kth = ttm.segmented_kth_bits(bits, seg, (n_zero - 1).clamp_min(0), S)
+    tau = torch.where(n_zero > 0, kth, 0)
+    if case == "tau0_S24":
+        assert (tau == 0).all()
+    for mid in (kth, (tau - 1).clamp_min(0), torch.zeros_like(kth),
+                torch.full_like(kth, 0x7FFFFFFF)):
+        got = ct.count_le_cuda(bits, seg, mid, S)
+        assert torch.equal(got, ct.count_le_plain(bits, seg, mid, S))
+    per_chunk = ct.tie_counts_cuda(bits, seg, tau, S)
+    assert torch.equal(per_chunk, ct.tie_counts_plain(bits, seg, tau, S))
+    assert per_chunk.shape == (-(-bits.numel() // ct.CHUNK), S)
+    pc = per_chunk.long()
+    chunk_off = torch.cumsum(pc.sum(1), 0) - pc.sum(1)
+    seg_start = torch.cumsum(pc.sum(0), 0) - pc.sum(0)
+    n_below = ct.count_le_plain(bits, seg, (tau - 1).clamp_min(0), S)
+    budget = n_zero - torch.where(tau > 0, n_below, 0)
+    args = (bits, seg, tau, budget, seg_start, chunk_off)
+    for src in (w, torch.ones_like(w)):  # the pruned weights, the mask
+        got = ct.apply_threshold_cuda(src, *args)
+        want = ct.apply_threshold_plain(src, *args)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    pruned = torch.zeros(S, dtype=torch.int64, device=cuda_device) \
+        .index_add_(0, seg.long(), (want == 0).long())
+    assert torch.equal(pruned, n_zero)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("return_mask", [False, True])
+@pytest.mark.parametrize("case", ["ties_S24", "tau0_S24"])
+def test_prune_flat_cuda_matches_cpu(cuda_device, case, return_mask):
+    """The whole prune on the card (kernels) equals the prune on the CPU
+    (plain versions), with 32 count, 1 tie-count and 1 apply launch."""
+    w, _, seg, n_zero, S = _topk_case(case, cuda_device, False)
+    kernels = (ct.count_le_cuda, ct.tie_counts_cuda, ct.apply_threshold_cuda)
+    before = [k.LAUNCHES for k in kernels]
+    got = ct.prune_flat(w, seg, n_zero, S, return_mask=return_mask)
+    torch.cuda.synchronize()
+    assert [k.LAUNCHES - b for k, b in zip(kernels, before)] == [32, 1, 1]
+    want = ct.prune_flat(w.cpu(), seg.cpu(), n_zero.cpu(), S,
+                         return_mask=return_mask)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["perlayer", "global"])
+def test_magnitude_masks_cuda_match_reference(cuda_device, mode):
+    from modelcompression_tpu_torch.compress import criteria
+    from modelcompression_tpu_torch.models import (
+        init_params, params_to, tiny_yolov2_voc,
+    )
+    spec = tiny_yolov2_voc()
+    params = params_to(init_params(spec, seed=0), cuda_device)
+    fn = getattr(ct, f"magnitude_masks_{mode}")
+    ref = getattr(criteria, f"magnitude_masks_{mode}")
+    got, want = fn(params, spec, 0.75), ref(params, spec, 0.75)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_topk_kernels_reject_bad_inputs(cuda_device):
+    w, bits, seg, n_zero, S = _topk_case("S24", cuda_device, False)
+    with pytest.raises(ValueError, match="int32"):
+        ct.count_le_cuda(bits.long(), seg, n_zero, S)
+    with pytest.raises(ValueError, match="n_segments"):
+        ct.tie_counts_cuda(bits, seg, torch.zeros(ct.MAX_SEGMENTS + 1),
+                           ct.MAX_SEGMENTS + 1)
+    with pytest.raises(ValueError, match="float32"):
+        ct.apply_threshold_cuda(w.double(), bits, seg, n_zero, n_zero,
+                                n_zero, torch.zeros(1))

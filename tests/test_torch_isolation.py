@@ -99,6 +99,24 @@ except RuntimeError as e:
     assert "RAISED" in r.stdout and "CUDA" in r.stdout
 
 
+def test_prune_cli_without_cpu_request_raises():
+    """The prune CLI's --device defaults to cuda: without a card it raises
+    before reading anything (the weights path need not exist)."""
+    r = _run("""
+import torch
+from modelcompression_tpu_torch.cli import prune
+from modelcompression_tpu_torch.models import cfg_path
+assert not torch.cuda.is_available()
+try:
+    prune.main(['--cfg', cfg_path('yolov2-voc.cfg'), '--weights', 'none',
+                '--mode', 'magnitude', '--sparsity', '0.5', '--out', 'x'])
+except RuntimeError as e:
+    print('RAISED', e)
+""")
+    assert r.returncode == 0, r.stderr
+    assert "RAISED" in r.stdout and "CUDA" in r.stdout
+
+
 def test_resolve_device_rule():
     r = _run("""
 from modelcompression_tpu_torch.core.device import resolve_device
