@@ -11,7 +11,10 @@ Phases, each printing JSON lines on stdout:
 3. kernels  each kernel against its plain PyTorch version at the main
             paths' shapes, with kernel, plain and library times from CUDA
             events and the roofline bound. Input stage: B=64, 416x416, C in
-            {32, 8}, bf16 and fp32, tolerance stated per case. Top-k/mask
+            {32, 8}, bf16 and fp32, tolerance stated per case; bf16 runs
+            the tensor-core (mma) kernel, timed beside the CUDA-core
+            kernel's bf16 instantiation (``prev_ms``); fp32 runs the
+            CUDA-core kernel. Top-k/mask
             (count, tie count, apply): the flat layout of YOLOv2-VOC's 23
             convs (50,634,592 weights, padded), per-layer (S=24) and global
             (S=2), on the random weights, on bf16-valued weights (ties), and
@@ -22,9 +25,11 @@ Phases, each printing JSON lines on stdout:
             serving step with on-device letterbox from 384x512 frames at
             batch 64: unpruned, then 75%-filter-pruned and repacked. Each
             run starts with every kernel launch count at 0 and fails unless
-            each kernel of the path launched; outputs must be finite with
-            the stated shapes, and a small fp32 batch must agree with the
-            same step on the CPU. Steady img/s from CUDA events.
+            each kernel of the path launched (the mma input stage, never
+            the CUDA-core one); outputs must be finite with the stated
+            shapes, and a small fp32 batch must agree with the same step
+            on the CPU (through the CUDA-core input stage). Steady img/s
+            from CUDA events.
 5. server   the serve CLI's build_server on 127.0.0.1 (--deployment
             --batch 64 --device cuda, random weights): /healthz, a few
             canvases through the dispatcher queue, /stats, shutdown.
@@ -36,7 +41,7 @@ Phases, each printing JSON lines on stdout:
             (stable argsort) backend's on the card, with exactly
             floor(0.75 n) zeros per layer (global: of all N). The written
             .weights are reloaded and served at batch 64 as in phase 4,
-            through the input-stage kernel.
+            through the mma input-stage kernel.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -64,7 +69,9 @@ SEED = 0
 # cores' float32 rate, the data sheet's nearest figure for 32-bit ALU work
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
-SERVING_KERNELS = ("input_stage",)
+SERVING_KERNELS = ("input_stage_mma",)
+# the fp32 (BITMATCH) route's input stage, never launched while serving
+FP32_INPUT_STAGE = "input_stage"
 # launches of one magnitude prune: 31 bisection rounds + the n_below count
 PRUNE_LAUNCHES = {"topk_count_le": 32, "topk_tie_counts": 1,
                   "topk_apply": 1}
@@ -143,7 +150,9 @@ def phase_build(kernels):
 
 
 def input_stage_case(torch, c_out: int, dtype, gen):
-    """Kernel vs plain version at the main path's input-stage shape."""
+    """Kernel vs plain version at the main path's input-stage shape: bf16
+    on the tensor-core kernel (the CUDA-core kernel's bf16 time beside it
+    as ``prev_ms``), fp32 on the CUDA-core kernel."""
     import torch.nn.functional as F
     from modelcompression_tpu_torch.ops import input_stage as tis
     dev = torch.device("cuda")
@@ -152,7 +161,17 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     w = (torch.randn((c_out, 3, 3, 3), generator=gen, device=dev) * 0.2) \
         .to(dtype)
     b = torch.randn((c_out,), generator=gen, device=dev) * 0.5
-    got = tis.fused_conv1_pool_cuda(x, w, b, dtype)
+    bf16 = dtype == torch.bfloat16
+
+    def kernel():
+        if bf16:
+            return tis.fused_conv1_pool_mma(x, w, b)
+        return tis.fused_conv1_pool_cuda(x, w, b, dtype)
+
+    def prev():
+        return tis.fused_conv1_pool_cuda(x, w, b, dtype)
+
+    got = kernel()
     want = tis.fused_conv1_pool_plain(x, w, b, dtype)
     torch.cuda.synchronize()
     check(got.shape == want.shape == (BATCH, NET // 2, NET // 2, c_out),
@@ -163,6 +182,13 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
     check(err <= tol, f"input_stage C={c_out} {dtype}: max abs err {err} "
           f"> tolerance {tol}")
+    extra = {}
+    if bf16:
+        prev_err = (prev().float() - want.float()).abs().max().item()
+        check(prev_err <= tol, f"CUDA-core input_stage C={c_out} bf16: max "
+              f"abs err {prev_err} > tolerance {tol}")
+        extra = {"prev_max_abs_err": prev_err,
+                 "prev_ms": time_ms(torch, prev, iters=20)}
 
     x_nchw = x.permute(0, 3, 1, 2)  # channels-last storage
     w_cl = w.contiguous(memory_format=torch.channels_last)
@@ -172,8 +198,7 @@ def input_stage_case(torch, c_out: int, dtype, gen):
         return F.max_pool2d(F.leaky_relu(F.conv2d(x_nchw, w_cl, b_lib,
                                                   padding=1), 0.1), 2)
 
-    ms = time_ms(torch, lambda: tis.fused_conv1_pool_cuda(x, w, b, dtype),
-                 iters=20)
+    ms = time_ms(torch, kernel, iters=20)
     plain_ms = time_ms(torch, lambda: tis.fused_conv1_pool_plain(
         x, w, b, dtype), iters=5)
     library_ms = time_ms(torch, library, iters=20)
@@ -181,9 +206,10 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     n_bytes = (x.numel() + w.numel() + got.numel()) * elt + b.numel() * 4
     n_ops = 2 * 27 * c_out * BATCH * NET * NET  # 4 phases x 27 taps x C
     name = str(dtype).split(".")[1]
-    return {"c_out": c_out, "dtype": name, "max_abs_err": err,
-            "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+    return {"c_out": c_out, "dtype": name,
+            "kernel": "input_stage_mma" if bf16 else "input_stage",
+            "max_abs_err": err, "tolerance": tol, "ms": ms, **extra,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             **bound(n_bytes, n_ops, PEAK_OPS_PER_S[name])}
 
 
@@ -196,8 +222,7 @@ def phase_kernels(torch):
         for dtype in (torch.bfloat16, torch.float32):
             r = input_stage_case(torch, c_out, dtype, gen)
             cases[(c_out, r["dtype"])] = r
-            emit({"phase": "kernels", "ok": True, "kernel": "input_stage",
-                  **r})
+            emit({"phase": "kernels", "ok": True, **r})
     return cases
 
 
@@ -339,11 +364,12 @@ def _models(torch):
     return [("unpruned", spec, params), ("pruned75", pspec, pparams)]
 
 
-def _agrees_with_cpu(torch, spec, params):
+def _agrees_with_cpu(torch, kernels, spec, params):
     """The card against the CPU on 2 frames, in two halves:
 
-    * letterbox + forward (input-stage kernel included) in fp32 with TF32
-      off: the raw maps must agree to summation order (max rel 1e-4);
+    * letterbox + forward (the CUDA-core fp32 input-stage kernel included,
+      its launches counted) in fp32 with TF32 off: the raw maps must agree
+      to summation order (max rel 1e-4);
     * NMS + pixel mapping on the same decoded candidates: must be EQUAL
       (IEEE elementwise ops and a stable sort on both devices). The halves
       are split because random weights put every candidate above conf and
@@ -364,12 +390,17 @@ def _agrees_with_cpu(torch, spec, params):
     folded = fold_batchnorm(params, spec)
     BITMATCH.apply_backend_flags()
     raw = {}
+    reset_counts(kernels)
     with torch.inference_mode():
         for dev in ("cpu", "cuda"):
             x = letterbox_device(torch.as_tensor(frames, device=dev),
                                  NET, NET)
             raw[dev] = forward_folded(params_to(folded, dev), x, spec,
                                       BITMATCH, fuse_input_stage=True).cpu()
+    counts = read_counts(kernels)
+    check(counts[FP32_INPUT_STAGE] >= 1 and counts["input_stage_mma"] == 0,
+          f"fp32 forward: input-stage launches {counts}")
+    with torch.inference_mode():
         rel = ((raw["cuda"] - raw["cpu"]).abs().max()
                / raw["cpu"].abs().max()).item()
         check(rel <= 1e-4, f"fp32 raw map card vs CPU: max rel {rel} > 1e-4")
@@ -389,7 +420,8 @@ def _agrees_with_cpu(torch, spec, params):
         check(torch.equal(a, b), "NMS on the card differs from the CPU on "
               "the same candidates")
     return {"raw_max_rel": rel, "nms_equal": True,
-            "valid_detections": int(post["cpu"][2].sum().item())}
+            "valid_detections": int(post["cpu"][2].sum().item()),
+            "launches": counts}
 
 
 def drive_serving(torch, kernels, spec, params, label):
@@ -420,6 +452,8 @@ def drive_serving(torch, kernels, spec, params, label):
     for name in SERVING_KERNELS:
         check(counts[name] >= 1, f"{label}: kernel {name} launched "
               f"{counts[name]} times on the serving path")
+    check(counts[FP32_INPUT_STAGE] == 0, f"{label}: the fp32 input stage "
+          f"launched {counts[FP32_INPUT_STAGE]} times on the bf16 path")
     c, k = spec.classes, cfg.max_detections
     shapes = [(BATCH, c, k, 4), (BATCH, c, k), (BATCH, c, k),
               (BATCH, c), (BATCH,)]
@@ -438,11 +472,14 @@ def drive_serving(torch, kernels, spec, params, label):
 
 
 def phase_main(torch, kernels, card):
+    """Serve both models; returns each model's launch counts on the
+    serving path and on the fp32 (BITMATCH) card-vs-CPU forward."""
     launches = {}
     for label, spec, params in _models(torch):
         r = drive_serving(torch, kernels, spec, params, label)
-        r["cpu_reference"] = _agrees_with_cpu(torch, spec, params)
+        r["cpu_reference"] = _agrees_with_cpu(torch, kernels, spec, params)
         launches[label] = r["launches"]
+        launches[f"{label}_fp32"] = r["cpu_reference"]["launches"]
         emit({"phase": "main", "ok": True, "model": label, "card": card,
               **r})
     return launches
@@ -483,6 +520,8 @@ def phase_server(torch, kernels, card):
         for name in SERVING_KERNELS:
             check(counts[name] >= 1, f"server: kernel {name} launched "
                   f"{counts[name]} times")
+        check(counts[FP32_INPUT_STAGE] == 0, "server: the fp32 input stage "
+              f"launched {counts[FP32_INPUT_STAGE]} times")
         with urllib.request.urlopen(base + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
         check(stats["images"] >= n_req, f"/stats served {stats['images']}")
@@ -578,27 +617,35 @@ TOPK_ENTRIES = (
 
 def kernel_entries(cases, launches, topk, prune_launches):
     """The ``kernels`` line: one entry per main-path case of each kernel.
-    The input stage runs bf16 at C=32 in the unpruned model and at C=8 in
-    the pruned one; the top-k kernels run per layer (S=24, the magnitude
-    prune) and globally (S=2) on the random weights. ``launches`` is that
-    path's count. No single PyTorch call computes a top-k kernel's own
+    The tensor-core input stage runs bf16 at C=32 in the unpruned model and
+    at C=8 in the pruned one, its entries carrying the CUDA-core kernel's
+    bf16 time as ``prev_ms``; the CUDA-core input stage runs fp32 on the
+    card-vs-CPU (BITMATCH) forward of the unpruned model; the top-k kernels
+    run per layer (S=24, the magnitude prune) and globally (S=2) on the
+    random weights. ``launches`` is that path's count. No single PyTorch call computes a top-k kernel's own
     function. The count entries carry, beside one launch's ``ms``, the
     whole 31-launch bisection's ``bisection_ms``; in global mode their
     ``library_ms`` is torch.kthvalue on the |w| vector, the call that finds
     the same k-th |w|, so it compares with ``bisection_ms`` (marked by
     ``library_computes``)."""
     entries = []
-    for c_out, name, model in ((32, "input_stage", "unpruned"),
-                               (8, "input_stage[C=8]", "pruned75")):
-        r = cases[(c_out, "bfloat16")]
-        entries.append({
+    for c_out, dtype, name, model in (
+            (32, "bfloat16", "input_stage_mma", "unpruned"),
+            (8, "bfloat16", "input_stage_mma[C=8]", "pruned75"),
+            (32, "float32", "input_stage[fp32]", "unpruned_fp32")):
+        r = cases[(c_out, dtype)]
+        source = r["kernel"]
+        entry = {
             "name": name, "route": "cuda",
-            "source": "modelcompression_tpu_torch/csrc/input_stage.cu",
+            "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
             "replaces": "modelcompression_tpu/ops/input_stage.py:159",
-            "launches": launches[model]["input_stage"],
+            "launches": launches[model][source],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if "prev_ms" in r:
+            entry["prev_ms"] = r["prev_ms"]
+        entries.append(entry)
     for s, mode in ((24, "magnitude"), (2, "global")):
         r = topk[(s, "random")]
         for key, source, body in TOPK_ENTRIES:

@@ -14,7 +14,7 @@ frames letterboxed on the device. Prints one JSON line per model:
 * ``profile``: a ``torch.profiler`` window over 3 steady steps: device
   time by kernel (top 12), device operations per step, the device's busy
   and idle share of the wall time, and the input-stage kernel's share of
-  device time.
+  device time (the tensor-core kernel on this bf16 path).
 
 Needs a CUDA device; fails without one.
 """
@@ -31,6 +31,9 @@ from modelcompression_tpu_torch.cli._profiling import (
 )
 
 BATCH, SRC_H, SRC_W, NET = 64, 384, 512, 416
+# device kernel names of the input stage: the tensor-core (bf16) and the
+# CUDA-core (fp32) kernel
+INPUT_STAGE_KERNELS = ("conv1_pool_mma_kernel", "conv1_pool_kernel")
 
 
 def _profile(fn):
@@ -38,7 +41,8 @@ def _profile(fn):
     the device time."""
     summary, rows = profile_window(fn)
     busy_us = sum(r[1] for r in rows)
-    stage = sum(r[1] for r in rows if "conv1_pool_kernel" in r[0])
+    stage = sum(r[1] for r in rows if any(
+        name in r[0] for name in INPUT_STAGE_KERNELS))
     summary["input_stage_share_of_device"] = \
         stage / busy_us if busy_us else 0.0
     return summary

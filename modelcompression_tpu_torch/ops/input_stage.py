@@ -1,18 +1,26 @@
 """Fused input stage: conv1 (3x3, stride 1, pad 1, C_in=3) + bias + leaky
 + maxpool (2x2, stride 2) as one op.
 
-Port of ``modelcompression_tpu/ops/input_stage.py``. Three functions with
+Port of ``modelcompression_tpu/ops/input_stage.py``. Four functions with
 one semantics:
 
 * ``fused_conv1_pool_plain`` — plain PyTorch, the port of the JAX twin
   ``fused_conv1_pool_xla``: one matmul over the space-to-depth grid
   (K = 9 taps x 12 s2d channels = 108, N = 4*C phase columns), then a max
   over the four pool phases, bias and leaky in fp32.
-* ``fused_conv1_pool_cuda`` — the hand-written Hopper kernel
-  ``csrc/input_stage.cu`` (replaces the TPU kernel ``_kernel`` of the JAX
-  module), bound with ctypes. Counts its launches in ``LAUNCHES``.
+* ``fused_conv1_pool_mma`` — the bf16 route's hand-written Hopper kernel
+  ``csrc/input_stage_mma.cu``, on the tensor cores (``mma.sync``) in the
+  direct GEMM form: rows (pooled pixel, phase), K = the 27 taps padded to
+  32 (``pack_mma_weights``), N = C. Replaces the TPU kernel ``_kernel`` of
+  the JAX module on the serving path.
+* ``fused_conv1_pool_cuda`` — the CUDA-core kernel ``csrc/input_stage.cu``
+  (bf16 or fp32), the fp32 route's kernel.
 * ``fused_conv1_pool`` — the dispatcher: the plain version for CPU
-  tensors, the kernel for CUDA tensors (never a fallback between them).
+  tensors; for CUDA tensors the mma kernel in bf16 and the CUDA-core
+  kernel in fp32 (never a fallback between them).
+
+Both kernels are bound with ctypes and count their launches in
+``LAUNCHES``.
 
 Exactness: maxpool(leaky(conv(x) + b)) == leaky(max_phases(conv) + b),
 since leaky is monotone increasing and b is constant per channel.
@@ -122,6 +130,35 @@ def fused_conv1_pool_plain(x: torch.Tensor, w_oihw: torch.Tensor,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MMA_TAPS = 32  # K of the mma kernel: the 27 taps padded to two k16 steps
+
+
+def pack_mma_weights(w_oihw: torch.Tensor) -> torch.Tensor:
+    """(C, 3, 3, 3) OIHW -> (N_pad, 32) in w's dtype (the kernel takes
+    bf16), N_pad = C rounded up to a multiple of 8: row n holds output
+    channel n's taps at k = (ky*3 + kx)*3 + ci, zero for k >= 27 and for
+    n >= C."""
+    c_out = w_oihw.shape[0]
+    n_pad = -(-c_out // 8) * 8
+    wk = w_oihw.permute(0, 2, 3, 1).reshape(c_out, 27)
+    return F.pad(wk, (0, MMA_TAPS - 27, 0, n_pad - c_out)).contiguous()
+
+
+def _check_args(x: torch.Tensor, w_oihw: torch.Tensor,
+                bias: torch.Tensor) -> None:
+    """Raise on shapes the input-stage kernels do not take."""
+    if x.dim() != 4 or x.shape[3] != 3:
+        raise ValueError(f"x must be (B, H, W, 3), got {tuple(x.shape)}")
+    h, w = x.shape[1], x.shape[2]
+    if h % 2 or w % 2:
+        raise ValueError(f"H and W must be even, got {h}x{w}")
+    c_out = w_oihw.shape[0]
+    if tuple(w_oihw.shape) != (c_out, 3, 3, 3) or not 1 <= c_out <= \
+            MAX_FILTERS:
+        raise ValueError(f"w must be (C, 3, 3, 3) with C <= {MAX_FILTERS}, "
+                         f"got {tuple(w_oihw.shape)}")
+    if tuple(bias.shape) != (c_out,):
+        raise ValueError(f"bias must be ({c_out},), got {tuple(bias.shape)}")
 
 
 def _kernel_lib():
@@ -147,21 +184,12 @@ def fused_conv1_pool_cuda(x: torch.Tensor, w_oihw: torch.Tensor,
     if compute_dtype not in _DTYPE_CODE:
         raise ValueError(f"input-stage kernel takes bf16 or fp32, not "
                          f"{compute_dtype}")
+    _check_args(x, w_oihw, bias)
     if x.device.type != "cuda":
         raise ValueError(f"input-stage kernel needs a CUDA tensor, got "
                          f"{x.device}")
-    if x.dim() != 4 or x.shape[3] != 3:
-        raise ValueError(f"x must be (B, H, W, 3), got {tuple(x.shape)}")
     b, h, w, _ = x.shape
     c_out = w_oihw.shape[0]
-    if h % 2 or w % 2:
-        raise ValueError(f"H and W must be even, got {h}x{w}")
-    if tuple(w_oihw.shape) != (c_out, 3, 3, 3) or not 1 <= c_out <= \
-            MAX_FILTERS:
-        raise ValueError(f"w must be (C, 3, 3, 3) with C <= {MAX_FILTERS}, "
-                         f"got {tuple(w_oihw.shape)}")
-    if tuple(bias.shape) != (c_out,):
-        raise ValueError(f"bias must be ({c_out},), got {tuple(bias.shape)}")
     x = x.to(compute_dtype).contiguous()
     wk = w_oihw.to(device=x.device, dtype=compute_dtype).contiguous()
     bk = bias.to(device=x.device, dtype=torch.float32).contiguous()
@@ -182,12 +210,63 @@ def fused_conv1_pool_cuda(x: torch.Tensor, w_oihw: torch.Tensor,
 fused_conv1_pool_cuda.LAUNCHES = 0
 
 
+def _mma_lib():
+    from modelcompression_tpu_torch.ops import _build
+    fn = _build.load("input_stage_mma").mc_input_stage_mma
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_conv1_pool_mma(x: torch.Tensor, w_oihw: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/input_stage_mma.cu`` on PyTorch's current stream.
+
+    x (B, H, W, 3) bf16 on a CUDA device, H and W even; w (C, 3, 3, 3)
+    OIHW with C <= 32 (rounded to bf16 and packed by ``pack_mma_weights``);
+    bias (C,) (fp32 in the kernel). Returns (B, H/2, W/2, C) bf16. Raises
+    on anything the kernel does not take, and when the launch is
+    refused."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the mma input-stage kernel takes bf16 x, not "
+                         f"{x.dtype}")
+    _check_args(x, w_oihw, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"input-stage kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    b, h, w, _ = x.shape
+    c_out = w_oihw.shape[0]
+    x = x.contiguous()
+    wp = pack_mma_weights(w_oihw.to(device=x.device, dtype=torch.bfloat16))
+    bk = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    out = torch.empty((b, h // 2, w // 2, c_out), dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _mma_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), wp.data_ptr(), bk.data_ptr(), out.data_ptr(),
+                 b, h, w, c_out, stream)
+    if err != 0:
+        raise RuntimeError(f"mma input-stage kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_conv1_pool_mma.LAUNCHES += 1
+    return out
+
+
+fused_conv1_pool_mma.LAUNCHES = 0
+
+
 def fused_conv1_pool(x: torch.Tensor, w_oihw: torch.Tensor,
                      bias: torch.Tensor,
                      compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Dispatcher: the plain version only for CPU tensors; for CUDA
-    tensors the kernel launches or raises."""
+    tensors a kernel launches or raises: bf16 on the tensor cores
+    (``fused_conv1_pool_mma``), fp32 on the CUDA cores
+    (``fused_conv1_pool_cuda``)."""
     if x.device.type == "cuda":
+        if compute_dtype == torch.bfloat16:
+            return fused_conv1_pool_mma(x.to(compute_dtype), w_oihw, bias)
         return fused_conv1_pool_cuda(x, w_oihw, bias, compute_dtype)
     if x.device.type == "cpu":
         return fused_conv1_pool_plain(x, w_oihw, bias, compute_dtype)

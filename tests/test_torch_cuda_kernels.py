@@ -46,10 +46,13 @@ def test_input_stage_kernel_matches_plain(cuda_device, c_out, h, w, dtype):
     output (2**-7 relative), since a summation-order difference can move
     the single final rounding by one ulp."""
     x, wt, bt = _case(c_out, h, w, 3, c_out, cuda_device)
-    n0 = tis.fused_conv1_pool_cuda.LAUNCHES
+    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_cuda)
+    n0 = [k.LAUNCHES for k in wrappers]
     got = tis.fused_conv1_pool(x, wt, bt, dtype)
     torch.cuda.synchronize()
-    assert tis.fused_conv1_pool_cuda.LAUNCHES == n0 + 1
+    # bf16 runs on the tensor cores, fp32 on the CUDA cores
+    want_launches = [1, 0] if dtype == torch.bfloat16 else [0, 1]
+    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == want_launches
     want = tis.fused_conv1_pool_plain(x, wt, bt, dtype)
     assert got.dtype == want.dtype == dtype
     assert got.shape == want.shape == (3, h // 2, w // 2, c_out)
@@ -57,6 +60,64 @@ def test_input_stage_kernel_matches_plain(cuda_device, c_out, h, w, dtype):
     scale = max(1.0, want.float().abs().max().item())
     assert err <= (FP32_ATOL if dtype == torch.float32
                    else 2.0 ** -7 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mma", "cuda"])
+@pytest.mark.parametrize("c_out, h, w", [(32, 64, 96), (8, 64, 96),
+                                         (13, 34, 70), (1, 2, 2)])
+def test_input_stage_bf16_kernels_match_plain(cuda_device, c_out, h, w,
+                                              kernel):
+    """Each bf16 kernel called directly (the mma kernel: the serving
+    route; the CUDA-core kernel: the yardstick) against the plain version,
+    within one bf16 ulp of the largest output."""
+    x, wt, bt = _case(c_out, h, w, 3, 100 + c_out, cuda_device)
+    x = x.to(torch.bfloat16)
+    if kernel == "mma":
+        got = tis.fused_conv1_pool_mma(x, wt, bt)
+    else:
+        got = tis.fused_conv1_pool_cuda(x, wt, bt, torch.bfloat16)
+    torch.cuda.synchronize()
+    want = tis.fused_conv1_pool_plain(x, wt, bt, torch.bfloat16)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (3, h // 2, w // 2, c_out)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_out", [32, 13])
+def test_input_stage_mma_one_hot_taps(cuda_device, c_out):
+    """For each of the 27 taps, a weight of 1 at that tap of one channel
+    (bias 0) gives that channel the 2x2-max-pooled, leaky'd input channel
+    shifted by the tap, and every other channel 0. A slip in the mma
+    fragment layout or the halo offsets names the wrong tap."""
+    b, h, w = 2, 34, 70  # ragged tiles in both directions
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, h, w, 3))
+                         .astype(np.float32)).to(cuda_device)
+    x = x.to(torch.bfloat16)
+    xpad = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    bias = torch.zeros(c_out, device=cuda_device)
+    for ky in range(3):
+        for kx in range(3):
+            for ci in range(3):
+                k = (ky * 3 + kx) * 3 + ci
+                c = k % c_out
+                wt = torch.zeros((c_out, 3, 3, 3), device=cuda_device)
+                wt[c, ci, ky, kx] = 1.0
+                got = tis.fused_conv1_pool_mma(x, wt, bias).float()
+                shifted = xpad[:, ky:ky + h, kx:kx + w, ci]
+                y = shifted.reshape(b, h // 2, 2, w // 2, 2).amax((2, 4))
+                y = torch.where(y > 0, y, 0.1 * y).to(torch.bfloat16)
+                err = (got[..., c] - y.float()).abs().max().item()
+                assert err <= 2.0 ** -7, f"tap {k} (ky={ky}, kx={kx}, " \
+                    f"ci={ci}) -> channel {c}: max abs err {err}"
+                others = torch.ones(c_out, dtype=torch.bool,
+                                    device=cuda_device)
+                others[c] = False
+                assert not got[..., others].any(), \
+                    f"tap {k} leaked into another channel"
 
 
 @pytest.mark.cuda

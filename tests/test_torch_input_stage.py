@@ -9,7 +9,9 @@ in different orders, so atol 1e-5 on outputs of order 1. bf16 — the
 ``_assert_close`` tolerance of tests/test_input_stage.py (atol 3% of the
 largest magnitude, rtol 5%): both sides round the result to bf16 once,
 and a summation-order difference can move that rounding by one bf16 ulp.
-The CUDA kernel is held against the plain version on the card in
+The direct GEMM form of the tensor-core kernel (``pack_mma_weights`` and
+its im2col, rebuilt here) is held against ``fused_conv1_pool_xla`` too.
+The CUDA kernels are held against the plain version on the card in
 tests/test_torch_cuda_kernels.py."""
 
 import types
@@ -134,22 +136,50 @@ def test_dispatcher_uses_plain_on_cpu(monkeypatch):
                                                      torch.float32))
 
 
-def test_dispatcher_never_sends_cuda_tensor_to_plain(monkeypatch):
-    """A CUDA tensor goes to the kernel wrapper or raises; the plain
-    version is never reached (no fallback)."""
+def _fake_cuda_tensor():
+    fake = types.SimpleNamespace(device=torch.device("cuda", 0))
+    fake.to = lambda dtype: fake
+    return fake
+
+
+def _spy_kernels(monkeypatch):
+    """Replace the plain version (must not be reached) and both kernel
+    wrappers (record which one was called)."""
     calls = []
 
     def plain(*a, **k):
         raise AssertionError("plain version reached with a CUDA tensor")
 
-    def kernel(x, w, b, compute_dtype):
-        calls.append(compute_dtype)
-        return "kernel-output"
+    def mma(x, w, b):
+        calls.append("mma")
+        return "mma-output"
+
+    def cuda(x, w, b, compute_dtype):
+        calls.append(("cuda", compute_dtype))
+        return "cuda-output"
     monkeypatch.setattr(tis, "fused_conv1_pool_plain", plain)
-    monkeypatch.setattr(tis, "fused_conv1_pool_cuda", kernel)
-    fake = types.SimpleNamespace(device=torch.device("cuda", 0))
-    assert tis.fused_conv1_pool(fake, None, None) == "kernel-output"
-    assert calls == [torch.bfloat16]
+    monkeypatch.setattr(tis, "fused_conv1_pool_mma", mma)
+    monkeypatch.setattr(tis, "fused_conv1_pool_cuda", cuda)
+    return calls
+
+
+def test_dispatcher_never_sends_cuda_tensor_to_plain(monkeypatch):
+    """A CUDA tensor goes to a kernel wrapper or raises; the plain
+    version is never reached (no fallback). The default (bf16) goes to
+    the tensor-core kernel."""
+    calls = _spy_kernels(monkeypatch)
+    assert tis.fused_conv1_pool(_fake_cuda_tensor(), None, None) == \
+        "mma-output"
+    assert calls == ["mma"]
+
+
+@pytest.mark.parametrize("dtype, want", [
+    (torch.bfloat16, "mma"), (torch.float32, ("cuda", torch.float32))])
+def test_dispatcher_routes_cuda_tensor_by_dtype(monkeypatch, dtype, want):
+    """bf16 to the mma kernel, fp32 to the CUDA-core kernel, each once."""
+    calls = _spy_kernels(monkeypatch)
+    tis.fused_conv1_pool(_fake_cuda_tensor(), None, None, dtype)
+    assert calls == [want]
 
 
 def test_dispatcher_rejects_other_devices():
@@ -167,6 +197,88 @@ def test_kernel_wrapper_rejects_cpu_tensor(shape, w_shape, msg):
         tis.fused_conv1_pool_cuda(torch.zeros(shape), torch.zeros(w_shape),
                                   torch.zeros(w_shape[0]))
     assert tis.fused_conv1_pool_cuda.LAUNCHES == before
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("x, w_shape, msg", [
+    (_bf16((1, 4, 4, 3)), (8, 3, 3, 3), "CUDA tensor"),
+    (torch.zeros((1, 4, 4, 3)), (8, 3, 3, 3), "bf16"),
+    (_bf16((1, 4, 4, 3)), (33, 3, 3, 3), "C <= 32"),
+    (_bf16((1, 5, 4, 3)), (8, 3, 3, 3), "even"),
+    (_bf16((1, 4, 7, 3)), (8, 3, 3, 3), "even"),
+])
+def test_mma_wrapper_rejects(x, w_shape, msg):
+    """A CPU tensor, fp32, C = 33 and odd H or W raise before any launch."""
+    before = tis.fused_conv1_pool_mma.LAUNCHES
+    with pytest.raises(ValueError, match=msg):
+        tis.fused_conv1_pool_mma(x, torch.zeros(w_shape),
+                                 torch.zeros(w_shape[0]))
+    assert tis.fused_conv1_pool_mma.LAUNCHES == before
+
+
+@pytest.mark.parametrize("c_out", [1, 8, 13, 32])
+def test_pack_mma_weights_layout(c_out):
+    _, w, _ = _rand_case(c_out, seed=c_out + 2)
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    wp = tis.pack_mma_weights(w_oihw.to(torch.bfloat16))
+    n_pad = -(-c_out // 8) * 8
+    assert wp.shape == (n_pad, 32) and wp.dtype == torch.bfloat16
+    assert wp.is_contiguous()
+    assert not wp[c_out:].any() and not wp[:, 27:].any()
+    want = w_oihw.to(torch.bfloat16)
+    for ky in range(3):
+        for kx in range(3):
+            for ci in range(3):
+                k = (ky * 3 + kx) * 3 + ci
+                assert torch.equal(wp[:c_out, k], want[:, ci, ky, kx])
+
+
+def _direct_form(x, w_oihw, bias, dtype):
+    """The mma kernel's GEMM on the CPU: rows (pooled pixel, phase), K the
+    taps k = (ky*3 + kx)*3 + ci padded to 32 (``pack_mma_weights``), N the
+    channels padded to a multiple of 8; then the phase max, bias and leaky
+    in fp32 and one rounding to ``dtype``."""
+    b, h, w, _ = x.shape
+    h2, w2 = h // 2, w // 2
+    c_out = w_oihw.shape[0]
+    xp = torch.nn.functional.pad(torch.from_numpy(x).to(dtype).float(),
+                                 (0, 0, 1, 1, 1, 1))
+    phases = []
+    for py in range(2):
+        for px in range(2):
+            taps = torch.stack(
+                [xp[:, py + ky:py + ky + h:2, px + kx:px + kx + w:2, :]
+                 for ky in range(3) for kx in range(3)], dim=-2)
+            taps = taps.reshape(b, h2, w2, 27)
+            phases.append(torch.nn.functional.pad(taps, (0, 5)))
+    a = torch.stack(phases, dim=3)                    # (B, H2, W2, 4, 32)
+    wp = tis.pack_mma_weights(w_oihw.to(dtype)).float()  # (N_pad, 32)
+    r = torch.matmul(a, wp.t()).amax(dim=3)[..., :c_out]
+    y = r + torch.from_numpy(bias)
+    y = torch.where(y > 0, y, 0.1 * y)
+    return y.to(dtype).float().numpy()
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("c_out", [1, 8, 13, 32])
+def test_direct_form_matches_jax_xla_twin(c_out, dt):
+    """The mma kernel's layout (packed weights, direct-form im2col, phase
+    max) computes ``fused_conv1_pool_xla``. fp32: summation order only,
+    atol 1e-5. bf16 operands: one bf16 ulp of the largest output (2**-7
+    relative), since both round the fp32 result once."""
+    x, w, b = _rand_case(c_out, h=18, w=34, seed=20 + c_out)
+    tdt, jdt = _DTYPES[dt]
+    want = np.asarray(jis.fused_conv1_pool_xla(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), compute_dtype=jdt),
+        np.float32)
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    got = _direct_form(x, w_oihw, b, tdt)
+    assert got.shape == want.shape == (2, 9, 17, c_out)
+    tol = FP32_ATOL if dt == "fp32" else 2.0 ** -7 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
 
 
 def test_fused_forward_matches_unfused_fast():
