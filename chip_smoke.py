@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and magnitude-prune paths on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's serving, magnitude-prune and evaluation paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -42,6 +42,23 @@ Phases, each printing JSON lines on stdout:
             floor(0.75 n) zeros per layer (global: of all N). The written
             .weights are reloaded and served at batch 64 as in phase 4,
             through the mma input-stage kernel.
+7. eval     with ``import cv2`` made to fail for the whole phase: a
+            160-image VOC fixture (VOC's 20 class names, 416x416 PNGs from
+            the port's own writer, so neither decode nor letterbox needs
+            cv2: two full batches of 64 and a ragged one of 32). The
+            eval CLI on full-width YOLOv2-VOC (phase 6's random .weights)
+            at --batch 64 --device cuda, FAST: exit 0, a summary, the mma
+            input stage launched once per batch (3) and the CUDA-core one
+            never. ``evaluate``'s first-batch detections must equal the
+            eval step's on the same 64 canvases. Then --precision bitmatch
+            on the first 64 images (no input-stage launch), --recall (exit
+            0), and prune --mode magnitude --sweep 0.5,0.75 --data at
+            --batch 64 (count / tie-count / apply launched 64 / 2 / 2
+            times; a finite mAP@50 per point). Reports steady eval img/s
+            (host PNG decode included), the mAP (random weights: a smoke
+            value, not an accuracy figure), each path's launches by kernel
+            width (C, S), and the host decode time of one 416x416 image
+            re-encoded with each PNG row filter.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -50,10 +67,15 @@ directory without the port's package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -75,6 +97,9 @@ FP32_INPUT_STAGE = "input_stage"
 # launches of one magnitude prune: 31 bisection rounds + the n_below count
 PRUNE_LAUNCHES = {"topk_count_le": 32, "topk_tie_counts": 1,
                   "topk_apply": 1}
+# the eval fixture: two full batches and a ragged one
+EVAL_IMAGES = 160
+SWEEP_POINTS = (0.5, 0.75)
 
 
 class SmokeFailure(Exception):
@@ -128,10 +153,17 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
 def reset_counts(kernels) -> None:
     for _, wrapper in kernels:
         wrapper.LAUNCHES = 0
+        wrapper.LAUNCHES_AT.clear()
 
 
 def read_counts(kernels) -> dict:
     return {name: wrapper.LAUNCHES for name, wrapper in kernels}
+
+
+def read_widths(kernels) -> dict:
+    """Each kernel's launches by its width: C for the input stages, S for
+    the top-k kernels (the wrappers' ``LAUNCHES_AT``)."""
+    return {name: dict(wrapper.LAUNCHES_AT) for name, wrapper in kernels}
 
 
 def phase_build(kernels):
@@ -535,12 +567,11 @@ def phase_server(torch, kernels, card):
         thread.join(timeout=30)
 
 
-def phase_prune(torch, kernels, card):
+def phase_prune(torch, kernels, card, tmp):
     """The prune CLI on full-width YOLOv2-VOC in both magnitude modes, its
-    launches and masks checked, then the pruned weights served. Returns
-    each mode's launch counts."""
-    import tempfile
-
+    launches and masks checked, then the pruned weights served. Writes the
+    random weights to ``tmp``; returns each mode's launch counts, the same
+    by width, and the weights' path."""
     from modelcompression_tpu_torch.cli import prune
     from modelcompression_tpu_torch.compress import criteria
     from modelcompression_tpu_torch.models import (
@@ -552,60 +583,276 @@ def phase_prune(torch, kernels, card):
     spec = load_cfg(cfg)
     params = init_params(spec, seed=SEED)
     dev_params = params_to(params, "cuda")
-    launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "yolov2-voc.weights")
-        save_weights(src, spec, params)
-        for mode, per_layer in (("magnitude", True), ("global", False)):
-            out = os.path.join(tmp, f"{mode}.weights")
-            reset_counts(kernels)
-            t0 = time.perf_counter()
-            rc = prune.main(["--cfg", cfg, "--weights", src, "--mode", mode,
-                             "--sparsity", str(SPARSITY), "--device", "cuda",
-                             "--out", out])
-            torch.cuda.synchronize()
-            cli_s = time.perf_counter() - t0
-            counts = read_counts(kernels)
-            check(rc == 0, f"prune --mode {mode} exited {rc}")
-            want = {name: PRUNE_LAUNCHES.get(name, 0) for name, _ in kernels}
-            check(counts == want, f"prune --mode {mode}: launches {counts}, "
-                  f"expected {want}")
-            launches[mode] = counts
-            name = "perlayer" if per_layer else "global"
-            fn = getattr(ct, f"magnitude_masks_{name}")
-            ref_fn = getattr(criteria, f"magnitude_masks_{name}")
-            ref = ref_fn(dev_params, spec, SPARSITY)
-            masks = fn(dev_params, spec, SPARSITY)
-            written, _ = load_weights(out, spec)
-            for key, m in ref.items():
-                w = written[key]["w"].to(m.device)
-                check(torch.equal(masks[key], m), f"{mode}: the mask of "
-                      f"{key} differs from the reference backend's")
-                # the written weights are the params times that mask
-                check(torch.equal(w[m], dev_params[key]["w"][m])
-                      and not w[~m].any(), f"{mode}: the written weights of "
-                      f"{key} are not the reference-masked params")
-            zeros = {key: int((~m).sum()) for key, m in ref.items()}
-            sizes = {key: m.numel() for key, m in ref.items()}
-            if per_layer:
-                check(all(zeros[key] == int(SPARSITY * sizes[key])
-                          for key in ref), f"{mode}: per-layer zero counts")
-            else:
-                total = sum(sizes.values())
-                check(sum(zeros.values()) == int(SPARSITY * total),
-                      f"{mode}: {sum(zeros.values())} zeros of {total}")
-            r = {"mode": mode, "sparsity": SPARSITY,
-                 "achieved": sum(zeros.values()) / sum(sizes.values()),
-                 "weights": sum(sizes.values()), "launches": counts,
-                 "cli_s": cli_s, "masks_equal_reference": True,
-                 "masks_ms": time_ms(torch, lambda: fn(
-                     dev_params, spec, SPARSITY), iters=3, warmup=1),
-                 "reference_masks_ms": time_ms(torch, lambda: ref_fn(
-                     dev_params, spec, SPARSITY), iters=2, warmup=1),
-                 "served": drive_serving(torch, kernels, spec, written,
-                                         f"prune {mode}")}
-            emit({"phase": "prune", "ok": True, "card": card, **r})
-    return launches
+    launches, widths = {}, {}
+    src = os.path.join(tmp, "yolov2-voc.weights")
+    save_weights(src, spec, params)
+    for mode, per_layer in (("magnitude", True), ("global", False)):
+        out = os.path.join(tmp, f"{mode}.weights")
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        rc = prune.main(["--cfg", cfg, "--weights", src, "--mode", mode,
+                         "--sparsity", str(SPARSITY), "--device", "cuda",
+                         "--out", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        widths[mode] = read_widths(kernels)
+        check(rc == 0, f"prune --mode {mode} exited {rc}")
+        want = {name: PRUNE_LAUNCHES.get(name, 0) for name, _ in kernels}
+        check(counts == want, f"prune --mode {mode}: launches {counts}, "
+              f"expected {want}")
+        launches[mode] = counts
+        name = "perlayer" if per_layer else "global"
+        fn = getattr(ct, f"magnitude_masks_{name}")
+        ref_fn = getattr(criteria, f"magnitude_masks_{name}")
+        ref = ref_fn(dev_params, spec, SPARSITY)
+        masks = fn(dev_params, spec, SPARSITY)
+        written, _ = load_weights(out, spec)
+        for key, m in ref.items():
+            w = written[key]["w"].to(m.device)
+            check(torch.equal(masks[key], m), f"{mode}: the mask of "
+                  f"{key} differs from the reference backend's")
+            # the written weights are the params times that mask
+            check(torch.equal(w[m], dev_params[key]["w"][m])
+                  and not w[~m].any(), f"{mode}: the written weights of "
+                  f"{key} are not the reference-masked params")
+        zeros = {key: int((~m).sum()) for key, m in ref.items()}
+        sizes = {key: m.numel() for key, m in ref.items()}
+        if per_layer:
+            check(all(zeros[key] == int(SPARSITY * sizes[key])
+                      for key in ref), f"{mode}: per-layer zero counts")
+        else:
+            total = sum(sizes.values())
+            check(sum(zeros.values()) == int(SPARSITY * total),
+                  f"{mode}: {sum(zeros.values())} zeros of {total}")
+        r = {"mode": mode, "sparsity": SPARSITY,
+             "achieved": sum(zeros.values()) / sum(sizes.values()),
+             "weights": sum(sizes.values()), "launches": counts,
+             "cli_s": cli_s, "masks_equal_reference": True,
+             "masks_ms": time_ms(torch, lambda: fn(
+                 dev_params, spec, SPARSITY), iters=3, warmup=1),
+             "reference_masks_ms": time_ms(torch, lambda: ref_fn(
+                 dev_params, spec, SPARSITY), iters=2, warmup=1),
+             "served": drive_serving(torch, kernels, spec, written,
+                                     f"prune {mode}")}
+        emit({"phase": "prune", "ok": True, "card": card, **r})
+    return launches, widths, src
+
+
+@contextlib.contextmanager
+def without_cv2():
+    """``import cv2`` raises ImportError inside, whether or not the machine
+    has cv2: the eval phase shows its path needs none."""
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def _run_cli(torch, kernels, main, argv, label):
+    """One CLI call with every launch count at 0 before it: (stdout,
+    launches, launches by width, seconds). Its output is echoed."""
+    reset_counts(kernels)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    check(rc == 0, f"{label} exited {rc}")
+    return out, read_counts(kernels), read_widths(kernels), seconds
+
+
+def _first_batch_equal(torch, kernels, spec, params, samples, names):
+    """``evaluate`` over the fixture, its first batch's detections against
+    the eval step's on the same 64 canvases (same device and process:
+    random-weight scores have near-ties, so only a same-device comparison
+    can ask for equality). Also times the step alone: the host time until
+    it returns (dispatch) and until its outputs are on the host."""
+    import numpy as np
+    from modelcompression_tpu_torch.evaluation import (
+        Detection, EvalConfig, evaluate, make_eval_step,
+    )
+    from modelcompression_tpu_torch.evaluation.pipeline import _prep_batch
+    from modelcompression_tpu_torch.models import fold_batchnorm, params_to
+    cfg = EvalConfig(batch_size=BATCH, device="cuda")
+    res = evaluate(params, spec, samples, names, cfg)
+    first = samples[:BATCH]
+    canvases = _prep_batch(first, NET, NET, True)
+    step = make_eval_step(spec, cfg)
+    folded = params_to(fold_batchnorm(params, spec), "cuda")
+    reset_counts(kernels)
+    outs = [t.cpu().numpy() for t in step(folded, *canvases)]
+    check(read_counts(kernels)["input_stage_mma"] == 1,
+          "the direct eval step did not launch the mma input stage")
+    boxes, scores, valid = outs[:3]
+    want = {c: [] for c in names}
+    for bi, s in enumerate(first):
+        for ci, c in enumerate(names):
+            for k in np.nonzero(valid[bi, ci])[0]:
+                want[c].append(Detection(s.image_id, float(scores[bi, ci, k]),
+                                         tuple(float(x)
+                                               for x in boxes[bi, ci, k])))
+    ids = {s.image_id for s in first}
+    got = {c: [d for d in ds if d.image_id in ids]
+           for c, ds in res.detections.items()}
+    n = sum(map(len, want.values()))
+    check(n > 0 and got == want, "evaluate's first batch differs from the "
+          f"eval step's ({sum(map(len, got.values()))} vs {n} detections)")
+    dev = [torch.as_tensor(a).to("cuda") for a in canvases]
+    dispatch, total = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = step(folded, *dev)
+        t1 = time.perf_counter()
+        [t.cpu() for t in o]
+        dispatch.append((t1 - t0) * 1e3)
+        total.append((time.perf_counter() - t0) * 1e3)
+    return {"first_batch_detections": n, "first_batch_equal": True,
+            "map50": res.map50, "img_per_s_steady": res.images_per_sec_steady,
+            "img_per_s_wall": res.images_per_sec,
+            "first_batch_s": res.first_batch_s,
+            "nms_overflow_frac": res.nms_overflow_frac,
+            "step_dispatch_ms": dispatch, "step_to_host_ms": total}
+
+
+def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
+    """The eval CLI, ``evaluate``, the recall audit and the prune sweep
+    with --data on the fixture (module docstring, phase 7). Returns each
+    path's launch counts by kernel width."""
+    from modelcompression_tpu_torch.cli import eval as eval_cli
+    import numpy as np
+    from modelcompression_tpu_torch.cli import prune
+    from modelcompression_tpu_torch.data import (
+        VOC_CLASSES, load_list_dataset, make_fake_voc, read_data_cfg,
+    )
+    from modelcompression_tpu_torch.data.png import (
+        decode_png, encode_png, read_png,
+    )
+    from modelcompression_tpu_torch.models import (
+        cfg_path, load_cfg, load_weights,
+    )
+    try:
+        import cv2  # noqa: F401
+        cv2_importable = True
+    except ImportError:
+        cv2_importable = False
+    cfg = cfg_path("yolov2-voc.cfg")
+    root = os.path.join(tmp, "voc")
+    t0 = time.perf_counter()
+    data = make_fake_voc(root, n_images=EVAL_IMAGES, image_size=NET,
+                         seed=SEED, classes=VOC_CLASSES)
+    fixture_s = time.perf_counter() - t0
+    listed = read_data_cfg(data)
+    with open(listed["valid"]) as f:
+        paths = f.read().split()
+    # the host decode of one fixture image written with each PNG row
+    # filter (the fixture itself uses filter 0), mean of 3
+    img = read_png(paths[0])
+    decode_ms = {}
+    for ftype in range(5):
+        blob = encode_png(img, ftype)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            check(np.array_equal(decode_png(blob), img),
+                  f"PNG filter {ftype} does not round-trip")
+        decode_ms[ftype] = (time.perf_counter() - t0) / 3 * 1e3
+    sub_list = os.path.join(root, "first64.list")
+    with open(sub_list, "w") as f:
+        f.write("\n".join(paths[:BATCH]) + "\n")
+    sub_data = os.path.join(root, "first64.data")
+    with open(sub_data, "w") as f:
+        f.write(f"valid={sub_list}\nnames={listed['names']}\n")
+    base = ["--cfg", cfg, "--weights", weights, "--batch", str(BATCH),
+            "--device", "cuda"]
+    widths = {}
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    spec = load_cfg(cfg)
+    c1 = spec.layers[0].filters
+
+    out, counts, at, cli_s = _run_cli(torch, kernels, eval_cli.main,
+                                      base + ["--data", data], "eval FAST")
+    widths["eval"] = at
+    want = {name: 0 for name, _ in kernels}
+    want["input_stage_mma"] = n_batches
+    check(counts == want, f"eval FAST: launches {counts}, expected {want}")
+    check(at["input_stage_mma"] == {c1: n_batches},
+          f"eval FAST: mma input-stage launches by C {at['input_stage_mma']}")
+    m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
+                  re.M)
+    ips = re.search(r"^throughput: ([0-9.]+) img/s steady-state", out, re.M)
+    check(m and int(m.group(2)) == EVAL_IMAGES and ips,
+          "eval FAST printed no summary")
+    r = {"images": EVAL_IMAGES, "batch": BATCH,
+         "cv2_importable": cv2_importable,
+         "fixture_write_s": fixture_s, "png_decode_ms_by_filter": decode_ms,
+         "cli": {"map50_pct": float(m.group(1)),
+                 "img_per_s_steady": float(ips.group(1)), "seconds": cli_s,
+                 "launches": counts}}
+
+    params, _ = load_weights(weights, spec)
+    samples = load_list_dataset(listed["valid"])
+    r["evaluate"] = _first_batch_equal(torch, kernels, spec, params, samples,
+                                       list(VOC_CLASSES))
+
+    out, counts, at, bm_s = _run_cli(
+        torch, kernels, eval_cli.main,
+        base + ["--data", sub_data, "--precision", "bitmatch"],
+        "eval --precision bitmatch")
+    widths["eval_bitmatch"] = at
+    check(counts["input_stage_mma"] == 0 and counts[FP32_INPUT_STAGE] == 0,
+          f"eval bitmatch: input-stage launches {counts}")
+    m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
+                  re.M)
+    check(m and int(m.group(2)) == BATCH, "eval bitmatch printed no summary")
+    r["bitmatch"] = {"images": BATCH, "map50_pct": float(m.group(1)),
+                     "seconds": bm_s, "launches": counts}
+
+    out, counts, at, rec_s = _run_cli(torch, kernels, eval_cli.main,
+                                      base + ["--data", data, "--recall"],
+                                      "eval --recall")
+    widths["recall"] = at
+    check("recall@IoU>0.5" in out, "eval --recall printed no summary")
+    r["recall"] = {"summary": out.strip().splitlines()[-2:],
+                   "seconds": rec_s, "launches": counts}
+
+    sweep_out = os.path.join(tmp, "sweep.weights")
+    out, counts, at, sw_s = _run_cli(
+        torch, kernels, prune.main,
+        ["--cfg", cfg, "--weights", weights, "--mode", "magnitude",
+         "--sweep", ",".join(map(str, SWEEP_POINTS)), "--data", data,
+         "--batch", str(BATCH), "--device", "cuda", "--out", sweep_out],
+        "prune --sweep --data")
+    widths["sweep"] = at
+    want = {name: len(SWEEP_POINTS) * PRUNE_LAUNCHES.get(name, 0)
+            for name, _ in kernels}
+    want["input_stage_mma"] = len(SWEEP_POINTS) * n_batches
+    check(counts == want, f"prune --sweep --data: launches {counts}, "
+          f"expected {want}")
+    # each point prunes at the widths of phase 6's --mode magnitude call
+    want_at = {name: {w: len(SWEEP_POINTS) * n for w, n in by.items()}
+               for name, by in prune_widths["magnitude"].items()}
+    want_at["input_stage_mma"] = {c1: len(SWEEP_POINTS) * n_batches}
+    check(at == want_at, f"prune --sweep --data: launches by width {at}, "
+          f"expected {want_at}")
+    maps = [float(x) for x in re.findall(r"mAP@50 ([0-9.naif-]+)$", out,
+                                         re.M)]
+    check(len(maps) == len(SWEEP_POINTS)
+          and all(math.isfinite(v) for v in maps),
+          f"prune --sweep --data: mAP@50 per point {maps}")
+    r["sweep"] = {"points": list(SWEEP_POINTS), "map50_pct": maps,
+                  "seconds": sw_s, "launches": counts}
+    emit({"phase": "eval", "ok": True, "card": card, **r,
+          "launches_by_width": widths})
+    return widths
 
 
 TOPK_ENTRIES = (
@@ -615,24 +862,32 @@ TOPK_ENTRIES = (
 )
 
 
-def kernel_entries(cases, launches, topk, prune_launches):
+def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one, its entries carrying the CUDA-core kernel's
     bf16 time as ``prev_ms``; the CUDA-core input stage runs fp32 on the
-    card-vs-CPU (BITMATCH) forward of the unpruned model; the top-k kernels
-    run per layer (S=24, the magnitude prune) and globally (S=2) on the
-    random weights. ``launches`` is that path's count. No single PyTorch call computes a top-k kernel's own
+    card-vs-CPU (BITMATCH) forward of each model (C=32 and C=8), its only
+    caller; the top-k kernels run per layer (S=24, the magnitude prune)
+    and globally (S=2) on the random weights. ``launches`` is that path's
+    count. No single PyTorch call computes a top-k kernel's own
     function. The count entries carry, beside one launch's ``ms``, the
     whole 31-launch bisection's ``bisection_ms``; in global mode their
     ``library_ms`` is torch.kthvalue on the |w| vector, the call that finds
     the same k-th |w|, so it compares with ``bisection_ms`` (marked by
-    ``library_computes``)."""
+    ``library_computes``). ``eval_launches`` counts each case's launches
+    on each of the eval phase's paths, read from the wrappers' counts by
+    width (C or S)."""
+    def on_eval(source, width):
+        return {path: at[source].get(width, 0)
+                for path, at in eval_widths.items()}
+
     entries = []
     for c_out, dtype, name, model in (
             (32, "bfloat16", "input_stage_mma", "unpruned"),
             (8, "bfloat16", "input_stage_mma[C=8]", "pruned75"),
-            (32, "float32", "input_stage[fp32]", "unpruned_fp32")):
+            (32, "float32", "input_stage[fp32]", "unpruned_fp32"),
+            (8, "float32", "input_stage[fp32,C=8]", "pruned75_fp32")):
         r = cases[(c_out, dtype)]
         source = r["kernel"]
         entry = {
@@ -642,7 +897,8 @@ def kernel_entries(cases, launches, topk, prune_launches):
             "launches": launches[model][source],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "eval_launches": on_eval(source, c_out)}
         if "prev_ms" in r:
             entry["prev_ms"] = r["prev_ms"]
         entries.append(entry)
@@ -657,7 +913,8 @@ def kernel_entries(cases, launches, topk, prune_launches):
                 "launches": prune_launches[mode][source],
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": None}
+                "bound_by": k["bound_by"], "library_ms": None,
+                "eval_launches": on_eval(source, s)}
             if key == "count_le":
                 entry["bisection_ms"] = r["bisection_ms"]
                 if r["kthvalue_ms"] is not None:
@@ -697,9 +954,14 @@ def main() -> int:
         topk = phase_topk_kernels(torch)
         launches = phase_main(torch, KERNELS, card)
         phase_server(torch, KERNELS, card)
-        prune_launches = phase_prune(torch, KERNELS, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            prune_launches, prune_widths, weights = phase_prune(
+                torch, KERNELS, card, tmp)
+            with without_cv2():
+                eval_widths = phase_eval(torch, KERNELS, card, tmp, weights,
+                                         prune_widths)
         emit({"kernels": kernel_entries(cases, launches, topk,
-                                        prune_launches)})
+                                        prune_launches, eval_widths)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

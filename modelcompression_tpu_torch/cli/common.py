@@ -1,13 +1,18 @@
-"""Shared CLI plumbing, the serving and pruning subset of
+"""Shared CLI plumbing, the serving, pruning and evaluation subset of
 ``modelcompression_tpu/cli/common.py``."""
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
 
+from modelcompression_tpu_torch.data.voc import (
+    VOC_CLASSES, load_list_dataset, load_voc_devkit, read_data_cfg,
+    read_names,
+)
 from modelcompression_tpu_torch.models import (
     fold_batchnorm, init_params, load_cfg, load_weights, params_to,
 )
@@ -24,6 +29,46 @@ def add_model_args(p: argparse.ArgumentParser, weights_required=True):
                    help="--weights is a backbone prefix (Darknet's "
                         ".conv.N convention): load the covered convs, "
                         "randomly initialize the rest")
+
+
+def add_parallel_args(p: argparse.ArgumentParser):
+    """Parsed so the JAX CLI's command lines reach the rejection of values
+    above 1, which names the ROADMAP item (data/tensor parallelism is not
+    ported yet)."""
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel size (not ported yet: values above "
+                        "1 are rejected)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size (not ported yet: values "
+                        "above 1 are rejected)")
+
+
+def add_data_args(p: argparse.ArgumentParser):
+    p.add_argument("--data", required=True,
+                   help=".data file (train=/valid=/names=), VOCdevkit "
+                        "root, or COCO instances_*.json")
+    p.add_argument("--image-set", default="test",
+                   help="VOCdevkit image set (when --data is a devkit root)")
+    p.add_argument("--image-dir", default=None,
+                   help="with a COCO --data json: image directory "
+                        "(default: the standard <root>/<split>/ layout)")
+
+
+def load_dataset(args):
+    """(samples, class_names) from ``--data``: a VOCdevkit root, a COCO
+    instances json, or a Darknet ``.data`` file (its valid= list)."""
+    data = args.data
+    if os.path.isdir(data):  # VOCdevkit root
+        return (load_voc_devkit(data, image_set=args.image_set),
+                list(VOC_CLASSES))
+    if data.endswith(".json"):  # COCO instances file (one split per file)
+        from modelcompression_tpu_torch.data.coco import load_coco_json
+        return load_coco_json(data,
+                              image_dir=getattr(args, "image_dir", None))
+    cfg = read_data_cfg(data)
+    names = read_names(cfg["names"]) if "names" in cfg else list(VOC_CLASSES)
+    key = "valid" if "valid" in cfg else "train"
+    return load_list_dataset(cfg[key]), names
 
 
 # the measured deployment configuration of the serving headline (conf

@@ -12,11 +12,12 @@ missing CUDA device is an error), masked or ranked there, and brought back
 to be written. On a CUDA device the magnitude masks run the hand-written
 top-k/mask kernels (ops/cuda_topk.py); --mask-backend reference selects
 the stable-argsort definition instead. --sweep writes one file per point;
-with --data it would also evaluate each, which is not ported yet.
+with --data it also evaluates each point's model on the dataset (mAP@50,
+evaluation/pipeline.evaluate, batch --batch, on --device).
 
 Not ported yet, each rejected with exit code 2: the modes lamp and
 lowrank (ROADMAP Queue 1 item 6); bn_gamma, fpgm, taylor, --target-flops
-and --tied group (item 5); --sweep with --data (item 2).
+and --tied group (item 5).
 
 Examples:
   python -m modelcompression_tpu_torch.cli.prune \
@@ -35,7 +36,7 @@ import os
 import sys
 
 from modelcompression_tpu_torch.cli.common import (
-    add_model_args, load_model, resolve_mask_backend,
+    add_model_args, load_dataset, load_model, resolve_mask_backend,
 )
 from modelcompression_tpu_torch.compress import (
     DEFAULT_MASK_BACKEND, MASK_BACKENDS, apply_masks,
@@ -43,6 +44,7 @@ from modelcompression_tpu_torch.compress import (
     uniform_filter_fraction_keep_sets,
 )
 from modelcompression_tpu_torch.core.device import resolve_device
+from modelcompression_tpu_torch.evaluation import EvalConfig, evaluate
 from modelcompression_tpu_torch.models import (
     dump_cfg, num_params, params_to, save_weights,
 )
@@ -97,16 +99,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target-flops", type=float, default=None,
                    help="FLOP-budget filter allocation (not ported yet)")
     p.add_argument("--data", default=None,
-                   help="dataset for sweep evaluation (not ported yet)")
+                   help="dataset (.data file, VOCdevkit root or COCO json) "
+                        "for sweep evaluation")
+    p.add_argument("--image-set", default="test",
+                   help="VOCdevkit image set for sweep evaluation")
+    p.add_argument("--batch", type=int, default=8,
+                   help="sweep evaluation batch size")
     for flag, kind, default in (("--score-batches", int, 8),
                                 ("--score-seed", int, 0),
                                 ("--min-filters", int, 1),
                                 ("--score-norm", str, "l2"),
                                 ("--energy", float, 0.9),
                                 ("--rank", str, None),
-                                ("--max-cost", float, 1.0),
-                                ("--image-set", str, "test"),
-                                ("--batch", int, 8)):
+                                ("--max-cost", float, 1.0)):
         p.add_argument(flag, type=kind, default=default,
                        help="used only by paths not ported yet")
     p.add_argument("--taylor-sq", action="store_true",
@@ -123,8 +128,6 @@ def _not_ported(args):
         item, what = 5, "--target-flops"
     elif args.tied == "group":
         item, what = 5, "--tied group"
-    elif args.sweep and args.data:
-        item, what = 2, "--sweep with --data (evaluation)"
     else:
         return None
     return (f"{what} is not ported to the PyTorch package yet "
@@ -149,6 +152,9 @@ def _sweep(args, spec, params, seen, device) -> int:
         if not 0.0 <= v < 1.0:
             print(f"error: sweep point {v} out of [0, 1)", file=sys.stderr)
             return 2
+    samples = names = None
+    if args.data:
+        samples, names = load_dataset(args)
     stem = os.path.splitext(args.out)[0]
     dev_params = params_to(params, device)
     rows = []
@@ -165,11 +171,19 @@ def _sweep(args, spec, params, seen, device) -> int:
             out_spec = spec
             out_params, _, achieved = _magnitude(args, spec, dev_params, v)
         save_weights(out, out_spec, params_to(out_params, "cpu"), seen=seen)
-        rows.append((v, achieved))
-        print(f"sweep {v:.0%}: achieved {achieved:.2%} -> {out}")
-    print(f"{'point':>6} {'achieved':>9}")
-    for v, achieved in rows:
-        print(f"{v:6.0%} {achieved:9.2%}")
+        map50 = None
+        if samples is not None:
+            map50 = evaluate(out_params, out_spec, samples, names,
+                             EvalConfig(batch_size=args.batch,
+                                        device=args.device)).map50
+        rows.append((v, achieved, map50))
+        print(f"sweep {v:.0%}: achieved {achieved:.2%} -> {out}"
+              + (f"  mAP@50 {map50 * 100:.2f}" if map50 is not None
+                 else ""))
+    print(f"{'point':>6} {'achieved':>9} {'mAP@50':>8}")
+    for v, achieved, map50 in rows:
+        print(f"{v:6.0%} {achieved:9.2%} "
+              + (f"{map50 * 100:8.2f}" if map50 is not None else "      --"))
     return 0
 
 

@@ -6,7 +6,9 @@
 * ``stretch_resize_device`` — plain stretch resize to the net size.
 * ``normalize`` — uint8 -> float /255 (Darknet's only normalization).
 * ``letterbox_host`` — cv2 letterbox for variable-size images, producing
-  the same uint8 canvas (imports cv2 lazily).
+  the same uint8 canvas. An image already at the size it is resized to
+  is copied without cv2 (``cv2.resize`` to the same size returns the
+  input unchanged); any other size imports cv2 when called.
 
 Images are NHWC ``(B, H, W, 3)``, as in the JAX package.
 """
@@ -19,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from modelcompression_tpu_torch.data.voc import import_cv2
 
 GRAY = 127  # Darknet letterbox padding value (0.5 in float)
 
@@ -107,17 +111,26 @@ def stretch_resize_device(images: torch.Tensor, net_h: int, net_w: int,
     return t.permute(0, 2, 3, 1).contiguous()
 
 
+def resize_host(image: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
+    """``cv2.resize`` INTER_LINEAR, or a copy when the size is unchanged
+    (what cv2 returns then), so same-size images need no cv2."""
+    if image.shape[:2] == (new_h, new_w):
+        return image.copy()
+    cv2 = import_cv2(f"resizing a {image.shape[1]}x{image.shape[0]} image "
+                     f"to {new_w}x{new_h}")
+    return cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+
+
 def letterbox_host(image: np.ndarray, net_h: int, net_w: int
                    ) -> Tuple[np.ndarray, float, int, int]:
     """Host letterbox for variable-size images.
 
     Returns (canvas uint8 (net_h, net_w, 3), scale r, pad_left, pad_top).
     """
-    import cv2
     h, w = image.shape[:2]
     r = min(net_w / w, net_h / h)
     new_w, new_h = int(round(w * r)), int(round(h * r))
-    resized = cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+    resized = resize_host(image, new_w, new_h)
     canvas = np.full((net_h, net_w, 3), GRAY, np.uint8)
     pad_top = (net_h - new_h) // 2
     pad_left = (net_w - new_w) // 2

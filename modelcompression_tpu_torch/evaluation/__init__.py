@@ -5,12 +5,23 @@ from modelcompression_tpu_torch.evaluation.nms import (
     batched_per_class_nms, batched_per_class_nms_prefiltered, nms_topk,
     pairwise_iou, per_class_nms, per_class_nms_prefiltered,
 )
+from modelcompression_tpu_torch.evaluation.voc_map import (
+    COCO_AREA_RANGES, Detection, GroundTruth, class_ap, coco_map,
+    coco_map_by_area, mean_ap, voc_ap,
+)
 from modelcompression_tpu_torch.evaluation.pipeline import (
-    EvalConfig, make_eval_step,
+    EvalConfig, EvalResult, dump_detections, evaluate, make_eval_step,
+)
+from modelcompression_tpu_torch.evaluation.recall import (
+    RecallResult, evaluate_recall, make_recall_step,
 )
 
 __all__ = ["center_to_corners", "corners_to_image", "decode_heads",
            "decode_region", "batched_per_class_nms",
            "batched_per_class_nms_prefiltered", "nms_topk", "pairwise_iou",
-           "per_class_nms", "per_class_nms_prefiltered", "EvalConfig",
-           "make_eval_step"]
+           "per_class_nms", "per_class_nms_prefiltered",
+           "COCO_AREA_RANGES", "Detection", "GroundTruth", "class_ap",
+           "coco_map", "coco_map_by_area", "mean_ap", "voc_ap",
+           "EvalConfig", "EvalResult", "dump_detections", "evaluate",
+           "make_eval_step",
+           "RecallResult", "evaluate_recall", "make_recall_step"]

@@ -1,8 +1,11 @@
 """Hand-written kernels of the port, each beside its plain PyTorch version.
 
 Every kernel wrapper carries a ``LAUNCHES`` integer, incremented where it
-launches its kernel and nowhere else. ``KERNELS`` lists them for callers
-that build every kernel up front or read every count (``chip_smoke.py``).
+launches its kernel and nowhere else, and beside it ``LAUNCHES_AT``, the
+same launches counted by the kernel's width (the input stage's output
+channels C, the top-k kernels' segment count S). ``KERNELS`` lists them
+for callers that build every kernel up front or read every count
+(``chip_smoke.py``).
 """
 
 from modelcompression_tpu_torch.ops.cuda_topk import (

@@ -17,7 +17,8 @@ at it are pruned lowest index first. Each kernel has three functions:
   ``apply_threshold`` (``csrc/topk_apply.cu``): the fused mask + apply.
 
 The ``*_plain`` version is plain PyTorch; ``*_cuda`` launches the kernel
-or raises, and counts its launches in ``LAUNCHES``; the undecorated name
+or raises, and counts its launches in ``LAUNCHES`` (and by segment
+count S in ``LAUNCHES_AT``); the undecorated name
 sends CPU tensors to the plain version and CUDA tensors to the kernel,
 never one in place of the other. ``prune_flat`` drives the three (the
 port of ``pallas_prune_flat``); ``magnitude_prune`` and
@@ -33,6 +34,7 @@ tests can hold them against the TPU kernels' 128K chunk.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Dict, Sequence
 
@@ -159,10 +161,12 @@ def count_le_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
     _launch("topk_count_le", (bits, seg_ids, mid, out), bits.numel(),
             n_segments)
     count_le_cuda.LAUNCHES += 1
+    count_le_cuda.LAUNCHES_AT[n_segments] += 1
     return out
 
 
 count_le_cuda.LAUNCHES = 0
+count_le_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 def tie_counts_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
@@ -177,10 +181,12 @@ def tie_counts_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
     _launch("topk_tie_counts", (bits, seg_ids, tau, out), bits.numel(),
             n_segments)
     tie_counts_cuda.LAUNCHES += 1
+    tie_counts_cuda.LAUNCHES_AT[n_segments] += 1
     return out
 
 
 tie_counts_cuda.LAUNCHES = 0
+tie_counts_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 def apply_threshold_cuda(w: torch.Tensor, bits: torch.Tensor,
@@ -210,10 +216,12 @@ def apply_threshold_cuda(w: torch.Tensor, bits: torch.Tensor,
     _launch("topk_apply", (w, bits, seg_ids, tau, lim, chunk_off, out),
             bits.numel(), n_segments)
     apply_threshold_cuda.LAUNCHES += 1
+    apply_threshold_cuda.LAUNCHES_AT[n_segments] += 1
     return out
 
 
 apply_threshold_cuda.LAUNCHES = 0
+apply_threshold_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 # ---- dispatchers --------------------------------------------------------------

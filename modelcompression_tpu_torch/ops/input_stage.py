@@ -20,7 +20,7 @@ one semantics:
   kernel in fp32 (never a fallback between them).
 
 Both kernels are bound with ctypes and count their launches in
-``LAUNCHES``.
+``LAUNCHES`` (and by output channels C in ``LAUNCHES_AT``).
 
 Exactness: maxpool(leaky(conv(x) + b)) == leaky(max_phases(conv) + b),
 since leaky is monotone increasing and b is constant per channel.
@@ -28,6 +28,7 @@ since leaky is monotone increasing and b is constant per channel.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -204,10 +205,12 @@ def fused_conv1_pool_cuda(x: torch.Tensor, w_oihw: torch.Tensor,
         raise RuntimeError(f"input-stage kernel launch failed: CUDA error "
                            f"{err}")
     fused_conv1_pool_cuda.LAUNCHES += 1
+    fused_conv1_pool_cuda.LAUNCHES_AT[c_out] += 1
     return out
 
 
 fused_conv1_pool_cuda.LAUNCHES = 0
+fused_conv1_pool_cuda.LAUNCHES_AT = collections.Counter()  # by C
 
 
 def _mma_lib():
@@ -251,10 +254,12 @@ def fused_conv1_pool_mma(x: torch.Tensor, w_oihw: torch.Tensor,
         raise RuntimeError(f"mma input-stage kernel launch failed: CUDA "
                            f"error {err}")
     fused_conv1_pool_mma.LAUNCHES += 1
+    fused_conv1_pool_mma.LAUNCHES_AT[c_out] += 1
     return out
 
 
 fused_conv1_pool_mma.LAUNCHES = 0
+fused_conv1_pool_mma.LAUNCHES_AT = collections.Counter()  # by C
 
 
 def fused_conv1_pool(x: torch.Tensor, w_oihw: torch.Tensor,

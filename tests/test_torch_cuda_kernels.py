@@ -246,9 +246,12 @@ def test_prune_flat_cuda_matches_cpu(cuda_device, case, return_mask):
     w, _, seg, n_zero, S = _topk_case(case, cuda_device, False)
     kernels = (ct.count_le_cuda, ct.tie_counts_cuda, ct.apply_threshold_cuda)
     before = [k.LAUNCHES for k in kernels]
+    before_at = [k.LAUNCHES_AT[S] for k in kernels]
     got = ct.prune_flat(w, seg, n_zero, S, return_mask=return_mask)
     torch.cuda.synchronize()
     assert [k.LAUNCHES - b for k, b in zip(kernels, before)] == [32, 1, 1]
+    assert [k.LAUNCHES_AT[S] - b
+            for k, b in zip(kernels, before_at)] == [32, 1, 1]
     want = ct.prune_flat(w.cpu(), seg.cpu(), n_zero.cpu(), S,
                          return_mask=return_mask)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
@@ -282,3 +285,78 @@ def test_topk_kernels_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         ct.apply_threshold_cuda(w.double(), bits, seg, n_zero, n_zero,
                                 n_zero, torch.zeros(1))
+
+
+# ---- evaluate on the card --------------------------------------------------
+
+def _eval_fixture(tmp_path, n_images, size):
+    from modelcompression_tpu_torch.data import (
+        FIXTURE_CLASSES, load_list_dataset, make_fake_voc, read_data_cfg,
+        tiny_region_cfg,
+    )
+    from modelcompression_tpu_torch.models import init_params, parse_cfg
+    data = make_fake_voc(str(tmp_path), n_images=n_images, image_size=size,
+                         seed=0)
+    samples = load_list_dataset(read_data_cfg(data)["valid"])
+    spec = parse_cfg(tiny_region_cfg(num_classes=3, width=size,
+                                     height=size))
+    return samples, FIXTURE_CLASSES, spec, init_params(spec, seed=0)
+
+
+def _detections(chunk, classes, outs):
+    """evaluate's per-class Detection lists for one batch's outputs."""
+    from modelcompression_tpu_torch.evaluation import Detection
+    boxes, scores, valid = (t.cpu().numpy() for t in outs[:3])
+    dets = {c: [] for c in classes}
+    for bi, s in enumerate(chunk):
+        for ci, c in enumerate(classes):
+            for k in np.nonzero(valid[bi, ci])[0]:
+                dets[c].append(Detection(s.image_id, float(scores[bi, ci, k]),
+                                         tuple(float(x)
+                                               for x in boxes[bi, ci, k])))
+    return dets
+
+
+@pytest.mark.cuda
+def test_evaluate_on_card_launches_mma_per_batch_and_equals_step(
+        cuda_device, tmp_path):
+    """5 images at batch 2 (a padded last batch): the tensor-core input
+    stage launches once per batch and the CUDA-core one never; the first
+    batch's detections equal the eval step's on the same canvases."""
+    from modelcompression_tpu_torch.evaluation import (
+        EvalConfig, evaluate, make_eval_step,
+    )
+    from modelcompression_tpu_torch.evaluation.pipeline import _prep_batch
+    from modelcompression_tpu_torch.models import fold_batchnorm, params_to
+    samples, classes, spec, params = _eval_fixture(tmp_path, 5, 64)
+    cfg = EvalConfig(batch_size=2, max_detections=10, device="cuda")
+    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_cuda)
+    n0 = [k.LAUNCHES for k in wrappers]
+    c0 = tis.fused_conv1_pool_mma.LAUNCHES_AT[spec.layers[0].filters]
+    res = evaluate(params, spec, samples, classes, cfg)
+    torch.cuda.synchronize()
+    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [3, 0]
+    assert tis.fused_conv1_pool_mma.LAUNCHES_AT[spec.layers[0].filters] \
+        - c0 == 3
+    assert res.n_images == 5 and res.device.startswith("cuda")
+    step = make_eval_step(spec, cfg)
+    first = samples[:2]
+    outs = step(params_to(fold_batchnorm(params, spec), "cuda"),
+                *_prep_batch(first, 64, 64, True))
+    ids = {s.image_id for s in first}
+    got = {c: [d for d in ds if d.image_id in ids]
+           for c, ds in res.detections.items()}
+    assert got == _detections(first, classes, outs)
+    assert sum(map(len, got.values())) > 0
+
+
+@pytest.mark.cuda
+def test_prefetch_to_cuda_lands_before_it_is_read(cuda_device):
+    from modelcompression_tpu_torch.data import prefetch_to_device
+    items = [(np.full((64, 256, 256, 3), i, np.uint8), np.arange(4.0) + i)
+             for i in range(6)]
+    for i, (a, b) in enumerate(prefetch_to_device(items, depth=2,
+                                                  device=cuda_device)):
+        assert a.is_cuda and b.is_cuda
+        assert int(a.float().mean().item()) == i
+        np.testing.assert_array_equal(b.cpu().numpy(), np.arange(4.0) + i)

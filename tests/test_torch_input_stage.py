@@ -193,10 +193,12 @@ def test_dispatcher_rejects_other_devices():
 ])
 def test_kernel_wrapper_rejects_cpu_tensor(shape, w_shape, msg):
     before = tis.fused_conv1_pool_cuda.LAUNCHES
+    before_at = dict(tis.fused_conv1_pool_cuda.LAUNCHES_AT)
     with pytest.raises(ValueError, match=msg):
         tis.fused_conv1_pool_cuda(torch.zeros(shape), torch.zeros(w_shape),
                                   torch.zeros(w_shape[0]))
     assert tis.fused_conv1_pool_cuda.LAUNCHES == before
+    assert dict(tis.fused_conv1_pool_cuda.LAUNCHES_AT) == before_at
 
 
 def _bf16(shape):
@@ -213,10 +215,12 @@ def _bf16(shape):
 def test_mma_wrapper_rejects(x, w_shape, msg):
     """A CPU tensor, fp32, C = 33 and odd H or W raise before any launch."""
     before = tis.fused_conv1_pool_mma.LAUNCHES
+    before_at = dict(tis.fused_conv1_pool_mma.LAUNCHES_AT)
     with pytest.raises(ValueError, match=msg):
         tis.fused_conv1_pool_mma(x, torch.zeros(w_shape),
                                  torch.zeros(w_shape[0]))
     assert tis.fused_conv1_pool_mma.LAUNCHES == before
+    assert dict(tis.fused_conv1_pool_mma.LAUNCHES_AT) == before_at
 
 
 @pytest.mark.parametrize("c_out", [1, 8, 13, 32])

@@ -153,8 +153,6 @@ REJECTED = {
     "target_flops": (["--mode", "l1_filter", "--target-flops", "0.5"], 5),
     "tied_group": (["--mode", "l1_filter", "--fraction", "0.5", "--tied",
                     "group"], 5),
-    "sweep_data": (["--mode", "magnitude", "--sweep", "0.5", "--data",
-                    "voc.data"], 2),
 }
 
 
