@@ -7,14 +7,17 @@ Phases, each printing JSON lines on stdout:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    compile every kernel of the port from ``csrc/`` (one nvcc per
-            source, all started together), timed.
+            source, all started together), timed, with ptxas's registers
+            and spills per kernel and, for the fp32 input stage, its SASS
+            instruction mix (cuobjdump).
 3. kernels  each kernel against its plain PyTorch version at the main
             paths' shapes, with kernel, plain and library times from CUDA
             events and the roofline bound. Input stage: B=64, 416x416, C in
             {32, 8}, bf16 and fp32, tolerance stated per case; bf16 runs
-            the tensor-core (mma) kernel, timed beside the CUDA-core
-            kernel's bf16 instantiation (``prev_ms``); fp32 runs the
-            CUDA-core kernel. Top-k/mask
+            the tensor-core (mma) kernel, fp32 the fp32 CUDA-core kernel,
+            each timed beside the first CUDA-core kernel (``input_stage``,
+            the yardstick no path launches) in the same dtype (``prev_ms``,
+            ``prev_max_abs_err``). Top-k/mask
             (count, tie count, apply): the flat layout of YOLOv2-VOC's 23
             convs (50,634,592 weights, padded), per-layer (S=24) and global
             (S=2), on the random weights, on bf16-valued weights (ties), and
@@ -26,10 +29,11 @@ Phases, each printing JSON lines on stdout:
             batch 64: unpruned, then 75%-filter-pruned and repacked. Each
             run starts with every kernel launch count at 0 and fails unless
             each kernel of the path launched (the mma input stage, never
-            the CUDA-core one); outputs must be finite with the stated
-            shapes, and a small fp32 batch must agree with the same step
-            on the CPU (through the CUDA-core input stage). Steady img/s
-            from CUDA events.
+            a CUDA-core one); outputs must be finite with the stated
+            shapes, and a small fp32 (BITMATCH) batch must agree with the
+            same forward on the CPU (through the fp32 input-stage kernel,
+            never the mma or the yardstick). Steady img/s from CUDA
+            events.
 5. server   the serve CLI's build_server on 127.0.0.1 (--deployment
             --batch 64 --device cuda, random weights): /healthz, a few
             canvases through the dispatcher queue, /stats, shutdown.
@@ -48,7 +52,7 @@ Phases, each printing JSON lines on stdout:
             cv2: two full batches of 64 and a ragged one of 32). The
             eval CLI on full-width YOLOv2-VOC (phase 6's random .weights)
             at --batch 64 --device cuda, FAST: exit 0, a summary, the mma
-            input stage launched once per batch (3) and the CUDA-core one
+            input stage launched once per batch (3) and the CUDA-core ones
             never. ``evaluate``'s first-batch detections must equal the
             eval step's on the same 64 canvases. Then --precision bitmatch
             on the first 64 images (no input-stage launch), --recall (exit
@@ -73,6 +77,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -93,7 +98,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SERVING_KERNELS = ("input_stage_mma",)
 # the fp32 (BITMATCH) route's input stage, never launched while serving
-FP32_INPUT_STAGE = "input_stage"
+FP32_INPUT_STAGE = "input_stage_f32"
+# the first CUDA-core input stage: timed as both routes' yardstick, never
+# launched by a path
+YARDSTICK = "input_stage"
 # launches of one magnitude prune: 31 bisection rounds + the n_below count
 PRUNE_LAUNCHES = {"topk_count_le": 32, "topk_tie_counts": 1,
                   "topk_apply": 1}
@@ -166,6 +174,38 @@ def read_widths(kernels) -> dict:
     return {name: dict(wrapper.LAUNCHES_AT) for name, wrapper in kernels}
 
 
+def sass_mix(path: str) -> dict:
+    """Per kernel function of a built library (cuobjdump -sass): the
+    instruction count, the FFMA count, and FFMA's share of all
+    instructions and of the span from the first FFMA to the last (the
+    unrolled compute; the halo copies and setup lie outside it). NOPs are
+    not counted."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    funcs, ops = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            ops = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m and ops is not None and not m.group(1).startswith("NOP"):
+            ops.append(m.group(1).split(".")[0])
+    out = {}
+    for name, seq in funcs.items():
+        ffma = [i for i, op in enumerate(seq) if op == "FFMA"]
+        if not ffma:
+            continue
+        span = ffma[-1] - ffma[0] + 1
+        out[name] = {"instructions": len(seq), "ffma": len(ffma),
+                     "ffma_share": len(ffma) / len(seq),
+                     "compute_span": span,
+                     "ffma_share_of_span": len(ffma) / span}
+    return out
+
+
 def phase_build(kernels):
     from modelcompression_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -178,13 +218,15 @@ def phase_build(kernels):
              for n, log in _build.BUILD_LOG.items()}
     emit({"phase": "build", "ok": True, "seconds": seconds,
           "libraries": {n: os.path.relpath(p) for n, p in paths.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "sass_mix": {FP32_INPUT_STAGE: sass_mix(paths[FP32_INPUT_STAGE])}})
 
 
 def input_stage_case(torch, c_out: int, dtype, gen):
     """Kernel vs plain version at the main path's input-stage shape: bf16
-    on the tensor-core kernel (the CUDA-core kernel's bf16 time beside it
-    as ``prev_ms``), fp32 on the CUDA-core kernel."""
+    on the tensor-core kernel, fp32 on the fp32 CUDA-core kernel, each
+    with the yardstick kernel's time and error in the same dtype beside
+    it (``prev_ms``, ``prev_max_abs_err``)."""
     import torch.nn.functional as F
     from modelcompression_tpu_torch.ops import input_stage as tis
     dev = torch.device("cuda")
@@ -198,7 +240,7 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     def kernel():
         if bf16:
             return tis.fused_conv1_pool_mma(x, w, b)
-        return tis.fused_conv1_pool_cuda(x, w, b, dtype)
+        return tis.fused_conv1_pool_f32(x, w, b)
 
     def prev():
         return tis.fused_conv1_pool_cuda(x, w, b, dtype)
@@ -214,13 +256,11 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
     check(err <= tol, f"input_stage C={c_out} {dtype}: max abs err {err} "
           f"> tolerance {tol}")
-    extra = {}
-    if bf16:
-        prev_err = (prev().float() - want.float()).abs().max().item()
-        check(prev_err <= tol, f"CUDA-core input_stage C={c_out} bf16: max "
-              f"abs err {prev_err} > tolerance {tol}")
-        extra = {"prev_max_abs_err": prev_err,
-                 "prev_ms": time_ms(torch, prev, iters=20)}
+    prev_err = (prev().float() - want.float()).abs().max().item()
+    check(prev_err <= tol, f"yardstick input_stage C={c_out} {dtype}: max "
+          f"abs err {prev_err} > tolerance {tol}")
+    extra = {"prev_max_abs_err": prev_err,
+             "prev_ms": time_ms(torch, prev, iters=20)}
 
     x_nchw = x.permute(0, 3, 1, 2)  # channels-last storage
     w_cl = w.contiguous(memory_format=torch.channels_last)
@@ -239,7 +279,7 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     n_ops = 2 * 27 * c_out * BATCH * NET * NET  # 4 phases x 27 taps x C
     name = str(dtype).split(".")[1]
     return {"c_out": c_out, "dtype": name,
-            "kernel": "input_stage_mma" if bf16 else "input_stage",
+            "kernel": "input_stage_mma" if bf16 else FP32_INPUT_STAGE,
             "max_abs_err": err, "tolerance": tol, "ms": ms, **extra,
             "plain_ms": plain_ms, "library_ms": library_ms,
             **bound(n_bytes, n_ops, PEAK_OPS_PER_S[name])}
@@ -399,8 +439,8 @@ def _models(torch):
 def _agrees_with_cpu(torch, kernels, spec, params):
     """The card against the CPU on 2 frames, in two halves:
 
-    * letterbox + forward (the CUDA-core fp32 input-stage kernel included,
-      its launches counted) in fp32 with TF32 off: the raw maps must agree
+    * letterbox + forward (the fp32 input-stage kernel included, its
+      launches counted) in fp32 with TF32 off: the raw maps must agree
       to summation order (max rel 1e-4);
     * NMS + pixel mapping on the same decoded candidates: must be EQUAL
       (IEEE elementwise ops and a stable sort on both devices). The halves
@@ -430,7 +470,8 @@ def _agrees_with_cpu(torch, kernels, spec, params):
             raw[dev] = forward_folded(params_to(folded, dev), x, spec,
                                       BITMATCH, fuse_input_stage=True).cpu()
     counts = read_counts(kernels)
-    check(counts[FP32_INPUT_STAGE] >= 1 and counts["input_stage_mma"] == 0,
+    check(counts[FP32_INPUT_STAGE] >= 1 and counts["input_stage_mma"] == 0
+          and counts[YARDSTICK] == 0,
           f"fp32 forward: input-stage launches {counts}")
     with torch.inference_mode():
         rel = ((raw["cuda"] - raw["cpu"]).abs().max()
@@ -484,8 +525,9 @@ def drive_serving(torch, kernels, spec, params, label):
     for name in SERVING_KERNELS:
         check(counts[name] >= 1, f"{label}: kernel {name} launched "
               f"{counts[name]} times on the serving path")
-    check(counts[FP32_INPUT_STAGE] == 0, f"{label}: the fp32 input stage "
-          f"launched {counts[FP32_INPUT_STAGE]} times on the bf16 path")
+    for name in (FP32_INPUT_STAGE, YARDSTICK):
+        check(counts[name] == 0, f"{label}: the fp32 input stage {name} "
+              f"launched {counts[name]} times on the bf16 path")
     c, k = spec.classes, cfg.max_detections
     shapes = [(BATCH, c, k, 4), (BATCH, c, k), (BATCH, c, k),
               (BATCH, c), (BATCH,)]
@@ -552,8 +594,9 @@ def phase_server(torch, kernels, card):
         for name in SERVING_KERNELS:
             check(counts[name] >= 1, f"server: kernel {name} launched "
                   f"{counts[name]} times")
-        check(counts[FP32_INPUT_STAGE] == 0, "server: the fp32 input stage "
-              f"launched {counts[FP32_INPUT_STAGE]} times")
+        for name in (FP32_INPUT_STAGE, YARDSTICK):
+            check(counts[name] == 0, f"server: the fp32 input stage {name} "
+                  f"launched {counts[name]} times")
         with urllib.request.urlopen(base + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
         check(stats["images"] >= n_req, f"/stats served {stats['images']}")
@@ -808,7 +851,8 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
         base + ["--data", sub_data, "--precision", "bitmatch"],
         "eval --precision bitmatch")
     widths["eval_bitmatch"] = at
-    check(counts["input_stage_mma"] == 0 and counts[FP32_INPUT_STAGE] == 0,
+    check(all(counts[n] == 0 for n in ("input_stage_mma", FP32_INPUT_STAGE,
+                                        YARDSTICK)),
           f"eval bitmatch: input-stage launches {counts}")
     m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
                   re.M)
@@ -865,10 +909,13 @@ TOPK_ENTRIES = (
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
-    at C=8 in the pruned one, its entries carrying the CUDA-core kernel's
-    bf16 time as ``prev_ms``; the CUDA-core input stage runs fp32 on the
-    card-vs-CPU (BITMATCH) forward of each model (C=32 and C=8), its only
-    caller; the top-k kernels run per layer (S=24, the magnitude prune)
+    at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
+    (BITMATCH) forward of each model (C=32 and C=8). Both carry the
+    yardstick kernel's time and error in their dtype (``prev_ms``,
+    ``prev_max_abs_err``); the yardstick (``input_stage``, the first
+    CUDA-core kernel) has an entry of its own at fp32 C=32, marked
+    ``yardstick``, with 0 launches: no path launches it. The top-k kernels
+    run per layer (S=24, the magnitude prune)
     and globally (S=2) on the random weights. ``launches`` is that path's
     count. No single PyTorch call computes a top-k kernel's own
     function. The count entries carry, beside one launch's ``ms``, the
@@ -886,11 +933,11 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
     for c_out, dtype, name, model in (
             (32, "bfloat16", "input_stage_mma", "unpruned"),
             (8, "bfloat16", "input_stage_mma[C=8]", "pruned75"),
-            (32, "float32", "input_stage[fp32]", "unpruned_fp32"),
-            (8, "float32", "input_stage[fp32,C=8]", "pruned75_fp32")):
+            (32, "float32", "input_stage_f32", "unpruned_fp32"),
+            (8, "float32", "input_stage_f32[C=8]", "pruned75_fp32")):
         r = cases[(c_out, dtype)]
         source = r["kernel"]
-        entry = {
+        entries.append({
             "name": name, "route": "cuda",
             "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
             "replaces": "modelcompression_tpu/ops/input_stage.py:159",
@@ -898,10 +945,19 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "eval_launches": on_eval(source, c_out)}
-        if "prev_ms" in r:
-            entry["prev_ms"] = r["prev_ms"]
-        entries.append(entry)
+            "prev_ms": r["prev_ms"],
+            "prev_max_abs_err": r["prev_max_abs_err"],
+            "eval_launches": on_eval(source, c_out)})
+    r = cases[(32, "float32")]
+    entries.append({
+        "name": f"{YARDSTICK}[fp32]", "route": "cuda",
+        "source": f"modelcompression_tpu_torch/csrc/{YARDSTICK}.cu",
+        "replaces": "modelcompression_tpu/ops/input_stage.py:159",
+        "launches": launches["unpruned_fp32"][YARDSTICK], "yardstick": True,
+        "max_abs_err": r["prev_max_abs_err"], "ms": r["prev_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "eval_launches": on_eval(YARDSTICK, 32)})
     for s, mode in ((24, "magnitude"), (2, "global")):
         r = topk[(s, "random")]
         for key, source, body in TOPK_ENTRIES:

@@ -74,9 +74,13 @@ class EvalConfig:
     writes a large full-resolution intermediate. The fusion still only
     applies when ``fold_bn`` and ``input_stage_match(spec)`` hold.
 
-    Options this slice does not port raise ``NotImplementedError`` naming
-    the ROADMAP item: ``soft_nms``, ``exact_nms``, ``diou_nms``,
-    ``nms_prefilter_impl='bisect'``, ``forward_fn`` and ``int8_input``.
+    Values the JAX package rejects raise what it raises, in its order
+    (``ValueError``). Valid options this port does not have yet raise
+    ``NotImplementedError`` naming the ROADMAP item after that:
+    ``exact_nms_prefilter=False``, ``soft_nms``, ``exact_nms``,
+    ``diou_nms``, ``nms_prefilter_impl='bisect'``, ``forward_fn`` and
+    ``int8_input``. ``soft_nms_sigma`` and ``diou_beta`` are kept for
+    those variants.
     """
 
     batch_size: int = 8
@@ -94,6 +98,8 @@ class EvalConfig:
     letterbox: bool = True
     precision: Precision = FAST
     fold_bn: bool = True
+    # False: the JAX package's approx_max_k candidate prefilter
+    exact_nms_prefilter: bool = True
     exact_nms: bool = False
     # class-agnostic top-N' candidate prefilter before the per-class NMS
     # sorts; 0 = off. Exact while at most N' candidates of an image have
@@ -101,7 +107,9 @@ class EvalConfig:
     nms_prefilter: int = 0
     nms_prefilter_impl: str = "topk"
     soft_nms: str = ""
+    soft_nms_sigma: float = 0.5
     diou_nms: bool = False
+    diou_beta: float = 1.0
     fuse_input_stage: bool = True
     forward_fn: Optional[object] = None
     int8_input: bool = False
@@ -109,8 +117,43 @@ class EvalConfig:
     device: str = "cuda"
 
     def __post_init__(self):
+        # the JAX package's checks (modelcompression_tpu/evaluation/
+        # pipeline.py EvalConfig.__post_init__), in its order
         if not 0.0 < self.map_iou <= 1.0:
             raise ValueError(f"map_iou must be in (0, 1], got {self.map_iou}")
+        if self.exact_nms and self.nms_prefilter > 0:
+            raise ValueError(
+                "exact_nms and nms_prefilter are mutually exclusive: the "
+                "exact path runs greedy NMS over ALL candidates, so a "
+                "candidate prefilter would silently not apply; drop one "
+                "of the two flags")
+        if self.nms_prefilter_impl not in ("topk", "bisect"):
+            raise ValueError(
+                f"nms_prefilter_impl must be 'topk' or 'bisect', got "
+                f"{self.nms_prefilter_impl!r}")
+        if self.soft_nms not in ("", "linear", "gaussian"):
+            raise ValueError(
+                f"soft_nms must be '', 'linear' or 'gaussian', got "
+                f"{self.soft_nms!r}")
+        if self.soft_nms and (self.exact_nms or self.nms_prefilter > 0):
+            raise ValueError(
+                "soft_nms is mutually exclusive with exact_nms / "
+                "nms_prefilter: those select variants of GREEDY erasure "
+                "NMS, soft-NMS replaces the erasure rule itself")
+        if self.soft_nms and self.diou_nms:
+            raise ValueError(
+                "soft_nms and diou_nms are mutually exclusive: diou_nms "
+                "changes the greedy erasure criterion, soft_nms replaces "
+                "erasure with score decay")
+        if self.int8_input and self.forward_fn is None:
+            raise ValueError(
+                "int8_input requires a forward_fn that accepts an int8 "
+                "canvas (compress.forward_quantized): the standard float "
+                "forward has no input grid to land on")
+        # then the valid options this port does not have yet
+        if not self.exact_nms_prefilter:
+            raise _not_ported("exact_nms_prefilter=False",
+                              "Queue 1 item 3, approx_max_k prefilter")
         if self.soft_nms:
             raise _not_ported("soft_nms", "Queue 1 item 3, soft_nms_topk")
         if self.exact_nms:

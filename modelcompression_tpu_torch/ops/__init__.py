@@ -14,13 +14,16 @@ from modelcompression_tpu_torch.ops.cuda_topk import (
     tie_counts_plain,
 )
 from modelcompression_tpu_torch.ops.input_stage import (
-    fused_conv1_pool, fused_conv1_pool_cuda, fused_conv1_pool_mma,
-    fused_conv1_pool_plain, input_stage_match, pack_mma_weights,
+    fused_conv1_pool, fused_conv1_pool_cuda, fused_conv1_pool_f32,
+    fused_conv1_pool_mma, fused_conv1_pool_plain, input_stage_match,
+    pack_mma_weights,
 )
 
-# (csrc source name, wrapper) for every kernel of the port
+# (csrc source name, wrapper) for every kernel of the port;
+# ``input_stage`` is the yardstick that no path launches
 KERNELS = (("input_stage", fused_conv1_pool_cuda),
            ("input_stage_mma", fused_conv1_pool_mma),
+           ("input_stage_f32", fused_conv1_pool_f32),
            ("topk_count_le", count_le_cuda),
            ("topk_tie_counts", tie_counts_cuda),
            ("topk_apply", apply_threshold_cuda))
@@ -28,6 +31,6 @@ KERNELS = (("input_stage", fused_conv1_pool_cuda),
 __all__ = ["KERNELS", "apply_threshold", "apply_threshold_cuda",
            "apply_threshold_plain", "count_le", "count_le_cuda",
            "count_le_plain", "fused_conv1_pool", "fused_conv1_pool_cuda",
-           "fused_conv1_pool_mma", "fused_conv1_pool_plain",
-           "input_stage_match", "pack_mma_weights", "prune_flat",
+           "fused_conv1_pool_f32", "fused_conv1_pool_mma",
+           "fused_conv1_pool_plain", "input_stage_match", "pack_mma_weights", "prune_flat",
            "tie_counts", "tie_counts_cuda", "tie_counts_plain"]

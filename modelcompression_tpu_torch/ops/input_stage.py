@@ -13,13 +13,19 @@ one semantics:
   direct GEMM form: rows (pooled pixel, phase), K = the 27 taps padded to
   32 (``pack_mma_weights``), N = C. Replaces the TPU kernel ``_kernel`` of
   the JAX module on the serving path.
-* ``fused_conv1_pool_cuda`` — the CUDA-core kernel ``csrc/input_stage.cu``
-  (bf16 or fp32), the fp32 route's kernel.
+* ``fused_conv1_pool_f32`` — the fp32 (BITMATCH) route's hand-written
+  Hopper kernel ``csrc/input_stage_f32.cu`` on the CUDA cores: taps
+  outside and pool phases inside, 8 channels per thread, persistent blocks
+  with a ``cp.async`` double-buffered halo.
+* ``fused_conv1_pool_cuda`` — the first CUDA-core kernel
+  ``csrc/input_stage.cu`` (bf16 or fp32). No path of the port launches it;
+  ``chip_smoke.py`` times it beside both routes' kernels as their
+  yardstick.
 * ``fused_conv1_pool`` — the dispatcher: the plain version for CPU
-  tensors; for CUDA tensors the mma kernel in bf16 and the CUDA-core
-  kernel in fp32 (never a fallback between them).
+  tensors; for CUDA tensors the mma kernel in bf16 and the fp32 kernel in
+  fp32 (never a fallback between them).
 
-Both kernels are bound with ctypes and count their launches in
+The kernels are bound with ctypes and count their launches in
 ``LAUNCHES`` (and by output channels C in ``LAUNCHES_AT``).
 
 Exactness: maxpool(leaky(conv(x) + b)) == leaky(max_phases(conv) + b),
@@ -147,7 +153,8 @@ def pack_mma_weights(w_oihw: torch.Tensor) -> torch.Tensor:
 
 def _check_args(x: torch.Tensor, w_oihw: torch.Tensor,
                 bias: torch.Tensor) -> None:
-    """Raise on shapes the input-stage kernels do not take."""
+    """Raise on shapes the input-stage kernels do not take, then on a
+    tensor that is not on a CUDA device."""
     if x.dim() != 4 or x.shape[3] != 3:
         raise ValueError(f"x must be (B, H, W, 3), got {tuple(x.shape)}")
     h, w = x.shape[1], x.shape[2]
@@ -160,17 +167,37 @@ def _check_args(x: torch.Tensor, w_oihw: torch.Tensor,
                          f"got {tuple(w_oihw.shape)}")
     if tuple(bias.shape) != (c_out,):
         raise ValueError(f"bias must be ({c_out},), got {tuple(bias.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"input-stage kernel needs a CUDA tensor, got "
+                         f"{x.device}")
 
 
-def _kernel_lib():
+def _launch(source: str, x: torch.Tensor, wk: torch.Tensor,
+            bias: torch.Tensor, *flags: int) -> torch.Tensor:
+    """Call ``mc_<source>`` of ``csrc/<source>.cu`` on PyTorch's current
+    stream: x, the kernel's weights, bias (fp32), a fresh (B, H/2, W/2, C)
+    output in x's dtype, then B, H, W, C and ``flags``. Raises when the
+    launch is refused."""
     from modelcompression_tpu_torch.ops import _build
-    fn = _build.load("input_stage").mc_input_stage
+    fn = getattr(_build.load(source), f"mc_{source}")
     # pointers and the stream as c_void_p: ctypes would pass a bare Python
     # int as a 32-bit int and cut the pointer
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(flags)) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    b, h, w, _ = x.shape
+    c_out = bias.shape[0]
+    x = x.contiguous()
+    bk = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    out = torch.empty((b, h // 2, w // 2, c_out), dtype=x.dtype,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+                 b, h, w, c_out, *flags, stream)
+    if err != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
+    return out
 
 
 def fused_conv1_pool_cuda(x: torch.Tensor, w_oihw: torch.Tensor,
@@ -186,40 +213,16 @@ def fused_conv1_pool_cuda(x: torch.Tensor, w_oihw: torch.Tensor,
         raise ValueError(f"input-stage kernel takes bf16 or fp32, not "
                          f"{compute_dtype}")
     _check_args(x, w_oihw, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"input-stage kernel needs a CUDA tensor, got "
-                         f"{x.device}")
-    b, h, w, _ = x.shape
-    c_out = w_oihw.shape[0]
-    x = x.to(compute_dtype).contiguous()
     wk = w_oihw.to(device=x.device, dtype=compute_dtype).contiguous()
-    bk = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    out = torch.empty((b, h // 2, w // 2, c_out), dtype=compute_dtype,
-                      device=x.device)
-    fn = _kernel_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-                 b, h, w, c_out, _DTYPE_CODE[compute_dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"input-stage kernel launch failed: CUDA error "
-                           f"{err}")
+    out = _launch("input_stage", x.to(compute_dtype), wk, bias,
+                  _DTYPE_CODE[compute_dtype])
     fused_conv1_pool_cuda.LAUNCHES += 1
-    fused_conv1_pool_cuda.LAUNCHES_AT[c_out] += 1
+    fused_conv1_pool_cuda.LAUNCHES_AT[out.shape[3]] += 1
     return out
 
 
 fused_conv1_pool_cuda.LAUNCHES = 0
 fused_conv1_pool_cuda.LAUNCHES_AT = collections.Counter()  # by C
-
-
-def _mma_lib():
-    from modelcompression_tpu_torch.ops import _build
-    fn = _build.load("input_stage_mma").mc_input_stage_mma
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def fused_conv1_pool_mma(x: torch.Tensor, w_oihw: torch.Tensor,
@@ -235,31 +238,38 @@ def fused_conv1_pool_mma(x: torch.Tensor, w_oihw: torch.Tensor,
         raise ValueError(f"the mma input-stage kernel takes bf16 x, not "
                          f"{x.dtype}")
     _check_args(x, w_oihw, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"input-stage kernel needs a CUDA tensor, got "
-                         f"{x.device}")
-    b, h, w, _ = x.shape
-    c_out = w_oihw.shape[0]
-    x = x.contiguous()
     wp = pack_mma_weights(w_oihw.to(device=x.device, dtype=torch.bfloat16))
-    bk = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    out = torch.empty((b, h // 2, w // 2, c_out), dtype=torch.bfloat16,
-                      device=x.device)
-    fn = _mma_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), wp.data_ptr(), bk.data_ptr(), out.data_ptr(),
-                 b, h, w, c_out, stream)
-    if err != 0:
-        raise RuntimeError(f"mma input-stage kernel launch failed: CUDA "
-                           f"error {err}")
+    out = _launch("input_stage_mma", x, wp, bias)
     fused_conv1_pool_mma.LAUNCHES += 1
-    fused_conv1_pool_mma.LAUNCHES_AT[c_out] += 1
+    fused_conv1_pool_mma.LAUNCHES_AT[out.shape[3]] += 1
     return out
 
 
 fused_conv1_pool_mma.LAUNCHES = 0
 fused_conv1_pool_mma.LAUNCHES_AT = collections.Counter()  # by C
+
+
+def fused_conv1_pool_f32(x: torch.Tensor, w_oihw: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/input_stage_f32.cu`` on PyTorch's current stream.
+
+    x (B, H, W, 3) fp32 on a CUDA device, H and W even; w (C, 3, 3, 3)
+    OIHW with C <= 32 (fp32 in the kernel); bias (C,) (fp32 in the
+    kernel). Returns (B, H/2, W/2, C) fp32. Raises on anything the kernel
+    does not take, and when the launch is refused."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"the fp32 input-stage kernel takes fp32 x, not "
+                         f"{x.dtype}")
+    _check_args(x, w_oihw, bias)
+    wk = w_oihw.to(device=x.device, dtype=torch.float32).contiguous()
+    out = _launch("input_stage_f32", x, wk, bias)
+    fused_conv1_pool_f32.LAUNCHES += 1
+    fused_conv1_pool_f32.LAUNCHES_AT[out.shape[3]] += 1
+    return out
+
+
+fused_conv1_pool_f32.LAUNCHES = 0
+fused_conv1_pool_f32.LAUNCHES_AT = collections.Counter()  # by C
 
 
 def fused_conv1_pool(x: torch.Tensor, w_oihw: torch.Tensor,
@@ -268,11 +278,14 @@ def fused_conv1_pool(x: torch.Tensor, w_oihw: torch.Tensor,
     """Dispatcher: the plain version only for CPU tensors; for CUDA
     tensors a kernel launches or raises: bf16 on the tensor cores
     (``fused_conv1_pool_mma``), fp32 on the CUDA cores
-    (``fused_conv1_pool_cuda``)."""
+    (``fused_conv1_pool_f32``); any other dtype raises."""
     if x.device.type == "cuda":
         if compute_dtype == torch.bfloat16:
             return fused_conv1_pool_mma(x.to(compute_dtype), w_oihw, bias)
-        return fused_conv1_pool_cuda(x, w_oihw, bias, compute_dtype)
+        if compute_dtype == torch.float32:
+            return fused_conv1_pool_f32(x.to(compute_dtype), w_oihw, bias)
+        raise ValueError(f"input-stage kernels take bf16 or fp32, not "
+                         f"{compute_dtype}")
     if x.device.type == "cpu":
         return fused_conv1_pool_plain(x, w_oihw, bias, compute_dtype)
     raise ValueError(f"fused_conv1_pool: unsupported device {x.device}")

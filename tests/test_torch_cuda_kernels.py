@@ -46,13 +46,18 @@ def test_input_stage_kernel_matches_plain(cuda_device, c_out, h, w, dtype):
     output (2**-7 relative), since a summation-order difference can move
     the single final rounding by one ulp."""
     x, wt, bt = _case(c_out, h, w, 3, c_out, cuda_device)
-    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_cuda)
+    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_f32,
+                tis.fused_conv1_pool_cuda)
     n0 = [k.LAUNCHES for k in wrappers]
+    at0 = [k.LAUNCHES_AT[c_out] for k in wrappers]
     got = tis.fused_conv1_pool(x, wt, bt, dtype)
     torch.cuda.synchronize()
-    # bf16 runs on the tensor cores, fp32 on the CUDA cores
-    want_launches = [1, 0] if dtype == torch.bfloat16 else [0, 1]
+    # bf16 runs on the tensor cores, fp32 on the fp32 CUDA-core kernel;
+    # the first CUDA-core kernel (the yardstick) never
+    want_launches = [1, 0, 0] if dtype == torch.bfloat16 else [0, 1, 0]
     assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == want_launches
+    assert [k.LAUNCHES_AT[c_out] - n
+            for k, n in zip(wrappers, at0)] == want_launches
     want = tis.fused_conv1_pool_plain(x, wt, bt, dtype)
     assert got.dtype == want.dtype == dtype
     assert got.shape == want.shape == (3, h // 2, w // 2, c_out)
@@ -83,6 +88,66 @@ def test_input_stage_bf16_kernels_match_plain(cuda_device, c_out, h, w,
     assert got.shape == want.shape == (3, h // 2, w // 2, c_out)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2.0 ** -7 * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["f32", "cuda"])
+@pytest.mark.parametrize("c_out, h, w, misaligned", [
+    (32, 64, 96, False), (8, 64, 96, False), (13, 34, 70, False),
+    (1, 2, 2, False), (24, 36, 68, False), (32, 64, 96, True)])
+def test_input_stage_fp32_kernels_match_plain(cuda_device, c_out, h, w,
+                                              misaligned, kernel):
+    """Each fp32 kernel called directly (``f32``: the BITMATCH route; the
+    first CUDA-core kernel: the yardstick) against the plain version, atol
+    1e-5 (summation order only). W % 4 == 0 with an aligned x takes the
+    16-byte halo copies, the rest the 4-byte ones; 34x70 and 36x68 leave
+    ragged tiles, C = 13 and 24 pad the channel groups."""
+    x, wt, bt = _case(c_out, h, w, 3, 200 + c_out, cuda_device)
+    if misaligned:
+        x = _unaligned(x)
+    if kernel == "f32":
+        got = tis.fused_conv1_pool_f32(x, wt, bt)
+    else:
+        got = tis.fused_conv1_pool_cuda(x, wt, bt, torch.float32)
+    torch.cuda.synchronize()
+    want = tis.fused_conv1_pool_plain(x, wt, bt, torch.float32)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (3, h // 2, w // 2, c_out)
+    assert (got - want).abs().max().item() <= FP32_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_out", [32, 13])
+def test_input_stage_f32_one_hot_taps(cuda_device, c_out):
+    """For each of the 27 taps, a weight of 1 at that tap of one channel
+    (bias 0) gives that channel exactly the 2x2-max-pooled, leaky'd input
+    channel shifted by the tap (one product of 1 and x, the rest zeros:
+    every sum is exact), and every other channel 0. A slip in the halo
+    layout, the window offsets or the lane mapping names the wrong tap."""
+    b, h, w = 2, 34, 68  # ragged tiles in both directions, 16-byte copies
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, h, w, 3))
+                         .astype(np.float32)).to(cuda_device)
+    xpad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    bias = torch.zeros(c_out, device=cuda_device)
+    for ky in range(3):
+        for kx in range(3):
+            for ci in range(3):
+                k = (ky * 3 + kx) * 3 + ci
+                c = k % c_out
+                wt = torch.zeros((c_out, 3, 3, 3), device=cuda_device)
+                wt[c, ci, ky, kx] = 1.0
+                got = tis.fused_conv1_pool_f32(x, wt, bias)
+                shifted = xpad[:, ky:ky + h, kx:kx + w, ci]
+                y = shifted.reshape(b, h // 2, 2, w // 2, 2).amax((2, 4))
+                y = torch.where(y > 0, y, 0.1 * y)
+                assert torch.equal(got[..., c], y), \
+                    f"tap {k} (ky={ky}, kx={kx}, ci={ci}) -> channel {c}"
+                others = torch.ones(c_out, dtype=torch.bool,
+                                    device=cuda_device)
+                others[c] = False
+                assert not got[..., others].any(), \
+                    f"tap {k} leaked into another channel"
 
 
 @pytest.mark.cuda
@@ -128,11 +193,17 @@ def test_input_stage_kernel_rejects_bad_shapes(cuda_device):
     w33 = torch.zeros((33, 3, 3, 3), device=cuda_device)
     with pytest.raises(ValueError, match="C <= 32"):
         tis.fused_conv1_pool_cuda(x, w33, torch.zeros(33, device=cuda_device))
+    with pytest.raises(ValueError, match="even"):
+        tis.fused_conv1_pool_f32(x[:, :, :5], wt, bt)
+    with pytest.raises(ValueError, match="fp32"):
+        tis.fused_conv1_pool_f32(x.to(torch.bfloat16), wt, bt)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tis.fused_conv1_pool(x, wt, bt, torch.float16)
 
 
 @pytest.mark.cuda
 def test_eval_step_cuda_matches_cpu_bitmatch(cuda_device):
-    """The whole serving step (fused input-stage kernel included) on the
+    """The whole serving step (the fp32 input-stage kernel included) on the
     card against the same step on the CPU, fp32 BITMATCH with TF32 off:
     raw-map-level differences are summation order only, so detection
     counters agree and scores agree to 1e-4."""
@@ -150,12 +221,17 @@ def test_eval_step_cuda_matches_cpu_bitmatch(cuda_device):
                                              np.uint8)
     ws, hs = np.full(2, 80.0, np.float32), np.full(2, 72.0, np.float32)
     outs = {}
+    wrappers = (tis.fused_conv1_pool_f32, tis.fused_conv1_pool_mma,
+                tis.fused_conv1_pool_cuda)
+    n0 = [k.LAUNCHES for k in wrappers]
     for dev in ("cpu", "cuda"):
         cfg = EvalConfig(conf_thresh=0.01, max_detections=8,
                          nms_prefilter=32, precision=BITMATCH, device=dev)
         step = make_eval_step(spec, cfg, src_hw=(72, 80))
         outs[dev] = [t.cpu().numpy() for t in
                      step(params_to(params, dev), imgs, ws, hs)]
+    # the card's step went through the fp32 kernel, once
+    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [1, 0, 0]
     (sc, vc, ac), (sg, vg, ag) = ((o[1], o[3], o[4]) for o in
                                   (outs["cpu"], outs["cuda"]))
     np.testing.assert_array_equal(vg, vc)
@@ -178,10 +254,11 @@ TOPK_CASES = {
 
 def _unaligned(t):
     """``t`` copied into a buffer at a 4-byte offset: the kernels must
-    take their scalar-load path."""
+    take their scalar-load path (the fp32 input stage: 4-byte halo
+    copies)."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    buf[1:].copy_(t)
-    return buf[1:]
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
 
 
 def _topk_case(name, device, unaligned):
@@ -321,7 +398,7 @@ def _detections(chunk, classes, outs):
 def test_evaluate_on_card_launches_mma_per_batch_and_equals_step(
         cuda_device, tmp_path):
     """5 images at batch 2 (a padded last batch): the tensor-core input
-    stage launches once per batch and the CUDA-core one never; the first
+    stage launches once per batch and the CUDA-core ones never; the first
     batch's detections equal the eval step's on the same canvases."""
     from modelcompression_tpu_torch.evaluation import (
         EvalConfig, evaluate, make_eval_step,
@@ -330,12 +407,13 @@ def test_evaluate_on_card_launches_mma_per_batch_and_equals_step(
     from modelcompression_tpu_torch.models import fold_batchnorm, params_to
     samples, classes, spec, params = _eval_fixture(tmp_path, 5, 64)
     cfg = EvalConfig(batch_size=2, max_detections=10, device="cuda")
-    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_cuda)
+    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_f32,
+                tis.fused_conv1_pool_cuda)
     n0 = [k.LAUNCHES for k in wrappers]
     c0 = tis.fused_conv1_pool_mma.LAUNCHES_AT[spec.layers[0].filters]
     res = evaluate(params, spec, samples, classes, cfg)
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [3, 0]
+    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [3, 0, 0]
     assert tis.fused_conv1_pool_mma.LAUNCHES_AT[spec.layers[0].filters] \
         - c0 == 3
     assert res.n_images == 5 and res.device.startswith("cuda")

@@ -127,7 +127,9 @@ def test_space_to_depth2_equals_jax():
 def test_dispatcher_uses_plain_on_cpu(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("kernel wrapper reached with a CPU tensor")
-    monkeypatch.setattr(tis, "fused_conv1_pool_cuda", boom)
+    for name in ("fused_conv1_pool_cuda", "fused_conv1_pool_f32",
+                 "fused_conv1_pool_mma"):
+        monkeypatch.setattr(tis, name, boom)
     x, w, b = _rand_case(8, h=8, w=8, seed=5)
     wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
     got = tis.fused_conv1_pool(torch.from_numpy(x), wt, torch.from_numpy(b),
@@ -143,7 +145,7 @@ def _fake_cuda_tensor():
 
 
 def _spy_kernels(monkeypatch):
-    """Replace the plain version (must not be reached) and both kernel
+    """Replace the plain version (must not be reached) and the kernel
     wrappers (record which one was called)."""
     calls = []
 
@@ -154,11 +156,16 @@ def _spy_kernels(monkeypatch):
         calls.append("mma")
         return "mma-output"
 
+    def f32(x, w, b):
+        calls.append("f32")
+        return "f32-output"
+
     def cuda(x, w, b, compute_dtype):
         calls.append(("cuda", compute_dtype))
         return "cuda-output"
     monkeypatch.setattr(tis, "fused_conv1_pool_plain", plain)
     monkeypatch.setattr(tis, "fused_conv1_pool_mma", mma)
+    monkeypatch.setattr(tis, "fused_conv1_pool_f32", f32)
     monkeypatch.setattr(tis, "fused_conv1_pool_cuda", cuda)
     return calls
 
@@ -174,12 +181,21 @@ def test_dispatcher_never_sends_cuda_tensor_to_plain(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype, want", [
-    (torch.bfloat16, "mma"), (torch.float32, ("cuda", torch.float32))])
+    (torch.bfloat16, "mma"), (torch.float32, "f32")])
 def test_dispatcher_routes_cuda_tensor_by_dtype(monkeypatch, dtype, want):
-    """bf16 to the mma kernel, fp32 to the CUDA-core kernel, each once."""
+    """bf16 to the mma kernel, fp32 to the fp32 CUDA-core kernel, each
+    once; the first CUDA-core kernel (the yardstick) never."""
     calls = _spy_kernels(monkeypatch)
     tis.fused_conv1_pool(_fake_cuda_tensor(), None, None, dtype)
     assert calls == [want]
+
+
+def test_dispatcher_rejects_other_dtypes_on_cuda(monkeypatch):
+    """fp16 has no kernel: a CUDA tensor raises, reaching no wrapper."""
+    calls = _spy_kernels(monkeypatch)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tis.fused_conv1_pool(_fake_cuda_tensor(), None, None, torch.float16)
+    assert calls == []
 
 
 def test_dispatcher_rejects_other_devices():
@@ -221,6 +237,25 @@ def test_mma_wrapper_rejects(x, w_shape, msg):
                                  torch.zeros(w_shape[0]))
     assert tis.fused_conv1_pool_mma.LAUNCHES == before
     assert dict(tis.fused_conv1_pool_mma.LAUNCHES_AT) == before_at
+
+
+@pytest.mark.parametrize("x, w_shape, msg", [
+    (torch.zeros((1, 4, 4, 3)), (8, 3, 3, 3), "CUDA tensor"),
+    (_bf16((1, 4, 4, 3)), (8, 3, 3, 3), "fp32"),
+    (torch.zeros((1, 4, 4, 3)), (33, 3, 3, 3), "C <= 32"),
+    (torch.zeros((1, 5, 4, 3)), (8, 3, 3, 3), "even"),
+    (torch.zeros((1, 4, 7, 3)), (8, 3, 3, 3), "even"),
+])
+def test_f32_wrapper_rejects(x, w_shape, msg):
+    """A CPU tensor, bf16 x, C = 33 and odd H or W raise before any
+    launch."""
+    before = tis.fused_conv1_pool_f32.LAUNCHES
+    before_at = dict(tis.fused_conv1_pool_f32.LAUNCHES_AT)
+    with pytest.raises(ValueError, match=msg):
+        tis.fused_conv1_pool_f32(x, torch.zeros(w_shape),
+                                 torch.zeros(w_shape[0]))
+    assert tis.fused_conv1_pool_f32.LAUNCHES == before
+    assert dict(tis.fused_conv1_pool_f32.LAUNCHES_AT) == before_at
 
 
 @pytest.mark.parametrize("c_out", [1, 8, 13, 32])

@@ -214,12 +214,59 @@ def test_l1_scores_and_keep_rule_match_jax():
     ({"exact_nms": True}, "exact_nms"),
     ({"diou_nms": True}, "diou_nms"),
     ({"nms_prefilter_impl": "bisect"}, "bisect"),
-    ({"int8_input": True}, "int8"),
+    # int8_input alone is invalid (ValueError, as in JAX)
+    ({"int8_input": True, "forward_fn": lambda p, x, s: x}, "int8"),
     ({"forward_fn": lambda p, x, s: x}, "forward_fn"),
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         tpipe.EvalConfig(device="cpu", **kw)
+
+
+def _fwd(p, x, s):
+    return x
+
+
+@pytest.mark.parametrize("kw, unported", [
+    # invalid for the JAX package: the same exception type from both
+    ({"nms_prefilter_impl": "bogus"}, None),
+    ({"soft_nms": "bogus"}, None),
+    ({"exact_nms": True, "nms_prefilter": 128}, None),
+    ({"soft_nms": "linear", "exact_nms": True}, None),
+    ({"soft_nms": "gaussian", "diou_nms": True}, None),
+    ({"int8_input": True}, None),
+    ({"map_iou": 0.0}, None),
+    # valid in the JAX package, not ported: NotImplementedError naming the
+    # ROADMAP item
+    ({"exact_nms_prefilter": False}, "Queue 1 item 3"),
+    ({"soft_nms": "gaussian", "soft_nms_sigma": 0.3}, "Queue 1 item 3"),
+    ({"exact_nms": True}, "Queue 1 item 3"),
+    ({"diou_nms": True, "diou_beta": 0.6}, "Queue 1 item 3"),
+    ({"nms_prefilter_impl": "bisect", "nms_prefilter": 64},
+     "Queue 1 item 3"),
+    ({"forward_fn": _fwd}, "Queue 1 item 6"),
+    ({"forward_fn": _fwd, "int8_input": True}, "Queue 1 item 6"),
+])
+def test_eval_config_validates_as_jax(kw, unported):
+    """Invalid options raise what the JAX package raises (it checks them
+    before anything else); valid options the port lacks raise
+    NotImplementedError naming their ROADMAP item, and JAX takes them."""
+    if unported is None:
+        with pytest.raises(Exception) as jexc:
+            jpipe.EvalConfig(**kw)
+        with pytest.raises(Exception) as texc:
+            tpipe.EvalConfig(device="cpu", **kw)
+        assert type(texc.value) is type(jexc.value) is ValueError
+    else:
+        jpipe.EvalConfig(**kw)
+        with pytest.raises(NotImplementedError, match=unported):
+            tpipe.EvalConfig(device="cpu", **kw)
+
+
+def test_eval_config_new_fields_default_as_jax():
+    t, j = tpipe.EvalConfig(device="cpu"), jpipe.EvalConfig()
+    for name in ("exact_nms_prefilter", "soft_nms_sigma", "diou_beta"):
+        assert getattr(t, name) == getattr(j, name)
 
 
 def test_unported_criteria_raise():
