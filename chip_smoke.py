@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, magnitude-prune and evaluation paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, magnitude-prune, evaluation and
+fine-tune paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -63,6 +63,34 @@ Phases, each printing JSON lines on stdout:
             value, not an accuracy figure), each path's launches by kernel
             width (C, S), and the host decode time of one 416x416 image
             re-encoded with each PNG row filter.
+8. finetune with ``import cv2`` still made to fail: full-width YOLOv2-VOC
+            (the cfg's batch 64, subdivisions 8, jitter .3, FAST) on phase
+            7's fixture as train and eval list. First the train step alone
+            on fixed batches: steady ms and img/s at 416 with subdivisions
+            8 and 1, and at 320 and 608 (the ends of the multi-scale band
+            the train CLI defaults to) with 8 (CUDA events), peak memory,
+            the share of the bf16 peak at 3 x the conv FLOPs per image, a
+            profiler window (device busy and idle); and, at 416, 320 and
+            608, one step at batch 2 on the card and on the CPU from the
+            same params, in BITMATCH (loss within 1e-5 relative, the last
+            conv's gradient within 1e-4 of its largest magnitude; the
+            BN-side gradients, which fp32 gets only to ~1e-1 at random
+            init, are reported against float64) and in float64 (loss within
+            1e-5 relative, every gradient tensor within 1e-4 of its largest
+            magnitude). Then the CLIs:
+            (a) finetune --preserve-sparsity on phase 6's magnitude-pruned
+            .weights: finite losses, every zero still zero, seen grown by
+            steps x 64, 3 input-stage launches in the final eval; (b)
+            --iterate 0.5,0.75 --iterate-mode magnitude: count / tie /
+            apply launched 64 / 2 / 2 times at S=24, each round's masks
+            with floor(s n) zeros per conv and its pruned weights zero
+            after the round's steps, mask ms against the round's train
+            seconds; (c) --iterate-mode l1_filter: the rounds' evals launch
+            the input stage at C=16, then C=8; (e) the train CLI killed
+            after 2 steps and resumed to 4 (--checkpoint-dir, --resume)
+            against an uninterrupted 4-step run (cuDNN's deterministic
+            algorithms): step, seen and generator equal, params and
+            momentum within 1e-4 of their largest magnitude.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -770,7 +798,7 @@ def _first_batch_equal(torch, kernels, spec, params, samples, names):
 def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
     """The eval CLI, ``evaluate``, the recall audit and the prune sweep
     with --data on the fixture (module docstring, phase 7). Returns each
-    path's launch counts by kernel width."""
+    path's launch counts by kernel width and the fixture's .data path."""
     from modelcompression_tpu_torch.cli import eval as eval_cli
     import numpy as np
     from modelcompression_tpu_torch.cli import prune
@@ -896,6 +924,427 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
                   "seconds": sw_s, "launches": counts}
     emit({"phase": "eval", "ok": True, "card": card, **r,
           "launches_by_width": widths})
+    return widths, data
+
+
+# the fine-tune phase: steps of the single pass, the iterate schedule and
+# its steps per round, the train CLI's interrupted and total steps
+FT_STEPS = 3
+ITER_FRACTIONS = (0.5, 0.75)
+ITER_STEPS = 2
+TRAIN_STEPS = (2, 4)
+TIMED_STEPS = 5
+# the train CLI's multi-scale band for the cfg's [region] random=1
+MULTI_SCALE = (320, 608)
+# card against CPU: one BITMATCH step at batch 2
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_TOL = 1e-4  # of a gradient tensor's largest magnitude
+
+
+def _read_jsonl(path, prefix="train"):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["prefix"] == prefix]
+
+
+def _map_line(out):
+    m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
+                  re.M)
+    check(m, "no mAP summary printed")
+    return float(m.group(1)), int(m.group(2))
+
+
+def _train_batch(torch, b, seed, device, net=NET):
+    """A batch of random uint8 images at ``net`` x ``net`` and targets with
+    1-3 valid boxes each (max_boxes 30)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (b, net, net, 3), np.uint8)
+    targets = np.zeros((b, 30, 5), np.float32)
+    for i in range(b):
+        for m in range(int(rng.integers(1, 4))):
+            targets[i, m] = [rng.integers(0, 20), rng.uniform(0.2, 0.8),
+                             rng.uniform(0.2, 0.8), rng.uniform(0.05, 0.5),
+                             rng.uniform(0.05, 0.5)]
+    return (torch.from_numpy(images).to(device),
+            torch.from_numpy(targets).to(device))
+
+
+def train_step_timing(torch, spec, params, subdivisions, net=NET):
+    """The FAST train step (the cfg's augment: jitter .3 and flip) at
+    batch 64 on a fixed device batch at ``net`` x ``net`` (416, or a
+    multi-scale size): steady ms per step from CUDA events
+    over TIMED_STEPS steps after two warm-up steps, the host's time to
+    enqueue them, peak device memory, and the share of the bf16 peak
+    counting 3 x the conv FLOPs per image (forward, and the backward's two
+    products)."""
+    from modelcompression_tpu_torch.models import num_conv_flops, params_to
+    from modelcompression_tpu_torch.train import (
+        TrainConfig, TrainState, make_optimizer, make_train_step,
+    )
+    config = TrainConfig.from_spec(spec, subdivisions=subdivisions)
+    state = TrainState.create(params_to(params, "cuda"),
+                              make_optimizer(config),
+                              torch.Generator().manual_seed(SEED))
+    step = make_train_step(spec, config)
+    images, targets = _train_batch(torch, BATCH, SEED, "cuda", net)
+    losses = [float(step(state, images, targets)[1]["loss"])
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        _, m = step(state, images, targets)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    end.synchronize()
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    losses.append(float(m["loss"]))
+    check(all(math.isfinite(v) for v in losses),
+          f"train step (subdivisions {subdivisions}, {net}): losses {losses}")
+    # the conv FLOPs scale with the pixels
+    gflop_img = 3 * num_conv_flops(spec) * (net / NET) ** 2 / 1e9
+    return {"net": net, "subdivisions": subdivisions, "batch": BATCH,
+            "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
+            "host_enqueue_ms_per_step": enqueue_ms,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "train_gflop_per_img": gflop_img,
+            "bf16_peak_share": gflop_img * 1e9 * BATCH / (ms * 1e-3)
+                               / PEAK_OPS_PER_S["bfloat16"],
+            "losses": losses, "config": {
+                "jitter": config.augment_jitter, "flip": config.augment_flip,
+                "lr": config.learning_rate,
+                "precision": config.precision.name}}
+
+
+def _train_profile(torch, spec, params):
+    """A profiler window over 2 steps at subdivisions 1: device busy and
+    idle share, device operations per step, top kernels."""
+    from modelcompression_tpu_torch.cli._profiling import profile_window
+    from modelcompression_tpu_torch.models import params_to
+    from modelcompression_tpu_torch.train import (
+        TrainConfig, TrainState, make_optimizer, make_train_step,
+    )
+    config = TrainConfig.from_spec(spec, subdivisions=1)
+    state = TrainState.create(params_to(params, "cuda"),
+                              make_optimizer(config),
+                              torch.Generator().manual_seed(SEED))
+    step = make_train_step(spec, config)
+    images, targets = _train_batch(torch, BATCH, SEED, "cuda")
+    summary, _ = profile_window(lambda: step(state, images, targets),
+                                steps=2)
+    return summary
+
+
+def step_card_vs_cpu(torch, spec, params, net=NET):
+    """One train step at batch 2 and ``net`` x ``net``, augment off,
+    subdivisions 1, from the same params on the card and on the CPU: in
+    BITMATCH (fp32, TF32 off) and in float64.
+
+    BITMATCH: the loss must agree within 1e-5 relative, and the last conv's
+    gradient (a product of the loss gradient and its input, no BN below
+    it) within 1e-4 of its largest magnitude. The other fp32 gradients
+    pass through batch-statistics BN backwards whose terms nearly cancel at
+    random init, so fp32 gets them only to ~1e-1 of their largest
+    magnitude on either device: their distances from the float64 step are
+    reported, not held. Float64: the same step on both devices (cuDNN's
+    fp64 convs on the card), where the cancellation costs nothing the
+    tolerance sees: the loss within 1e-5 relative and every gradient
+    tensor within 1e-4 of its largest magnitude."""
+    import statistics
+
+    from modelcompression_tpu_torch.core.precision import BITMATCH, Precision
+    from modelcompression_tpu_torch.train import (
+        TrainConfig, TrainState, make_optimizer, make_train_step,
+    )
+    f64 = Precision(name="float64", compute_dtype=torch.float64,
+                    param_dtype=torch.float64)
+    images, targets = _train_batch(torch, 2, SEED + 2, "cpu", net)
+    # normalized once, on the CPU, so both devices get the same floats: the
+    # card's uint8 / 255 multiplies by the reciprocal and is one ulp off the
+    # CPU's quotient in about half the pixels, which alone moves a float64
+    # step's gradients by up to 5e-2 of their largest magnitude
+    images = images.float() / 255.0
+    res = {}
+    for label, dev, prec in (("cpu", "cpu", BITMATCH),
+                             ("cuda", "cuda", BITMATCH),
+                             ("cpu_f64", "cpu", f64),
+                             ("cuda_f64", "cuda", f64)):
+        config = TrainConfig.from_spec(spec, precision=prec, subdivisions=1,
+                                       augment_flip=False,
+                                       augment_jitter=0.0)
+        p = {k: {n: v.to(dev, prec.compute_dtype) for n, v in q.items()}
+             for k, q in params.items()}
+        state = TrainState.create(p, make_optimizer(config),
+                                  torch.Generator().manual_seed(SEED))
+        t0 = time.perf_counter()
+        state, m = make_train_step(spec, config)(state, images, targets)
+        res[label] = {"loss": float(m["loss"]),
+                      "s": time.perf_counter() - t0,
+                      "grads": {f"{k}/{n}": v.grad.detach().double().cpu()
+                                for k, q in state["params"].items()
+                                for n, v in q.items() if v.grad is not None}}
+    check(len({frozenset(r["grads"]) for r in res.values()}) == 1,
+          "gradient sets differ")
+
+    def loss_rel(card, cpu):
+        rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        check(math.isfinite(cpu["loss"]) and rel <= STEP_LOSS_RTOL,
+              f"step at {net}: loss card {card['loss']} CPU {cpu['loss']} "
+              f"(rel {rel} > {STEP_LOSS_RTOL})")
+        return rel
+
+    def err(a, b):
+        return {key: _max_rel(a[key], b[key]) for key in b}
+
+    cpu, card = res["cpu"], res["cuda"]
+    rel32 = loss_rel(card, cpu)
+    rel64 = loss_rel(res["cuda_f64"], res["cpu_f64"])
+    card_cpu = err(card["grads"], cpu["grads"])
+    last = f"conv{spec.conv_indices()[-1]}/w"
+    check(card_cpu[last] <= STEP_GRAD_TOL, f"BITMATCH step at {net}: {last} "
+          f"differs by {card_cpu[last]} of its max |g| (> {STEP_GRAD_TOL})")
+    card_cpu64 = err(res["cuda_f64"]["grads"], res["cpu_f64"]["grads"])
+    worst64 = max(card_cpu64, key=card_cpu64.get)
+    check(card_cpu64[worst64] <= STEP_GRAD_TOL,
+          f"float64 step at {net}: {worst64} differs by "
+          f"{card_cpu64[worst64]} of its max |g| (> {STEP_GRAD_TOL})")
+    ref = res["cpu_f64"]["grads"]
+    to_f64 = {d: err(res[d]["grads"], ref) for d in ("cuda", "cpu")}
+    top = sorted(card_cpu, key=card_cpu.get, reverse=True)[:3]
+    return {"net": net, "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+            "loss_rel": rel32, "loss_f64_cpu": res["cpu_f64"]["loss"],
+            "loss_f64_card": res["cuda_f64"]["loss"], "loss_f64_rel": rel64,
+            "last_conv_grad_err_over_max_g": card_cpu[last],
+            "f64_grad_worst": {worst64: card_cpu64[worst64]},
+            "f64_grad_median": statistics.median(card_cpu64.values()),
+            "grad_card_vs_cpu_worst": {k: card_cpu[k] for k in top},
+            "fp32_grad_vs_f64_worst": {d: max(e.values())
+                                       for d, e in to_f64.items()},
+            "fp32_grad_vs_f64_median": {d: statistics.median(e.values())
+                                        for d, e in to_f64.items()},
+            "grad_tensors": len(ref),
+            "step_s": {d: res[d]["s"] for d in res}}
+
+
+def _max_rel(a, b):
+    """Largest |a - b| over the largest |b| (0 when both are zero)."""
+    scale = b.abs().max().item()
+    diff = (a - b).abs().max().item()
+    return diff / scale if scale else diff
+
+
+def phase_finetune(torch, kernels, card, tmp, data, weights):
+    """The fine-tune and train CLIs on full-width YOLOv2-VOC and the 160-
+    image fixture (module docstring, phase 8). Returns each path's launch
+    counts by kernel width."""
+    from modelcompression_tpu_torch.cli import finetune
+    from modelcompression_tpu_torch.cli import train as train_cli
+    from modelcompression_tpu_torch.models import (
+        cfg_path, load_cfg, load_weights,
+    )
+    from modelcompression_tpu_torch.train import loop
+    from modelcompression_tpu_torch.utils.checkpoint import (
+        latest_checkpoint, load_checkpoint,
+    )
+    cfg = cfg_path("yolov2-voc.cfg")
+    spec = load_cfg(cfg)
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    base = ["--cfg", cfg, "--data", data, "--batch", str(BATCH),
+            "--subdivisions", str(spec.net.subdivisions), "--device", "cuda"]
+    r, widths = {"card": card}, {}
+    params, _ = load_weights(weights, spec)
+
+    # train-step figures (library level, fixed device batches), each
+    # printed as soon as it is measured: at 416, and at the smallest and
+    # largest sizes of the cfg's multi-scale band (the train CLI's default;
+    # its host resize needs cv2, blocked here)
+    sub = spec.net.subdivisions
+    for key, fn in (("timing", lambda: [
+                        train_step_timing(torch, spec, params, s, n)
+                        for s, n in ((sub, NET), (1, NET),
+                                     (sub, MULTI_SCALE[0]),
+                                     (sub, MULTI_SCALE[1]))]),
+                    ("profile_subdivisions_1",
+                     lambda: _train_profile(torch, spec, params)),
+                    ("card_vs_cpu",
+                     lambda: [step_card_vs_cpu(torch, spec, params, n)
+                              for n in (NET, *MULTI_SCALE)])):
+        r[key] = fn()
+        emit({"phase": "finetune", "part": key, "card": card,
+              key: r[key]})
+
+    def expect(counts, at, label, want, want_at):
+        full = {name: want.get(name, 0) for name, _ in kernels}
+        check(counts == full, f"{label}: launches {counts}, expected {full}")
+        for name, by in want_at.items():
+            check(at[name] == by, f"{label}: {name} launches by width "
+                  f"{at[name]}, expected {by}")
+
+    # (a) single pass on phase 6's magnitude-pruned weights
+    pruned = os.path.join(tmp, "magnitude.weights")
+    out_a = os.path.join(tmp, "ft.weights")
+    log_a = os.path.join(tmp, "ft.jsonl")
+    out, counts, at, secs = _run_cli(
+        torch, kernels, finetune.main,
+        base + ["--weights", pruned, "--steps", str(FT_STEPS),
+                "--preserve-sparsity", "--out", out_a, "--log-jsonl", log_a],
+        "finetune --preserve-sparsity")
+    widths["finetune"] = at
+    c1 = spec.layers[0].filters
+    expect(counts, at, "finetune --preserve-sparsity",
+           {"input_stage_mma": n_batches},
+           {"input_stage_mma": {c1: n_batches}})
+    losses = [rec["loss"] for rec in _read_jsonl(log_a)]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"finetune: logged losses {losses}")
+    src, seen0 = load_weights(pruned, spec)
+    got, seen1 = load_weights(out_a, spec)
+    check(seen1 == seen0 + FT_STEPS * BATCH,
+          f"finetune: seen {seen0} -> {seen1}")
+    n_zero = moved = 0
+    for k, p in src.items():
+        zero = p["w"] == 0
+        check(not got[k]["w"][zero].any(), f"finetune: {k} lost a zero")
+        n_zero += int(zero.sum())
+        moved += int((got[k]["w"] != p["w"]).sum())
+    check(moved > 0, "finetune: no weight moved")
+    r["single_pass"] = {"steps": FT_STEPS, "seconds": secs,
+                        "losses": losses, "zeros_kept": n_zero,
+                        "weights_moved": moved, "seen": [seen0, seen1],
+                        "map50_pct": _map_line(out)[0], "launches": counts}
+
+    # (b) magnitude iterate, each round's masks timed and checked
+    timings = {"mask_ms": [], "train_s": []}
+    orig_mask_fn, orig_train = loop.magnitude_mask_fn, loop.train
+
+    def timed_mask_fn(mode, backend):
+        fn = orig_mask_fn(mode, backend)
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timings["mask_ms"].append((time.perf_counter() - t0) * 1e3)
+            return masks
+        return run
+
+    def timed_train(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = orig_train(*a, **kw)
+        torch.cuda.synchronize()
+        timings["train_s"].append(time.perf_counter() - t0)
+        return state
+
+    ck_b = os.path.join(tmp, "ck_magnitude")
+    iterate = ["--steps", str(ITER_STEPS), "--iterate",
+               ",".join(map(str, ITER_FRACTIONS))]
+    loop.magnitude_mask_fn, loop.train = timed_mask_fn, timed_train
+    try:
+        out, counts, at, secs = _run_cli(
+            torch, kernels, finetune.main,
+            base + ["--weights", weights, *iterate, "--iterate-mode",
+                    "magnitude", "--ckpt-dir", ck_b,
+                    "--out", os.path.join(tmp, "mag.weights")],
+            "finetune --iterate magnitude")
+    finally:
+        loop.magnitude_mask_fn, loop.train = orig_mask_fn, orig_train
+    widths["iterate_magnitude"] = at
+    n_r = len(ITER_FRACTIONS)
+    prune_want = {name: n_r * n for name, n in PRUNE_LAUNCHES.items()}
+    s_layer = len(spec.conv_indices()) + 1  # + the padding segment
+    expect(counts, at, "finetune --iterate magnitude",
+           dict(prune_want, input_stage_mma=n_r * n_batches),
+           {name: {s_layer: n} for name, n in prune_want.items()})
+    rounds = []
+    for ridx, frac in enumerate(ITER_FRACTIONS):
+        _, saved, meta = load_checkpoint(os.path.join(ck_b,
+                                                      f"step_{ridx:08d}"))
+        check(meta["fraction"] == frac, f"round {ridx} meta {meta}")
+        for k, m in saved["weight_masks"].items():
+            check(int((~m).sum()) == int(frac * m.numel()),
+                  f"round {ridx}: {k} has {int((~m).sum())} zeros in its "
+                  f"mask, expected {int(frac * m.numel())}")
+            check(not saved["params"][k]["w"][~m].any(),
+                  f"round {ridx}: {k} has a pruned weight off zero")
+        rounds.append({"fraction": frac, "mask_ms": timings["mask_ms"][ridx],
+                       "train_s": timings["train_s"][ridx],
+                       "map50": meta["metrics"]["map50"]})
+    r["iterate_magnitude"] = {"steps_per_round": ITER_STEPS,
+                              "seconds": secs, "rounds": rounds,
+                              "launches": counts}
+
+    # (c) filter iterate: the evals run the input stage at each width
+    out, counts, at, secs = _run_cli(
+        torch, kernels, finetune.main,
+        base + ["--weights", weights, *iterate, "--iterate-mode",
+                "l1_filter", "--out", os.path.join(tmp, "slim.weights")],
+        "finetune --iterate l1_filter")
+    widths["iterate_l1_filter"] = at
+    c_rounds = [int(round(c1 * (1 - f))) for f in ITER_FRACTIONS]
+    expect(counts, at, "finetune --iterate l1_filter",
+           {"input_stage_mma": n_r * n_batches},
+           {"input_stage_mma": {c: n_batches for c in c_rounds}})
+    slim = load_cfg(os.path.join(tmp, "slim.cfg"))
+    check(slim.layers[0].filters == c_rounds[-1],
+          f"slim cfg conv1 filters {slim.layers[0].filters}")
+    r["iterate_l1_filter"] = {"conv1_filters": c_rounds, "seconds": secs,
+                              "launches_by_c": at["input_stage_mma"]}
+
+    # (e) the train CLI: killed after 2 steps and resumed to 4, against an
+    # uninterrupted 4-step run. At 416: the cfg's multi-scale resizes on the
+    # host with cv2, blocked here (the step at 320 and 608 runs above)
+    t_base = base + ["--no-multi-scale"]
+    ck_a, ck_r = os.path.join(tmp, "ck_a"), os.path.join(tmp, "ck_r")
+    runs = (("uninterrupted", ["--steps", str(TRAIN_STEPS[1]),
+                               "--checkpoint-dir", ck_a]),
+            ("killed", ["--steps", str(TRAIN_STEPS[0]),
+                        "--checkpoint-dir", ck_r]),
+            ("resumed", ["--steps", str(TRAIN_STEPS[1]),
+                         "--checkpoint-dir", ck_r, "--resume"]))
+    train_s = {}
+    # cuDNN's deterministic algorithms, so that the same computation gives
+    # the same floats in both runs: the BN backwards amplify a reordered
+    # sum (see step_card_vs_cpu)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, extra in runs:
+            out, counts, at, train_s[label] = _run_cli(
+                torch, kernels, train_cli.main, t_base + extra,
+                f"train ({label})")
+            expect(counts, at, f"train ({label})", {}, {})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    widths["train_resume"] = at
+    check("resumed" in out, "the resumed train run did not resume")
+    _, sa, _ = load_checkpoint(latest_checkpoint(ck_a))
+    _, sb, _ = load_checkpoint(latest_checkpoint(ck_r))
+    check(sa["step"] == sb["step"] == TRAIN_STEPS[1]
+          and sa["seen"] == sb["seen"] == TRAIN_STEPS[1] * BATCH,
+          f"train: step/seen {sa['step']}/{sa['seen']} vs "
+          f"{sb['step']}/{sb['seen']}")
+    check(torch.equal(sa["rng"].get_state(), sb["rng"].get_state()),
+          "train: generator state differs after the resume")
+    worst = {"params": 0.0, "momentum": 0.0}
+    for k, p in sa["params"].items():
+        for n, v in p.items():
+            worst["params"] = max(worst["params"],
+                                  _max_rel(sb["params"][k][n], v))
+    for i, st in sa["optimizer"]["state"].items():
+        worst["momentum"] = max(worst["momentum"], _max_rel(
+            sb["optimizer"]["state"][i]["momentum_buffer"],
+            st["momentum_buffer"]))
+    check(max(worst.values()) <= STEP_GRAD_TOL,
+          f"train: resumed run differs from the uninterrupted one {worst}")
+    r["train_resume"] = {"steps": list(TRAIN_STEPS), "seconds": train_s,
+                         "max_err_over_max": worst}
+    emit({"phase": "finetune", "ok": True, **r,
+          "launches_by_width": widths})
     return widths
 
 
@@ -906,7 +1355,8 @@ TOPK_ENTRIES = (
 )
 
 
-def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
+def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
+                   ft_widths):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -922,12 +1372,16 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
     whole 31-launch bisection's ``bisection_ms``; in global mode their
     ``library_ms`` is torch.kthvalue on the |w| vector, the call that finds
     the same k-th |w|, so it compares with ``bisection_ms`` (marked by
-    ``library_computes``). ``eval_launches`` counts each case's launches
-    on each of the eval phase's paths, read from the wrappers' counts by
-    width (C or S)."""
+    ``library_computes``). ``eval_launches`` and ``finetune_launches``
+    count each case's launches on each path of the eval and finetune
+    phases, read from the wrappers' counts by width (C or S)."""
     def on_eval(source, width):
         return {path: at[source].get(width, 0)
                 for path, at in eval_widths.items()}
+
+    def on_finetune(source, width):
+        return {path: at[source].get(width, 0)
+                for path, at in ft_widths.items()}
 
     entries = []
     for c_out, dtype, name, model in (
@@ -947,7 +1401,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "prev_ms": r["prev_ms"],
             "prev_max_abs_err": r["prev_max_abs_err"],
-            "eval_launches": on_eval(source, c_out)})
+            "eval_launches": on_eval(source, c_out),
+            "finetune_launches": on_finetune(source, c_out)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -957,7 +1412,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
         "max_abs_err": r["prev_max_abs_err"], "ms": r["prev_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "eval_launches": on_eval(YARDSTICK, 32)})
+        "eval_launches": on_eval(YARDSTICK, 32),
+        "finetune_launches": on_finetune(YARDSTICK, 32)})
     for s, mode in ((24, "magnitude"), (2, "global")):
         r = topk[(s, "random")]
         for key, source, body in TOPK_ENTRIES:
@@ -970,7 +1426,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths):
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": None,
-                "eval_launches": on_eval(source, s)}
+                "eval_launches": on_eval(source, s),
+                "finetune_launches": on_finetune(source, s)}
             if key == "count_le":
                 entry["bisection_ms"] = r["bisection_ms"]
                 if r["kthvalue_ms"] is not None:
@@ -1014,10 +1471,13 @@ def main() -> int:
             prune_launches, prune_widths, weights = phase_prune(
                 torch, KERNELS, card, tmp)
             with without_cv2():
-                eval_widths = phase_eval(torch, KERNELS, card, tmp, weights,
-                                         prune_widths)
+                eval_widths, data = phase_eval(torch, KERNELS, card, tmp,
+                                               weights, prune_widths)
+                ft_widths = phase_finetune(torch, KERNELS, card, tmp, data,
+                                           weights)
         emit({"kernels": kernel_entries(cases, launches, topk,
-                                        prune_launches, eval_widths)})
+                                        prune_launches, eval_widths,
+                                        ft_widths)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

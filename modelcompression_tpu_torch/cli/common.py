@@ -1,5 +1,5 @@
-"""Shared CLI plumbing, the serving, pruning and evaluation subset of
-``modelcompression_tpu/cli/common.py``."""
+"""Shared CLI plumbing, the serving, pruning, evaluation and training
+subset of ``modelcompression_tpu/cli/common.py``."""
 
 from __future__ import annotations
 
@@ -69,6 +69,57 @@ def load_dataset(args):
     names = read_names(cfg["names"]) if "names" in cfg else list(VOC_CLASSES)
     key = "valid" if "valid" in cfg else "train"
     return load_list_dataset(cfg[key]), names
+
+
+def load_train_dataset(args):
+    """(samples, class_names) for training: a COCO json, a VOCdevkit root
+    (its ``trainval`` set unless --image-set names another than the eval
+    default ``test``), or a ``.data`` file's train= list (valid= if it has
+    none)."""
+    data = args.data
+    if data.endswith(".json"):
+        from modelcompression_tpu_torch.data.coco import load_coco_json
+        return load_coco_json(data,
+                              image_dir=getattr(args, "image_dir", None))
+    if os.path.isdir(data):
+        image_set = getattr(args, "image_set", None)
+        if not image_set or image_set == "test":
+            image_set = "trainval"
+        return (load_voc_devkit(data, image_set=image_set),
+                list(VOC_CLASSES))
+    cfg = read_data_cfg(data)
+    names = read_names(cfg["names"]) if "names" in cfg else list(VOC_CLASSES)
+    key = "train" if "train" in cfg else "valid"
+    return load_list_dataset(cfg[key]), names
+
+
+def resolve_batch_subdivisions(args, spec):
+    """Darknet's effective-batch semantics for the train and finetune CLIs
+    ([net] batch/subdivisions).
+
+    An explicit --batch without --subdivisions is the per-update batch in
+    one forward; only the cfg-default path inherits the cfg's
+    subdivisions. Explicit values are tested with ``is not None``, so
+    ``--batch 0`` / ``--subdivisions 0`` are rejected rather than falling
+    back to the cfg.
+
+    Returns (batch, subdivisions); raises ValueError on invalid combos.
+    """
+    if args.batch is not None and args.subdivisions is None:
+        subdiv = 1
+    elif args.subdivisions is not None:
+        subdiv = args.subdivisions
+    else:
+        subdiv = spec.net.subdivisions
+    batch = args.batch if args.batch is not None else spec.net.batch
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if subdiv < 1:
+        raise ValueError(f"subdivisions must be >= 1, got {subdiv}")
+    if batch % subdiv:
+        raise ValueError(f"batch {batch} must be divisible by "
+                         f"subdivisions {subdiv}")
+    return batch, subdiv
 
 
 # the measured deployment configuration of the serving headline (conf

@@ -1,0 +1,339 @@
+"""Fine-tune CLI, port of ``modelcompression_tpu/cli/finetune.py``:
+post-prune fine-tuning on --device (default cuda; a missing CUDA device is
+an error). With ``--preserve-sparsity`` the zero pattern of the loaded
+(pruned) weights becomes the fine-tune mask, so pruned weights stay
+exactly zero through training. ``--iterate 0.25,0.5,0.75`` drives the
+iterative prune -> fine-tune -> eval loop: ``l1_filter`` repacks each
+round (and writes the slimmed cfg), ``magnitude`` / ``global`` recompute
+the masks each round through the hand-written top-k kernels on CUDA.
+Each run ends with an eval (FAST, batch --batch) of the written model.
+
+The command lines of the JAX CLI run unchanged: its validations come
+first, with its messages and exit code 2. Not ported yet, each then
+rejected with exit code 2 naming its ROADMAP item: --gmp, --qat,
+--save-qmodel, --pack and --distill (Queue 1 item 6); --iterate-mode
+bn_gamma, fpgm, taylor and --tied group (item 5), lamp (item 6); --dp /
+--tp above 1 (item 7).
+
+Example:
+  python -m modelcompression_tpu_torch.cli.finetune --cfg slim.cfg \\
+      --weights slim.weights --data voc.data --steps 1000 \\
+      --preserve-sparsity
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import torch
+
+from modelcompression_tpu_torch.cli.common import (
+    add_data_args, add_model_args, add_parallel_args, load_dataset,
+    load_model, load_train_dataset, resolve_batch_subdivisions,
+    resolve_mask_backend,
+)
+from modelcompression_tpu_torch.compress import (
+    DEFAULT_MASK_BACKEND, MASK_BACKENDS,
+)
+from modelcompression_tpu_torch.core.device import resolve_device
+from modelcompression_tpu_torch.evaluation import EvalConfig, evaluate
+from modelcompression_tpu_torch.models import (
+    dump_cfg, params_to, save_weights,
+)
+from modelcompression_tpu_torch.models.cfg import ConvLayer
+from modelcompression_tpu_torch.train import (
+    BatchLoader, TrainConfig, TrainState, iterative_prune_finetune,
+    make_optimizer, train,
+)
+from modelcompression_tpu_torch.train.loop import (
+    NOT_PORTED_MODES, STRUCTURED_MODES,
+)
+from modelcompression_tpu_torch.utils.logging import MetricsLogger
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="finetune", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_model_args(p)
+    add_data_args(p)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="device the model trains and evaluates on (default "
+                        "cuda; a missing CUDA device is an error)")
+    p.add_argument("--steps", type=int, required=True,
+                   help="fine-tune steps (per round when iterating)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="EFFECTIVE batch per weight update "
+                        "(default: cfg batch=)")
+    p.add_argument("--subdivisions", type=int, default=None,
+                   help="micro-batches accumulated per update (default: "
+                        "cfg subdivisions=; 1 = whole batch in one "
+                        "forward)")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--max-boxes", type=int, default=30)
+    p.add_argument("--mosaic", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="4-image mosaic augmentation. Default: the "
+                        "cfg's [net] mosaic= flag")
+    p.add_argument("--hsv", action="store_true",
+                   help="Darknet HSV distortion (knobs from the cfg's "
+                        "[net] hue/saturation/exposure)")
+    p.add_argument("--jitter", type=float, default=None,
+                   help="Darknet crop-jitter fraction in [0, 0.5); "
+                        "default: the cfg's [region] jitter value; "
+                        "pass 0 to disable")
+    p.add_argument("--freeze", type=int, default=0, metavar="N",
+                   help="freeze the first N conv layers (Darknet .conv.N "
+                        "counting): inference BN on running stats, no "
+                        "gradient or weight/stat updates")
+    p.add_argument("--ema", type=float, default=None, metavar="DECAY",
+                   help="maintain an exponential moving average of the "
+                        "weights (ema = d*ema + (1-d)*w after every "
+                        "update) and SAVE/EVAL the EMA model. Single-pass "
+                        "mode only (not --iterate)")
+    p.add_argument("--bn-l1", type=float, default=0.0,
+                   help="network-slimming sparsity training: add this L1 "
+                        "penalty on all BN gammas; 0 = off")
+    p.add_argument("--preserve-sparsity", action="store_true",
+                   help="freeze the zero pattern of the loaded weights")
+    p.add_argument("--gmp", type=float, default=None, metavar="SPARSITY",
+                   help="gradual magnitude pruning (not ported yet)")
+    p.add_argument("--gmp-begin", type=int, default=0)
+    p.add_argument("--gmp-end", type=int, default=None)
+    p.add_argument("--gmp-freq", type=int, default=100)
+    p.add_argument("--gmp-initial", type=float, default=0.0)
+    p.add_argument("--gmp-global", action="store_true")
+    p.add_argument("--distill", default=None, metavar="WEIGHTS",
+                   help="knowledge-distillation teacher (not ported yet)")
+    p.add_argument("--distill-cfg", default=None)
+    p.add_argument("--distill-weight", type=float, default=1.0)
+    p.add_argument("--distill-temp", type=float, default=1.0)
+    p.add_argument("--qat", action="store_true",
+                   help="quantization-aware fine-tune (not ported yet)")
+    p.add_argument("--qat-layers", default="all")
+    p.add_argument("--qat-calib-images", type=int, default=8)
+    p.add_argument("--qat-quantile", type=float, default=None)
+    p.add_argument("--save-qmodel", default=None, metavar="PATH",
+                   help="with --qat: the int8 artifact (not ported yet)")
+    p.add_argument("--pack", nargs="?", const="huffman", default=None,
+                   choices=("huffman", "fixed"), metavar="METHOD",
+                   help="with --save-qmodel (not ported yet)")
+    p.add_argument("--iterate", default=None,
+                   help="comma list of cumulative prune fractions for the "
+                        "iterative loop, e.g. 0.25,0.5,0.75")
+    p.add_argument("--iterate-mode", default="l1_filter",
+                   choices=("l1_filter", "bn_gamma", "fpgm", "taylor",
+                            "magnitude", "global", "lamp"))
+    p.add_argument("--tied", default="protect",
+                   choices=("protect", "group"),
+                   help="residual-graph policy for the structured "
+                        "--iterate modes ('group' is not ported yet)")
+    p.add_argument("--mask-backend", default=DEFAULT_MASK_BACKEND,
+                   choices=MASK_BACKENDS,
+                   help="magnitude/global mask implementation for "
+                        "--iterate (fused/pallas: the hand-written kernels "
+                        "on CUDA | reference: the argsort definition)")
+    p.add_argument("--use-pallas", action="store_true",
+                   help="alias for --mask-backend pallas")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="save a checkpoint after every iterative round")
+    p.add_argument("--resume", action="store_true",
+                   help="resume the iterative loop from the latest round "
+                        "checkpoint in --ckpt-dir")
+    p.add_argument("--out", required=True, help="output .weights path")
+    p.add_argument("--out-cfg", default=None,
+                   help="output .cfg (written when iterating with repack)")
+    p.add_argument("--log-jsonl", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    add_parallel_args(p)
+    return p
+
+
+def _usage_error(args, spec) -> str | None:
+    """The JAX CLI's checks after loading, in its order (its messages)."""
+    if args.tied == "group" and (
+            not args.iterate or args.iterate_mode not in STRUCTURED_MODES):
+        return ("--tied group requires --iterate with a structured "
+                "mode (l1_filter | bn_gamma | fpgm | taylor); the masked "
+                "modes have no keep-sets to tie")
+    if args.preserve_sparsity and args.iterate:
+        return ("--preserve-sparsity cannot be combined with "
+                "--iterate (the iterative loop re-derives its own masks/"
+                "keep-sets each round)")
+    if args.gmp is not None and (args.preserve_sparsity or args.iterate):
+        return ("--gmp is a standalone sparsification schedule — it "
+                "recomputes its own masks, so it cannot be combined with "
+                "--preserve-sparsity or --iterate")
+    if args.gmp is not None and args.qat:
+        return ("--gmp cannot be combined with --qat (the activation "
+                "grids are calibrated on the dense model and would go stale "
+                "as the sparsity ramps; run GMP first, then QAT the sparse "
+                "model)")
+    if args.qat and args.iterate:
+        return ("--qat cannot be combined with --iterate (each "
+                "repack round changes the architecture, so the calibrated "
+                "activation grids would go stale; run the iterative prune "
+                "loop first, then QAT the slimmed model)")
+    if args.save_qmodel and not args.qat:
+        return ("--save-qmodel requires --qat (it exports the "
+                "trained int8 deployment; for PTQ use eval --int8 "
+                "--save-qmodel)")
+    if args.pack and not args.save_qmodel:
+        return ("--pack entropy-codes a saved artifact; it "
+                "requires --save-qmodel")
+    n_convs = sum(1 for l in spec.layers if isinstance(l, ConvLayer))
+    if not 0 <= args.freeze < n_convs:
+        return (f"--freeze {args.freeze} must leave at least one "
+                f"trainable conv (network has {n_convs})")
+    if args.ema is not None:
+        if not 0.0 < args.ema < 1.0:
+            return f"--ema decay must be in (0, 1), got {args.ema}"
+        if args.iterate:
+            return ("--ema is single-pass only: the iterative loop "
+                    "repacks the architecture each round, which would "
+                    "orphan the EMA buffers")
+    if args.jitter is not None and not 0.0 <= args.jitter < 0.5:
+        return f"--jitter must be in [0, 0.5), got {args.jitter}"
+    try:
+        resolve_batch_subdivisions(args, spec)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _not_ported(args) -> str | None:
+    """The first option the command line needs that is not ported yet,
+    with its ROADMAP item, or None."""
+    mode = args.iterate_mode if args.iterate else None
+    for flag, on, item in (
+            ("--gmp", args.gmp is not None, 6), ("--qat", args.qat, 6),
+            ("--save-qmodel", args.save_qmodel, 6), ("--pack", args.pack, 6),
+            ("--distill", args.distill, 6),
+            ("--dp", args.dp > 1, 7), ("--tp", args.tp > 1, 7),
+            (f"--iterate-mode {mode}", mode in NOT_PORTED_MODES,
+             NOT_PORTED_MODES.get(mode)),
+            ("--tied group", args.tied == "group", 5)):
+        if on:
+            return (f"{flag} is not ported to the PyTorch package yet "
+                    f"(ROADMAP Queue 1 item {item})")
+    return None
+
+
+def _to_cpu(params):
+    return params_to({k: {n: v.detach() for n, v in p.items()}
+                      for k, p in params.items()}, "cpu")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    args.mask_backend = resolve_mask_backend(args)
+    device = resolve_device(args.device)  # no CUDA: raise before reading
+    spec, params, seen = load_model(args)
+    samples, names = load_train_dataset(args)
+    if not samples:
+        print("error: dataset is empty", file=sys.stderr)
+        return 2
+    eval_samples, eval_names = load_dataset(args)
+    if not eval_samples:
+        print("error: eval dataset is empty (check the .data valid= list "
+              "or the devkit image set) — refusing to train for nothing",
+              file=sys.stderr)
+        return 2
+    why = _usage_error(args, spec) or _not_ported(args)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return 2
+    batch, subdiv = resolve_batch_subdivisions(args, spec)
+
+    overrides = {}
+    if args.ema is not None:
+        overrides["ema_decay"] = args.ema
+    if args.lr is not None:
+        overrides["learning_rate"] = args.lr
+    if args.jitter is not None:
+        overrides["augment_jitter"] = args.jitter
+    mosaic = args.mosaic if args.mosaic is not None else spec.net.mosaic
+    config = TrainConfig.from_spec(spec, max_boxes=args.max_boxes,
+                                   augment_mosaic=mosaic,
+                                   augment_hsv=args.hsv,
+                                   subdivisions=subdiv, bn_l1=args.bn_l1,
+                                   freeze_prefix=args.freeze, **overrides)
+    loader = BatchLoader(samples, batch_size=batch,
+                         net_h=spec.net.height, net_w=spec.net.width,
+                         max_boxes=args.max_boxes, seed=args.seed,
+                         device=device)
+    logger = MetricsLogger(jsonl_path=args.log_jsonl)
+    eval_cfg = EvalConfig(batch_size=batch, device=args.device)
+    dev_params = params_to(params, device)
+
+    if args.iterate:
+        fractions = [float(x) for x in args.iterate.split(",") if x]
+
+        def eval_fn(s, p):
+            res = evaluate(p, s, eval_samples, eval_names, eval_cfg)
+            print(res.summary())
+            return {"map50": res.map50}
+
+        rounds = iterative_prune_finetune(
+            spec, dev_params, config, loader, fractions=fractions,
+            steps_per_round=args.steps, eval_fn=eval_fn,
+            mode=args.iterate_mode,
+            rng=torch.Generator().manual_seed(args.seed), logger=logger,
+            ckpt_dir=args.ckpt_dir, resume=args.resume, initial_seen=seen,
+            mask_backend=args.mask_backend, tied=args.tied)
+        if not rounds:
+            print("nothing to do: all rounds already checkpointed")
+            return 0
+        final = rounds[-1]
+        save_weights(args.out, final.spec, _to_cpu(final.params),
+                     seen=final.seen)
+        print(f"wrote {args.out}")
+        if args.iterate_mode in STRUCTURED_MODES:
+            out_cfg = args.out_cfg or os.path.splitext(args.out)[0] + ".cfg"
+            with open(out_cfg, "w") as f:
+                f.write(dump_cfg(final.spec))
+            print(f"wrote {out_cfg}")
+        return 0
+
+    weight_masks = {}
+    if args.preserve_sparsity:
+        for k, p in dev_params.items():
+            m = p["w"] != 0
+            if not bool(m.all()):
+                weight_masks[k] = m
+        kept = {k: float(m.float().mean()) for k, m in weight_masks.items()}
+        if kept:
+            print(f"preserving sparsity in {len(kept)} layers "
+                  f"(avg keep {np.mean(list(kept.values())):.2%})")
+        else:
+            print("warning: --preserve-sparsity set but weights are dense",
+                  file=sys.stderr)
+
+    # the header's images-seen counter gates the region loss's early prior
+    # term, which must not re-trigger on a converged model; the UPDATED
+    # count is written back to the output header
+    state = TrainState.create(dev_params, make_optimizer(config),
+                              torch.Generator().manual_seed(args.seed),
+                              weight_masks=weight_masks, seen=seen,
+                              ema=args.ema is not None)
+    state = train(state, spec, config, loader, n_steps=args.steps,
+                  logger=logger)
+    # with --ema the delivered model is the EMA shadow (weights and BN
+    # running stats); the live SGD iterate stays in the state only
+    out_params = state["ema_params"] if args.ema is not None \
+        else state["params"]
+    out_params = _to_cpu(out_params)
+    save_weights(args.out, spec, out_params, seen=state["seen"])
+    print(f"wrote {args.out}"
+          + (f" (EMA weights, decay {args.ema:g})"
+             if args.ema is not None else ""))
+    res = evaluate(out_params, spec, eval_samples, eval_names, eval_cfg)
+    print(res.summary())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -98,12 +98,19 @@ def _conv(x: torch.Tensor, w: torch.Tensor, layer: ConvLayer,
 
 
 def conv_bn_act(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                layer: ConvLayer, precision: Precision) -> torch.Tensor:
-    """Conv + (BN with running stats | bias) + activation, unfolded BN."""
+                layer: ConvLayer, precision: Precision,
+                train_stats: bool = False) -> torch.Tensor:
+    """Conv + (BN | bias) + activation, unfolded BN. BN uses the running
+    statistics, or with ``train_stats`` the batch's own, as the JAX
+    package's two-pass ``jnp.mean`` / ``jnp.var`` in y's dtype."""
     y = _conv(x, p["w"], layer, precision)
     if layer.batch_normalize:
-        mu = p["mean"].to(y.dtype)
-        var = p["var"].to(y.dtype)
+        if train_stats:
+            mu = y.mean(dim=(0, 2, 3))
+            var = (y - mu[None, :, None, None]).square().mean(dim=(0, 2, 3))
+        else:
+            mu = p["mean"].to(y.dtype)
+            var = p["var"].to(y.dtype)
         inv = torch.rsqrt(var.float() + BN_EPS).to(y.dtype)
         y = (y - mu[None, :, None, None]) \
             * _per_channel(p["gamma"].to(y.dtype) * inv, y.dtype) \
@@ -161,12 +168,14 @@ def upsample_nearest(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
 
 
 def _nhwc_out(y: torch.Tensor) -> torch.Tensor:
-    return y.float().permute(0, 2, 3, 1)
+    """A raw map out: NHWC, float32 (or wider, as given)."""
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
+    return y.permute(0, 2, 3, 1)
 
 
 def _forward_impl(params: Params, x: torch.Tensor, spec: NetworkSpec,
                   precision: Precision, folded: bool, channel_masks,
-                  fuse_input_stage: bool = False):
+                  fuse_input_stage: bool = False, train_stats: bool = False):
     precision.apply_backend_flags()
     outputs: List[Optional[torch.Tensor]] = []
     heads: List[torch.Tensor] = []
@@ -202,7 +211,7 @@ def _forward_impl(params: Params, x: torch.Tensor, spec: NetworkSpec,
                 y = _activate(y + _per_channel(p["bias"], y.dtype),
                               l.activation)
             else:
-                y = conv_bn_act(y, p, l, precision)
+                y = conv_bn_act(y, p, l, precision, train_stats=train_stats)
             if channel_masks is not None and i in channel_masks:
                 # post-activation channel mask: the masked twin of a
                 # structurally repacked model (compress/repack.py)
@@ -229,14 +238,16 @@ def _forward_impl(params: Params, x: torch.Tensor, spec: NetworkSpec,
 
 
 def forward(params: Params, x: torch.Tensor, spec: NetworkSpec,
-            precision: Precision = BITMATCH, channel_masks=None):
-    """Run the network on NHWC ``x`` with BN running statistics (the
-    batch-statistics training forward comes with the training slice);
-    returns the NHWC raw map (or a tuple of per-head maps for [yolo]
-    specs). ``channel_masks``: optional ``{layer_idx: (C,) 0/1 tensor}``
-    applied post-activation."""
+            precision: Precision = BITMATCH, train_stats: bool = False,
+            channel_masks=None):
+    """Run the network on NHWC ``x``; returns the NHWC raw map (or a tuple
+    of per-head maps for [yolo] specs). BN uses the running statistics,
+    or the batch's own with ``train_stats`` (the train step has its own
+    one-pass form, ``train/train_step.py``). ``channel_masks``: optional
+    ``{layer_idx: (C,) 0/1 tensor}`` applied post-activation."""
     return _forward_impl(params, x, spec, precision, folded=False,
-                         channel_masks=channel_masks)
+                         channel_masks=channel_masks,
+                         train_stats=train_stats)
 
 
 def fold_batchnorm(params: Params, spec: NetworkSpec) -> Params:

@@ -1,0 +1,231 @@
+"""Training loops, port of ``modelcompression_tpu/train/loop.py``.
+
+``train`` runs N steps of the train step on prefetched device batches,
+with periodic metrics, eval and checkpointing. ``iterative_prune_finetune``
+is the reference's outer loop: repeat { prune more -> fine-tune -> eval }
+until the target sparsity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from modelcompression_tpu_torch.compress import (
+    DEFAULT_MASK_BACKEND, channel_masks_from_keep, magnitude_mask_fn,
+    repack, uniform_filter_fraction_keep_sets,
+)
+from modelcompression_tpu_torch.models.cfg import NetworkSpec
+from modelcompression_tpu_torch.models.darknet import Params, params_to
+from modelcompression_tpu_torch.train.loader import BatchLoader
+from modelcompression_tpu_torch.train.train_step import (
+    TrainConfig, TrainState, make_optimizer, make_train_step,
+)
+from modelcompression_tpu_torch.utils.logging import MetricsLogger
+from modelcompression_tpu_torch.utils.profiling import StepTimer
+
+STRUCTURED_MODES = ("l1_filter", "bn_gamma", "fpgm", "taylor")
+# modes of the JAX loop not ported yet, with their ROADMAP Queue 1 item
+NOT_PORTED_MODES = {"bn_gamma": 5, "fpgm": 5, "taylor": 5, "lamp": 6}
+
+
+def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
+          loader: BatchLoader, n_steps: int,
+          logger: Optional[MetricsLogger] = None,
+          eval_fn: Optional[Callable[[Params], Dict[str, float]]] = None,
+          eval_every: int = 0,
+          checkpoint_fn: Optional[Callable[[int, TrainState], None]] = None,
+          checkpoint_every: int = 0,
+          metrics_every: int = 10,
+          initial_step: int = 0,
+          mesh=None, distill=None) -> TrainState:
+    """Run ``n_steps`` train steps; returns the final state.
+
+    Metrics stay on the device and are copied to the host only every
+    ``metrics_every`` steps and at the last step (each copy waits for the
+    device). ``initial_step``: the restored global step when resuming, so
+    logging, eval and checkpoint cadences continue the uninterrupted run's
+    numbering. ``mesh`` (data/tensor parallelism) and ``distill`` are not
+    ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "train(mesh=...) data/tensor parallelism is not ported to the "
+            "PyTorch package yet (ROADMAP Queue 1 item 7)")
+    step_fn = make_train_step(spec, config, distill=distill)
+    logger = logger or MetricsLogger()
+    timer = StepTimer()
+    it = iter(loader)
+    for i in range(n_steps):
+        images, targets = next(it)
+        state, metrics = step_fn(state, images, targets)
+        step = initial_step + i + 1
+        last = i == n_steps - 1
+        timer.tick(images.shape[0])  # host-side counters only, no sync
+        if (metrics_every and step % metrics_every == 0) or last:
+            # float() waits for this step's device work, so the timer's
+            # wall clock is accurate at every sync point
+            host_metrics = {k: float(v) for k, v in metrics.items()}
+            host_metrics["img_per_sec"] = timer.images_per_sec
+            logger.log(step, host_metrics, force=last)
+        if eval_fn and eval_every and step % eval_every == 0:
+            logger.log(step, eval_fn(_detached(state["params"])),
+                       prefix="eval")
+        if checkpoint_fn and checkpoint_every and \
+                step % checkpoint_every == 0:
+            checkpoint_fn(step, state)
+    return state
+
+
+@dataclasses.dataclass
+class IterativeRound:
+    round_idx: int
+    fraction: float
+    spec: NetworkSpec
+    params: Params
+    eval_metrics: Dict[str, float]
+    seen: int = 0  # cumulative images-seen after this round's fine-tune
+
+
+def _detached(params: Params) -> Params:
+    return {k: {n: v.detach() for n, v in p.items()}
+            for k, p in params.items()}
+
+
+def iterative_prune_finetune(
+        spec: NetworkSpec, params: Params, config: TrainConfig,
+        loader: BatchLoader,
+        fractions: Sequence[float],
+        steps_per_round: int,
+        eval_fn: Callable[[NetworkSpec, Params], Dict[str, float]],
+        mode: str = "l1_filter",
+        rng: Optional[torch.Generator] = None,
+        logger: Optional[MetricsLogger] = None,
+        repack_each_round: bool = True,
+        ckpt_dir: Optional[str] = None,
+        resume: bool = False,
+        initial_seen: int = 0,
+        mesh=None,
+        mask_backend: str = DEFAULT_MASK_BACKEND,
+        distill=None,
+        tied: str = "protect") -> List[IterativeRound]:
+    """The reference's iterative loop on the params' device.
+
+    ``fractions`` is the cumulative prune schedule (e.g. 0.25, 0.5, 0.75).
+    ``l1_filter`` ranks the filters of the current (already slimmed) model
+    each round, prunes the incremental fraction and physically repacks
+    (``repack_each_round``; else channel masks), then fine-tunes the
+    smaller dense network. ``magnitude`` / ``global`` recompute the weight
+    masks each round through ``compress.magnitude_mask_fn(mode,
+    mask_backend)`` (on CUDA params, the hand-written top-k kernels) and
+    fine-tune with them.
+
+    ``rng`` (a ``torch.Generator``) seeds one generator per round, drawn
+    before the resume skip, so a resumed run trains round i with the draws
+    an uninterrupted run would. With ``ckpt_dir`` each round saves its
+    params and masks with its arch cfg; ``resume`` continues after the
+    latest round.
+
+    Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+    item: modes bn_gamma, fpgm, taylor (Queue 1 item 5) and lamp (item 6),
+    ``tied='group'`` (item 5), ``mesh`` (item 7) and ``distill`` (item 6).
+    """
+    if tied not in ("protect", "group"):
+        raise ValueError(f"tied must be 'protect' or 'group', got {tied!r}")
+    if tied == "group" and mode not in STRUCTURED_MODES:
+        raise ValueError(
+            f"tied='group' composes with the structured modes "
+            f"(l1_filter | bn_gamma | fpgm | taylor), not {mode!r}")
+    if mode not in STRUCTURED_MODES + ("magnitude", "global", "lamp"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode in NOT_PORTED_MODES:
+        raise NotImplementedError(
+            f"iterative mode {mode!r} is not ported to the PyTorch package "
+            f"yet (ROADMAP Queue 1 item {NOT_PORTED_MODES[mode]})")
+    if tied == "group":
+        raise NotImplementedError(
+            "tied='group' is not ported to the PyTorch package yet "
+            "(ROADMAP Queue 1 item 5)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "iterative_prune_finetune(mesh=...) is not ported to the "
+            "PyTorch package yet (ROADMAP Queue 1 item 7)")
+    if distill is not None:
+        raise NotImplementedError(
+            "iterative_prune_finetune(distill=...) is not ported to the "
+            "PyTorch package yet (ROADMAP Queue 1 item 6)")
+    rng = rng if rng is not None else torch.Generator().manual_seed(0)
+    logger = logger or MetricsLogger()
+    rounds: List[IterativeRound] = []
+    prev_frac = 0.0
+    weight_masks: Dict[str, torch.Tensor] = {}
+    start_round = 0
+    seen_running = initial_seen
+    device = next(iter(next(iter(params.values())).values())).device
+
+    if ckpt_dir and resume:
+        from modelcompression_tpu_torch.utils.checkpoint import (
+            latest_checkpoint, load_checkpoint,
+        )
+        latest = latest_checkpoint(ckpt_dir)
+        if latest is not None:
+            spec, saved, meta = load_checkpoint(latest)
+            params = params_to(saved["params"], device)
+            weight_masks = {k: v.to(device)
+                            for k, v in saved.get("weight_masks", {}).items()}
+            prev_frac = float(meta["fraction"])
+            start_round = int(meta["round"]) + 1
+            seen_running = int(meta.get("seen", initial_seen))
+            logger.log(start_round,
+                       {"resumed_fraction": prev_frac}, prefix="resume")
+
+    for ridx, frac in enumerate(fractions):
+        # drawn BEFORE the resume skip so a resumed run consumes the same
+        # seed sequence an uninterrupted run would
+        round_seed = int(torch.randint(0, 2 ** 62, (), generator=rng))
+        if ridx < start_round:
+            continue
+        with torch.no_grad():
+            if mode == "l1_filter":
+                # incremental fraction relative to the remaining filters
+                inc = 1.0 - (1.0 - frac) / (1.0 - prev_frac)
+                keep_sets = uniform_filter_fraction_keep_sets(
+                    spec, params, inc, tied=tied)
+                if repack_each_round:
+                    spec, params = repack(spec, params, keep_sets)
+                    channel_masks = {}
+                else:
+                    channel_masks = channel_masks_from_keep(
+                        spec, keep_sets, device=device)
+            else:
+                fn = magnitude_mask_fn(mode, mask_backend)
+                weight_masks = fn(params, spec, frac)
+                channel_masks = {}
+
+        state = TrainState.create(
+            params, make_optimizer(config),
+            torch.Generator().manual_seed(round_seed),
+            weight_masks=weight_masks, channel_masks=channel_masks,
+            seen=seen_running)
+        state = train(state, spec, config, loader, steps_per_round,
+                      logger=logger)
+        params = _detached(state["params"])
+        seen_running = state["seen"]
+        metrics = eval_fn(spec, params)
+        logger.log(state["step"], dict(metrics, fraction=frac),
+                   prefix=f"round{ridx}")
+        rounds.append(IterativeRound(ridx, frac, spec, params, metrics,
+                                     seen=seen_running))
+        prev_frac = frac
+        if ckpt_dir:
+            from modelcompression_tpu_torch.utils.checkpoint import (
+                save_checkpoint,
+            )
+            save_checkpoint(
+                ckpt_dir, ridx, spec,
+                {"params": params, "weight_masks": weight_masks},
+                extra={"round": ridx, "fraction": frac, "mode": mode,
+                       "seen": seen_running,
+                       "metrics": {k: float(v) for k, v in metrics.items()}})
+    return rounds

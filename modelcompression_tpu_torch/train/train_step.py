@@ -1,0 +1,497 @@
+"""Training / fine-tuning step, port of
+``modelcompression_tpu/train/train_step.py``.
+
+One call of the step does what the JAX package's one jitted program does,
+as eager PyTorch on the params' device: normalize and augment, the forward
+with batch statistics, the region loss, backward, one SGD update, the mask
+re-apply and the BN running-statistic update. Nothing is read back to the
+host inside the step; the metrics stay device tensors.
+
+* **State** is a ``TrainState`` dict: the params (trainable tensors with
+  ``requires_grad``, BN running statistics without), the ``torch.optim``
+  SGD that owns the momentum buffers, the step and images-seen counters
+  (host ints), the ``torch.Generator`` of the augment draws, the weight
+  and channel masks, and with EMA the shadow params.
+* **Masked fine-tune**: weight masks multiply the weights inside the loss,
+  so the gradients of pruned weights are exactly zero, and are applied
+  again after the update (momentum and weight decay act on zero weights
+  too). Channel masks gate conv outputs after the activation.
+* **BN** takes one-pass fp32 statistics, E[y²] − µ² clamped at 0, and
+  folds the biased batch variance into the running variance with the
+  torch momentum convention: ``F.batch_norm`` would fold the unbiased one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from modelcompression_tpu_torch.core.precision import FAST, Precision
+from modelcompression_tpu_torch.data.preprocess import (
+    distort_hsv, mosaic4, random_flip, random_jitter,
+)
+from modelcompression_tpu_torch.models.cfg import (
+    ConvLayer, MaxPoolLayer, NetworkSpec, RegionLayer, ReorgLayer,
+    RouteLayer, ShortcutLayer, UpsampleLayer, YoloLayer,
+)
+from modelcompression_tpu_torch.models.darknet import (
+    BN_EPS, Params, _activate, _conv, _nhwc_out, _per_channel, conv_bn_act,
+    conv_key, maxpool, reorg, route_part, upsample_nearest,
+)
+from modelcompression_tpu_torch.train.yolo_loss import detection_loss
+
+BN_MOMENTUM = 0.1  # torch BatchNorm2d default (reference repo class)
+
+
+def _not_ported(option: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option} is not ported to the PyTorch package yet "
+        f"(ROADMAP Queue 1 item {item})")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Train hyperparameters; field names and defaults follow the JAX
+    package. ``subdivisions`` = S > 1 makes the step's batch the EFFECTIVE
+    batch: S strided micro-batches, gradients summed and scaled by 1/S into
+    one update, BN statistics per micro-batch (Darknet's semantics).
+
+    ``qat``, ``gmp`` and ``remat`` are not ported yet and raise
+    ``NotImplementedError`` naming their ROADMAP item when set."""
+
+    learning_rate: float = 1e-3
+    momentum: float = 0.9
+    decay: float = 5e-4
+    subdivisions: int = 1
+    burn_in: int = 0
+    policy: str = "steps"   # constant | steps | step | poly | exp | sig
+    max_batches: int = 80200
+    power: float = 4.0
+    gamma: float = 1.0
+    step: int = 1           # [net] step= for the 'step' and 'sig' policies
+    steps: Tuple[int, ...] = ()
+    scales: Tuple[float, ...] = ()
+    precision: Precision = FAST
+    augment_flip: bool = True
+    augment_mosaic: bool = False
+    augment_hsv: bool = False
+    # Darknet crop jitter fraction ([region] jitter=); 0 disables
+    augment_jitter: float = 0.0
+    # Darknet [net] HSV knobs, applied when augment_hsv is on. [net] angle=
+    # is not applied: Darknet's detector data path never rotates
+    hue: float = 0.1
+    saturation: float = 1.5
+    exposure: float = 1.5
+    max_boxes: int = 30
+    remat: bool = False
+    qat: Optional[object] = None
+    # network-slimming L1 penalty bn_l1 * sum|gamma| over all BN scales
+    bn_l1: float = 0.0
+    gmp: Optional[object] = None
+    # EMA of the full params (weights and BN running stats) after every
+    # update: ema = d*ema + (1-d)*params; needs TrainState.create(ema=True)
+    ema_decay: float = 0.0
+    # freeze the first N convs (Darknet .conv.N counting): inference BN on
+    # running stats, no gradient, params restored bit-identical after every
+    # update (weight decay would otherwise move them)
+    freeze_prefix: int = 0
+
+    def __post_init__(self):
+        if self.qat is not None:
+            raise _not_ported("TrainConfig.qat (quantization-aware "
+                              "fine-tune)", 6)
+        if self.gmp is not None:
+            raise _not_ported("TrainConfig.gmp (gradual magnitude "
+                              "pruning)", 6)
+        if self.remat:
+            raise _not_ported("TrainConfig.remat (rematerialized conv "
+                              "blocks)", 4)
+
+    @classmethod
+    def from_spec(cls, spec: NetworkSpec, **overrides) -> "TrainConfig":
+        """Hyperparameters from the cfg: the LR policy, the [net] HSV knobs
+        and the head's crop jitter default to the cfg's values;
+        ``overrides`` win."""
+        n = spec.net
+        try:
+            jitter = spec.layers[spec.head_indices()[0]].jitter
+        except ValueError:  # spec without a detection head
+            jitter = 0.0
+        kw = dict(learning_rate=n.learning_rate, momentum=n.momentum,
+                  decay=n.decay, subdivisions=n.subdivisions,
+                  burn_in=n.burn_in, policy=n.policy,
+                  max_batches=n.max_batches, power=n.power, gamma=n.gamma,
+                  step=n.step, steps=n.steps, scales=n.scales,
+                  hue=n.hue, saturation=n.saturation, exposure=n.exposure,
+                  augment_jitter=jitter)
+        kw.update(overrides)
+        return cls(**kw)
+
+
+def split_trainable(params: Params) -> Tuple[Params, Params]:
+    """BN running mean/var are state, not trainable parameters."""
+    trainable, stats = {}, {}
+    for k, p in params.items():
+        trainable[k] = {n: v for n, v in p.items() if n not in ("mean", "var")}
+        stats[k] = {n: v for n, v in p.items() if n in ("mean", "var")}
+    return trainable, stats
+
+
+def merge_params(trainable: Params, stats: Params) -> Params:
+    return {k: {**trainable[k], **stats.get(k, {})} for k in trainable}
+
+
+def _trainable_list(params: Params):
+    """The trainable tensors in a fixed order (sorted conv key, then name):
+    the optimizer's parameter order, which its saved state refers to."""
+    trainable, _ = split_trainable(params)
+    return [trainable[k][n] for k in sorted(trainable)
+            for n in sorted(trainable[k])]
+
+
+class TrainState(dict):
+    """Train state (a dict, as the JAX package's pytree).
+
+    Keys: params, optimizer (the ``torch.optim.SGD`` over the trainable
+    tensors; its state holds the momentum buffers), step and seen (ints),
+    rng (the ``torch.Generator`` of the augment draws), weight_masks
+    ({conv key: bool OIHW}, possibly empty), channel_masks ({layer index:
+    (C,) 0/1}, possibly empty), and ema_params when created with ema.
+    """
+
+    @staticmethod
+    def create(params: Params, tx, rng: torch.Generator,
+               weight_masks: Optional[Dict[str, torch.Tensor]] = None,
+               channel_masks: Optional[Dict[int, torch.Tensor]] = None,
+               copy: bool = True, seen: int = 0,
+               ema: bool = False) -> "TrainState":
+        """Build a fresh train state on the params' device.
+
+        ``tx``: ``make_optimizer(config)``, called on the trainable
+        tensors. ``copy=True`` (default) trains copies, leaving the
+        caller's tensors untouched; ``copy=False`` trains the given tensors
+        in place. ``seen`` carries the images-seen counter of a loaded
+        ``.weights`` header: it gates the region loss's early prior term,
+        so fine-tuning a converged model must not restart it at zero."""
+        def own(v):
+            return v.detach().clone() if copy else v.detach()
+        params = {k: {n: own(v) for n, v in p.items()}
+                  for k, p in params.items()}
+        for v in _trainable_list(params):
+            v.requires_grad_(True)
+        state = TrainState(
+            params=params,
+            optimizer=tx(_trainable_list(params)),
+            step=0,
+            seen=int(seen),
+            rng=rng,
+            weight_masks={k: own(m) for k, m in (weight_masks or {}).items()},
+            channel_masks={k: own(m)
+                           for k, m in (channel_masks or {}).items()},
+        )
+        if ema:  # TrainConfig.ema_decay: shadow copy of the full params
+            state["ema_params"] = {k: {n: v.detach().clone()
+                                       for n, v in p.items()}
+                                   for k, p in params.items()}
+        return state
+
+
+def darknet_lr_schedule(config: TrainConfig):
+    """Darknet LR policies (network.c get_current_rate), computed in
+    float32 as the JAX package does: during burn-in lr * (step/burn_in)^4
+    and no policy; after it the cfg ``policy``:
+
+    * ``constant`` — base lr.
+    * ``steps`` — scales[i] applies whenever steps[i] <= step (a leading
+      ``-1`` step scales the base lr at once).
+    * ``step``  — lr * scale^(step//step_size) (scales[0] or 1).
+    * ``poly``  — lr * (1 - step/max_batches)^power.
+    * ``exp``   — lr * gamma^step.
+    * ``sig``   — lr / (1 + exp(gamma*(step - step_size))).
+
+    Returns ``schedule(step) -> float``.
+    """
+    f32 = np.float32
+    base = config.learning_rate
+    pairs = tuple(zip(config.steps, config.scales))
+    policy = config.policy
+    if policy not in ("constant", "steps", "step", "poly", "exp", "sig"):
+        raise ValueError(f"unsupported lr policy {policy!r}")
+
+    def schedule(step) -> float:
+        step = int(step)
+        step_f = f32(step)
+        lr = f32(base)
+        if policy == "steps":
+            for s, sc in pairs:
+                if step >= s:
+                    lr = f32(lr * f32(sc))
+        elif policy == "step":
+            scale = config.scales[0] if config.scales else 1.0
+            lr = f32(f32(base) * f32(scale) ** np.floor(
+                step_f / f32(max(config.step, 1))))
+        elif policy == "poly":
+            frac = np.clip(step_f / f32(config.max_batches), f32(0), f32(1))
+            lr = f32(f32(base) * (f32(1) - frac) ** f32(config.power))
+        elif policy == "exp":
+            lr = f32(f32(base) * f32(config.gamma) ** step_f)
+        elif policy == "sig":
+            lr = f32(f32(base) / (f32(1) + np.exp(
+                f32(config.gamma) * (step_f - f32(config.step)))))
+        if config.burn_in > 0 and step < config.burn_in:
+            frac = min(f32(step) / f32(config.burn_in), f32(1))
+            lr = f32(f32(base) * f32(frac) ** 4)
+        return float(lr)
+
+    return schedule
+
+
+def make_optimizer(config: TrainConfig):
+    """SGD with momentum and weight decay: ``tx(tensors)`` builds a
+    ``torch.optim.SGD``. Its update (d = g + decay*w; buf = momentum*buf +
+    d; w -= lr*buf) is optax's ``add_decayed_weights`` then ``sgd``; the
+    step sets the learning rate to ``darknet_lr_schedule(config)(step)``
+    before each update."""
+    return functools.partial(torch.optim.SGD, lr=config.learning_rate,
+                             momentum=config.momentum,
+                             weight_decay=config.decay)
+
+
+def augment_batch(config: TrainConfig, x: torch.Tensor,
+                  targets: torch.Tensor, gen: torch.Generator
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's augment chain on a normalized fp32 batch: jitter (each
+    source image its own crop, before the mosaic composes them), mosaic,
+    flip, HSV. The draws come from ``gen`` in that order."""
+    if config.augment_jitter > 0:
+        x, targets = random_jitter(x, targets, gen,
+                                   jitter=config.augment_jitter)
+    if config.augment_mosaic:
+        x, targets = mosaic4(x, targets, gen)
+    if config.augment_flip:
+        x, targets = random_flip(x, targets, gen)
+    if config.augment_hsv:
+        x = distort_hsv(x, gen, hue=config.hue, sat=config.saturation,
+                        expo=config.exposure)
+    return x, targets
+
+
+def _conv_block_train(y: torch.Tensor, p: Dict[str, torch.Tensor],
+                      l: ConvLayer, precision: Precision):
+    """One conv + (batch-stat BN | bias) + activation on NCHW ``y``;
+    returns (y, batch stats or None). The statistics are one pass over the
+    conv output in fp32, E[y²] − µ², clamped at 0 (``torch.maximum``,
+    whose gradient splits a tie as ``jnp.maximum``'s does)."""
+    y = _conv(y, p["w"], l, precision)
+    stats = None
+    if l.batch_normalize:
+        y32 = y.to(torch.promote_types(y.dtype, torch.float32))
+        mu = y32.mean(dim=(0, 2, 3))
+        ex2 = y32.square().mean(dim=(0, 2, 3))
+        var = torch.maximum(ex2 - mu.square(), torch.zeros_like(mu))
+        stats = {"mean": mu, "var": var}
+        inv = torch.rsqrt(var + BN_EPS)
+        y = (y - _per_channel(mu, y.dtype)) \
+            * _per_channel(p["gamma"].to(inv.dtype) * inv, y.dtype) \
+            + _per_channel(p["beta"], y.dtype)
+    else:
+        y = y + _per_channel(p["bias"], y.dtype)
+    return _activate(y, l.activation), stats
+
+
+def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
+                   precision: Precision,
+                   channel_masks: Dict[int, torch.Tensor],
+                   freeze: frozenset = frozenset()):
+    """Training forward on NHWC ``x`` with batch statistics; returns the
+    NHWC fp32 raw map and the per-conv batch (mean, var). Frozen convs run
+    inference BN on detached params, so no backward reaches them."""
+    outputs = []
+    heads = []
+    batch_stats: Dict[str, Dict[str, torch.Tensor]] = {}
+    y = precision.cast_in(x).permute(0, 3, 1, 2)  # channels-last NCHW
+    for i, l in enumerate(spec.layers):
+        if isinstance(l, ConvLayer):
+            key = conv_key(i)
+            p = params[key]
+            if key in freeze:
+                y = conv_bn_act(y, {n: v.detach() for n, v in p.items()},
+                                l, precision)
+            else:
+                y, stats = _conv_block_train(y, p, l, precision)
+                if stats is not None:
+                    batch_stats[key] = stats
+            if i in channel_masks:
+                y = y * _per_channel(channel_masks[i], y.dtype)
+        elif isinstance(l, MaxPoolLayer):
+            y = maxpool(y, l)
+        elif isinstance(l, RouteLayer):
+            parts = [route_part(outputs[a], l) for a in l.layers]
+            y = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        elif isinstance(l, ReorgLayer):
+            y = reorg(y, l.stride)
+        elif isinstance(l, ShortcutLayer):
+            y = _activate(y + outputs[l.from_layer], l.activation)
+        elif isinstance(l, UpsampleLayer):
+            y = upsample_nearest(y, l.stride)
+        elif isinstance(l, YoloLayer):
+            heads.append(_nhwc_out(y))
+        elif isinstance(l, RegionLayer):
+            pass
+        outputs.append(y)
+    if heads:
+        return tuple(heads), batch_stats
+    return _nhwc_out(y), batch_stats
+
+
+def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
+    """Build the train step.
+
+    step(state, images (B,H,W,3) uint8 or float, targets (B,M,5))
+      -> (state, metrics)
+
+    ``state`` is updated in place and returned. Images and targets may be
+    numpy arrays or tensors; they are moved to the params' device. With
+    ``config.subdivisions = S > 1`` micro-batch s takes the strided
+    elements {s, S+s, 2S+s, ...}; its gradients are summed, scaled by 1/S
+    into one update, and the running stats are folded once per micro-batch
+    in order. Metrics are 0-dim device tensors (means over micro-batches)
+    plus ``lr``, a float.
+
+    ``distill`` (knowledge distillation) is not ported yet."""
+    if distill is not None:
+        raise _not_ported("make_train_step(distill=...) (knowledge "
+                          "distillation)", 6)
+    spec.head_indices()  # every spec has [region]/[yolo]
+    # BITMATCH trains with TF32 off for cuDNN convs and cuBLAS matmuls
+    config.precision.apply_backend_flags()
+    subdivisions = max(int(config.subdivisions), 1)
+    schedule = darknet_lr_schedule(config)
+
+    conv_indices = spec.conv_indices()
+    if not 0 <= config.freeze_prefix < len(conv_indices):
+        raise ValueError(
+            f"freeze_prefix={config.freeze_prefix} must leave at least one "
+            f"trainable conv (network has {len(conv_indices)})")
+    freeze_keys = frozenset(
+        conv_key(i) for i in conv_indices[:config.freeze_prefix])
+
+    def loss_fn(params, x, targets, seen, channel_masks, weight_masks):
+        if weight_masks:
+            params = {k: (dict(p, w=p["w"] * weight_masks[k].to(p["w"].dtype))
+                          if k in weight_masks else p)
+                      for k, p in params.items()}
+        raw, batch_stats = _forward_train(params, x, spec, config.precision,
+                                          channel_masks, freeze=freeze_keys)
+        metrics = detection_loss(raw, targets, spec, seen)
+        md = metrics.as_dict()
+        loss = metrics.loss
+        if config.bn_l1 > 0:
+            # slimming penalty; gamma_l1 (the MEAN |gamma|) is reported
+            gammas = [p["gamma"].float() for p in params.values()
+                      if "gamma" in p]
+            total_abs = sum(torch.sum(torch.abs(g)) for g in gammas)
+            n = sum(g.numel() for g in gammas)
+            md["gamma_l1"] = total_abs.detach() / max(n, 1)
+            loss = loss + config.bn_l1 * total_abs
+        md["loss"] = md["loss"].detach()
+        return loss, md, batch_stats
+
+    def step(state: TrainState, images, targets):
+        params = state["params"]
+        dev = next(iter(next(iter(params.values())).values())).device
+        images = torch.as_tensor(images).to(dev)
+        targets = torch.as_tensor(targets).to(dev, torch.float32)
+        gen = state["rng"]
+        b = images.shape[0]
+        if b % subdivisions:
+            raise ValueError(f"effective batch {b} is not divisible by "
+                             f"subdivisions={subdivisions}")
+        if (images.dtype == torch.uint8 and config.augment_flip
+                and config.augment_jitter == 0
+                and not config.augment_mosaic):
+            # fine-tune fast path: flip the uint8 batch before the fp32
+            # normalize (a permutation and a select: the same result as
+            # flipping after it, on a quarter of the bytes)
+            images_f, targets = random_flip(images, targets, gen)
+            x = images_f.float() / 255.0
+            if config.augment_hsv:
+                x = distort_hsv(x, gen, hue=config.hue,
+                                sat=config.saturation, expo=config.exposure)
+        else:
+            x = images.float()
+            if images.dtype == torch.uint8:
+                x = x / 255.0
+            x, targets = augment_batch(config, x, targets, gen)
+
+        opt = state["optimizer"]
+        opt.zero_grad(set_to_none=True)
+        seen = state["seen"]
+        mets, stats_updates = [], []
+        for s in range(subdivisions):
+            xi = x if subdivisions == 1 else x[s::subdivisions]
+            ti = targets if subdivisions == 1 else targets[s::subdivisions]
+            loss, md, bstats = loss_fn(params, xi, ti, seen,
+                                       state["channel_masks"],
+                                       state["weight_masks"])
+            loss.backward()
+            mets.append(md)
+            stats_updates.append({k: {n: v.detach() for n, v in bs.items()}
+                                  for k, bs in bstats.items()})
+        trainable = _trainable_list(params)
+        if subdivisions > 1:
+            inv_s = 1.0 / subdivisions
+            for v in trainable:
+                if v.grad is not None:
+                    v.grad.mul_(inv_s)
+        with torch.no_grad():
+            # frozen convs have no gradient: a zero one lets SGD move their
+            # momentum as optax does (decay acts on it), and the saved
+            # values are put back after the update
+            frozen = {k: {n: v.clone() for n, v in params[k].items()}
+                      for k in freeze_keys}
+            for v in trainable:
+                if v.grad is None:
+                    v.grad = torch.zeros_like(v)
+            lr = schedule(state["step"])
+            for g in opt.param_groups:
+                g["lr"] = lr
+            opt.step()
+            for k, saved in frozen.items():
+                for n, v in saved.items():
+                    params[k][n].copy_(v)
+            # keep pruned weights exactly zero: momentum and decay would
+            # move them off zero
+            for k, m in state["weight_masks"].items():
+                params[k]["w"].mul_(m.to(params[k]["w"].dtype))
+            # BN running stats (torch momentum convention), one update per
+            # micro-batch forward in order, Darknet's pacing
+            for bs_i in stats_updates:
+                for k, bs in bs_i.items():
+                    for n in ("mean", "var"):
+                        params[k][n].copy_((1 - BN_MOMENTUM) * params[k][n]
+                                           + BN_MOMENTUM * bs[n])
+            if "ema_params" in state:
+                if config.ema_decay > 0:
+                    d = config.ema_decay
+                    for k, p in state["ema_params"].items():
+                        for n, e in p.items():
+                            e.copy_(e * d + params[k][n] * (1.0 - d))
+            elif config.ema_decay > 0:
+                raise ValueError(
+                    "config.ema_decay > 0 requires a train state created "
+                    "with TrainState.create(..., ema=True): there is no "
+                    "EMA buffer to fold into")
+        out = {k: (mets[0][k] if subdivisions == 1
+                   else torch.stack([m[k] for m in mets]).mean())
+               for k in mets[0]}
+        out["lr"] = lr
+        state["step"] += 1
+        state["seen"] += b
+        return state, out
+
+    return step

@@ -438,3 +438,67 @@ def test_prefetch_to_cuda_lands_before_it_is_read(cuda_device):
         assert a.is_cuda and b.is_cuda
         assert int(a.float().mean().item()) == i
         np.testing.assert_array_equal(b.cpu().numpy(), np.arange(4.0) + i)
+
+
+# ---- the fine-tune path on the card -----------------------------------------
+
+def _finetune_fixture(tmp_path):
+    """The tiny region cfg at 64x64 with random weights written as
+    .weights, and an 8-image fixture at that size."""
+    from modelcompression_tpu_torch.models import save_weights
+    samples, _, spec, params = _eval_fixture(tmp_path, 8, 64)
+    from modelcompression_tpu_torch.data import tiny_region_cfg
+    cfg = str(tmp_path / "net.cfg")
+    with open(cfg, "w") as f:
+        f.write(tiny_region_cfg(num_classes=3, width=64, height=64))
+    weights = str(tmp_path / "w.weights")
+    save_weights(weights, spec, params, seen=0)
+    return cfg, weights, str(tmp_path / "fixture.data"), spec
+
+
+def _finetune(cfg, weights, data, out, *extra):
+    from modelcompression_tpu_torch.cli import finetune
+    return finetune.main(["--cfg", cfg, "--weights", weights, "--data",
+                          data, "--steps", "2", "--batch", "4", "--out",
+                          out, "--device", "cuda", *extra])
+
+
+@pytest.mark.cuda
+def test_finetune_iterate_magnitude_launches_topk_per_round(cuda_device,
+                                                            tmp_path):
+    """Two magnitude rounds recompute the masks through the kernels: the
+    count kernel 32 times a round, tie count and apply once; every round's
+    eval runs the tensor-core input stage once per batch (8 images at
+    batch 4); the written weights have floor(0.75 n) zeros per conv."""
+    from modelcompression_tpu_torch.models import load_weights
+    cfg, weights, data, spec = _finetune_fixture(tmp_path)
+    wrappers = (ct.count_le_cuda, ct.tie_counts_cuda,
+                ct.apply_threshold_cuda, tis.fused_conv1_pool_mma)
+    n0 = [k.LAUNCHES for k in wrappers]
+    out = str(tmp_path / "mag.weights")
+    assert _finetune(cfg, weights, data, out, "--iterate", "0.5,0.75",
+                     "--iterate-mode", "magnitude") == 0
+    torch.cuda.synchronize()
+    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [64, 2, 2, 4]
+    got, seen = load_weights(out, spec)
+    assert seen == 2 * 2 * 4
+    for k, p in got.items():
+        assert int((p["w"] == 0).sum()) == int(0.75 * p["w"].numel()), k
+
+
+@pytest.mark.cuda
+def test_finetune_iterate_l1_filter_evals_at_each_width(cuda_device,
+                                                        tmp_path):
+    """Two l1_filter rounds repack conv1 from 16 filters to 8, then 4: the
+    rounds' evals launch the tensor-core input stage at C=8, then C=4 (two
+    batches each)."""
+    cfg, weights, data, _ = _finetune_fixture(tmp_path)
+    mma = tis.fused_conv1_pool_mma
+    at0 = dict(mma.LAUNCHES_AT)
+    out = str(tmp_path / "slim.weights")
+    assert _finetune(cfg, weights, data, out, "--iterate", "0.5,0.75",
+                     "--iterate-mode", "l1_filter") == 0
+    torch.cuda.synchronize()
+    assert {c: mma.LAUNCHES_AT[c] - at0.get(c, 0) for c in (16, 8, 4)} \
+        == {16: 0, 8: 2, 4: 2}
+    assert (tmp_path / "slim.cfg").exists()

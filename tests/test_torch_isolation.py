@@ -117,6 +117,27 @@ except RuntimeError as e:
     assert "RAISED" in r.stdout and "CUDA" in r.stdout
 
 
+def test_finetune_and_train_clis_without_cpu_request_raise():
+    """--device defaults to cuda in the finetune and train CLIs: without a
+    card each raises before reading anything (the files need not
+    exist)."""
+    r = _run("""
+import torch
+from modelcompression_tpu_torch.cli import finetune, train
+from modelcompression_tpu_torch.models import cfg_path
+assert not torch.cuda.is_available()
+cfg = cfg_path('yolov2-voc.cfg')
+for main, argv in ((finetune.main, ['--weights', 'none', '--out', 'x']),
+                   (train.main, [])):
+    try:
+        main(['--cfg', cfg, '--data', 'none', '--steps', '1'] + argv)
+    except RuntimeError as e:
+        print('RAISED', e)
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.count("RAISED") == 2 and "CUDA" in r.stdout
+
+
 def test_resolve_device_rule():
     r = _run("""
 from modelcompression_tpu_torch.core.device import resolve_device

@@ -1,0 +1,516 @@
+"""The port's train loop, loader, checkpoints and the finetune / train CLIs
+(modelcompression_tpu_torch/train/loop.py, train/loader.py,
+utils/checkpoint.py, cli/finetune.py, cli/train.py) against the JAX
+package's, on the CPU at fixture size: the loader's batches equal to the
+JAX loader's and its skip_batches stream identity; the checkpoint round
+trip; the round-0 masks of iterative_prune_finetune in magnitude mode
+(the same zero pattern as the JAX loop's) and the l1_filter repack;
+resumes equal to uninterrupted runs, bit for bit; the CLIs' validations
+worded as the JAX CLIs', their not-ported exits naming the ROADMAP item,
+and their default device (cuda)."""
+
+import json
+import os
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from modelcompression_tpu.cli import finetune as jft_cli
+from modelcompression_tpu.core.precision import BITMATCH as J_BITMATCH
+from modelcompression_tpu.data import fixtures as jfx
+from modelcompression_tpu.data import voc as jvoc
+from modelcompression_tpu.models import init_params as j_init
+from modelcompression_tpu.models import parse_cfg as j_parse
+from modelcompression_tpu.models import save_weights as j_save
+from modelcompression_tpu.models import dump_cfg as j_dump
+from modelcompression_tpu.train import BatchLoader as JLoader
+from modelcompression_tpu.train import TrainConfig as JConfig
+from modelcompression_tpu.train import (
+    iterative_prune_finetune as j_iterate,
+)
+from modelcompression_tpu_torch.cli import finetune as ft_cli
+from modelcompression_tpu_torch.cli import train as train_cli
+from modelcompression_tpu_torch.core.precision import BITMATCH
+from modelcompression_tpu_torch.data import fixtures as tfx
+from modelcompression_tpu_torch.data import voc as tvoc
+from modelcompression_tpu_torch.models import (
+    dump_cfg, load_cfg, load_weights, params_from_jax, params_to_jax,
+    parse_cfg,
+)
+from modelcompression_tpu_torch.train import (
+    BatchLoader, TrainConfig, TrainState, iterative_prune_finetune,
+    make_optimizer, make_train_step,
+)
+from modelcompression_tpu_torch.utils.checkpoint import (
+    latest_checkpoint, load_checkpoint, save_checkpoint,
+)
+from modelcompression_tpu_torch.utils.logging import MetricsLogger
+
+NET = 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def fixture(tmp_path_factory):
+    """A tiny region model (written by the JAX package) and an 8-image
+    fixture at the network size (no resize, so no cv2)."""
+    tmp = tmp_path_factory.mktemp("train_loop")
+    text = tfx.tiny_region_cfg(num_classes=3, width=NET, height=NET)
+    cfg = str(tmp / "net.cfg")
+    with open(cfg, "w") as f:
+        f.write(text)
+    jspec = j_parse(text)
+    np_params = jax.tree.map(np.array, j_init(jspec, jax.random.key(0)))
+    weights = str(tmp / "w.weights")
+    j_save(weights, jspec, np_params, seen=100)
+    data = tfx.make_fake_voc(str(tmp / "d"), n_images=8, image_size=NET,
+                             seed=0)
+    return {"cfg": cfg, "weights": weights, "data": data, "text": text,
+            "np_params": np_params, "tmp": tmp,
+            "samples": tvoc.load_list_dataset(
+                tvoc.read_data_cfg(data)["valid"])}
+
+
+def _quiet():
+    return MetricsLogger(print_every=0)
+
+
+# ---- loader -----------------------------------------------------------------
+
+def test_loader_batches_equal_jax_loader(fixture):
+    jsamples = jvoc.load_list_dataset(
+        jvoc.read_data_cfg(fixture["data"])["valid"])
+    kw = dict(batch_size=3, net_h=NET, net_w=NET, max_boxes=6, seed=4)
+    j_it = iter(JLoader(jsamples, **kw))
+    t_it = iter(BatchLoader(fixture["samples"], device="cpu", **kw))
+    for _ in range(5):  # crosses an epoch (2 batches each)
+        (ji, jt), (ti, tt) = next(j_it), next(t_it)
+        assert isinstance(ti, torch.Tensor) and ti.dtype == torch.uint8
+        assert np.array_equal(ti.numpy(), ji) and np.array_equal(
+            tt.numpy(), jt)
+
+
+def test_loader_skip_batches_is_stream_identical(fixture):
+    """skip_batches(n) leaves the shuffle and multi-scale streams as if n
+    batches had been built, across epochs."""
+    def make(skip):
+        ld = BatchLoader(fixture["samples"], batch_size=3, net_h=NET,
+                         net_w=NET, max_boxes=6, seed=3,
+                         multi_scale=(32, 96), resize_every=2, device="cpu")
+        ld.skip_batches(skip)
+        return iter(ld)
+
+    it_full = make(0)
+    full = [next(it_full) for _ in range(7)]
+    it_skip = make(5)
+    for (i1, t1), (i2, t2) in zip(full[5:], [next(it_skip)
+                                             for _ in range(2)]):
+        assert torch.equal(i1, i2) and torch.equal(t1, t2)
+    with pytest.raises(ValueError):
+        BatchLoader(fixture["samples"], 2, NET, NET,
+                    device="cpu").skip_batches(-1)
+
+
+def test_loader_letterbox_needs_no_cv2_and_stretch_names_it(
+        fixture, monkeypatch):
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    ld = BatchLoader(fixture["samples"], 2, NET, NET, device="cpu")
+    images, targets = next(iter(ld))
+    assert images.shape == (2, NET, NET, 3) and targets.shape == (2, 30, 5)
+    stretch = BatchLoader(fixture["samples"], 2, NET, NET, letterbox=False,
+                          device="cpu")
+    with pytest.raises(ImportError, match="cv2"):
+        next(iter(stretch))
+
+
+def test_loader_default_device_is_cuda(fixture, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchLoader(fixture["samples"], 2, NET, NET)
+
+
+# ---- checkpoint -------------------------------------------------------------
+
+def _state(fixture, **kw):
+    spec = parse_cfg(fixture["text"])
+    config = TrainConfig.from_spec(spec, precision=BITMATCH,
+                                   augment_jitter=0.2, **kw)
+    state = TrainState.create(params_from_jax(fixture["np_params"], spec),
+                              make_optimizer(config),
+                              torch.Generator().manual_seed(5), ema=True,
+                              weight_masks={"conv0": torch.ones(
+                                  16, 3, 3, 3, dtype=torch.bool)})
+    return spec, config, state
+
+
+def test_checkpoint_round_trip(fixture, tmp_path):
+    spec, config, state = _state(fixture)
+    step = make_train_step(spec, config)
+    images = np.random.default_rng(0).integers(0, 255, (2, NET, NET, 3),
+                                               dtype=np.uint8)
+    targets = np.zeros((2, 4, 5), np.float32)
+    targets[:, 0] = [1, 0.5, 0.5, 0.3, 0.3]
+    step(state, images, targets)
+    d = save_checkpoint(str(tmp_path), state["step"], spec, state,
+                        extra={"note": "x"})
+    assert d.endswith("step_00000001")
+    assert latest_checkpoint(str(tmp_path)) == d
+    assert latest_checkpoint(str(tmp_path / "none")) is None
+    with open(os.path.join(d, "meta.json")) as f:
+        assert json.load(f) == {"step": 1, "note": "x"}
+    with open(os.path.join(d, "arch.cfg")) as f:
+        assert f.read() == dump_cfg(spec)
+
+    _, _, fresh = _state(fixture)
+    ck_spec, restored, meta = load_checkpoint(d, target=fresh)
+    assert restored is not fresh and dump_cfg(ck_spec) == dump_cfg(spec)
+    assert restored["step"] == 1 and restored["seen"] == 2
+    for k, p in state["params"].items():
+        for n, v in p.items():
+            assert torch.equal(restored["params"][k][n], v), (k, n)
+            assert torch.equal(restored["ema_params"][k][n],
+                               state["ema_params"][k][n])
+    assert torch.equal(restored["rng"].get_state(), state["rng"].get_state())
+    a, b = state["optimizer"], restored["optimizer"]
+    for pa, pb in zip(a.param_groups[0]["params"],
+                      b.param_groups[0]["params"]):
+        assert torch.equal(a.state[pa]["momentum_buffer"],
+                           b.state[pb]["momentum_buffer"])
+    # both continue identically
+    outs = [step(s, images, targets)[1]["loss"].item()
+            for s in (state, restored)]
+    assert outs[0] == outs[1]
+    # without a target: CPU tensors, a generator, the optimizer state dict
+    _, plain, _ = load_checkpoint(d)
+    assert isinstance(plain["rng"], torch.Generator)
+    assert "state" in plain["optimizer"] and plain["step"] == 1
+
+
+# ---- iterative loop ---------------------------------------------------------
+
+def _j_loader(fixture, batch=2):
+    jsamples = jvoc.load_list_dataset(
+        jvoc.read_data_cfg(fixture["data"])["valid"])
+    return JLoader(jsamples, batch_size=batch, net_h=NET, net_w=NET,
+                   max_boxes=8, seed=0)
+
+
+def _t_loader(fixture, batch=2):
+    return BatchLoader(fixture["samples"], batch_size=batch, net_h=NET,
+                       net_w=NET, max_boxes=8, seed=0, device="cpu")
+
+
+def _cfgs(fixture):
+    kw = dict(augment_flip=False, augment_jitter=0.0, max_boxes=8)
+    return (JConfig.from_spec(j_parse(fixture["text"]), precision=J_BITMATCH,
+                              **kw),
+            TrainConfig.from_spec(parse_cfg(fixture["text"]),
+                                  precision=BITMATCH, **kw))
+
+
+@pytest.mark.parametrize("mode", ["magnitude", "global"])
+def test_iterative_round0_masks_match_jax(fixture, mode):
+    """Round 0 prunes the loaded params: after its one step the pruned
+    weights are exactly zero on both sides, in the same places, and the
+    kept ones agree within 1e-3 of the largest weight (the fixture's flat
+    colour fields put maxpool windows on near-ties, which the two
+    packages' summation orders can break differently, so the update agrees
+    less closely than on the noise batches of test_torch_train_step.py)."""
+    jcfg, tcfg = _cfgs(fixture)
+    jr = j_iterate(j_parse(fixture["text"]),
+                   jax.tree.map(jax.numpy.asarray, fixture["np_params"]),
+                   jcfg, _j_loader(fixture), fractions=[0.5],
+                   steps_per_round=1, eval_fn=lambda s, p: {},
+                   mode=mode, logger=_quiet())
+    spec = parse_cfg(fixture["text"])
+    tr = iterative_prune_finetune(
+        spec, params_from_jax(fixture["np_params"], spec), tcfg,
+        _t_loader(fixture), fractions=[0.5], steps_per_round=1,
+        eval_fn=lambda s, p: {}, mode=mode, logger=_quiet())
+    got = params_to_jax(tr[0].params)
+    want = jax.tree.map(np.asarray, jr[0].params)
+    n_zero, n_all = 0, 0
+    for k in want:
+        zg, zw = got[k]["w"] == 0, want[k]["w"] == 0
+        assert np.array_equal(zg, zw), k
+        if mode == "magnitude":
+            assert zg.sum() == int(0.5 * zg.size), k
+        n_zero, n_all = n_zero + zg.sum(), n_all + zg.size
+        scale = np.abs(want[k]["w"]).max()
+        assert np.abs(got[k]["w"] - want[k]["w"]).max() <= 1e-3 * scale
+    assert mode == "magnitude" or n_zero == int(0.5 * n_all)
+    assert tr[0].seen == jr[0].seen == 2
+
+
+def test_iterative_magnitude_masks_accumulate(fixture):
+    _, tcfg = _cfgs(fixture)
+    spec = parse_cfg(fixture["text"])
+    rounds = iterative_prune_finetune(
+        spec, params_from_jax(fixture["np_params"], spec), tcfg,
+        _t_loader(fixture), fractions=[0.5, 0.75], steps_per_round=2,
+        eval_fn=lambda s, p: {"n": 1.0}, mode="magnitude",
+        rng=torch.Generator().manual_seed(1), logger=_quiet(),
+        initial_seen=100)
+    assert [r.seen for r in rounds] == [104, 108]
+    for r, frac in zip(rounds, (0.5, 0.75)):
+        for k, p in r.params.items():
+            assert int((p["w"] == 0).sum()) == int(frac * p["w"].numel())
+
+
+def test_iterative_l1_filter_repacks_as_jax(fixture):
+    jcfg, tcfg = _cfgs(fixture)
+    jr = j_iterate(j_parse(fixture["text"]),
+                   jax.tree.map(jax.numpy.asarray, fixture["np_params"]),
+                   jcfg, _j_loader(fixture), fractions=[0.5],
+                   steps_per_round=1, eval_fn=lambda s, p: {},
+                   mode="l1_filter", logger=_quiet())
+    spec = parse_cfg(fixture["text"])
+    tr = iterative_prune_finetune(
+        spec, params_from_jax(fixture["np_params"], spec), tcfg,
+        _t_loader(fixture), fractions=[0.5], steps_per_round=1,
+        eval_fn=lambda s, p: {}, mode="l1_filter", logger=_quiet())
+    assert dump_cfg(tr[0].spec) == j_dump(jr[0].spec)
+    assert tr[0].spec.layers[0].filters == 8
+    # channel masks instead of the repack: the same dense shapes
+    tm = iterative_prune_finetune(
+        spec, params_from_jax(fixture["np_params"], spec), tcfg,
+        _t_loader(fixture), fractions=[0.5], steps_per_round=1,
+        eval_fn=lambda s, p: {}, mode="l1_filter", logger=_quiet(),
+        repack_each_round=False)
+    assert tm[0].spec.layers[0].filters == 16
+
+
+@pytest.mark.parametrize("kw, exc, item", [
+    (dict(mode="bn_gamma"), NotImplementedError, 5),
+    (dict(mode="fpgm"), NotImplementedError, 5),
+    (dict(mode="taylor"), NotImplementedError, 5),
+    (dict(mode="lamp"), NotImplementedError, 6),
+    (dict(tied="group"), NotImplementedError, 5),
+    (dict(mesh=object()), NotImplementedError, 7),
+    (dict(distill=object()), NotImplementedError, 6),
+    (dict(tied="both"), ValueError, None),
+    (dict(mode="magnitude", tied="group"), ValueError, None),
+    (dict(mode="nope"), ValueError, None),
+])
+def test_iterative_rejections(fixture, kw, exc, item):
+    _, tcfg = _cfgs(fixture)
+    spec = parse_cfg(fixture["text"])
+    with pytest.raises(exc, match=f"item {item}" if item else None):
+        iterative_prune_finetune(
+            spec, params_from_jax(fixture["np_params"], spec), tcfg,
+            _t_loader(fixture), fractions=[0.5], steps_per_round=1,
+            eval_fn=lambda s, p: {}, logger=_quiet(), **kw)
+
+
+def test_iterative_resume_equals_uninterrupted(fixture, tmp_path):
+    """Each round's generator is drawn before the resume skip, so a resumed
+    run trains round 1 with the uninterrupted run's draws (flip on). Each
+    round iterates the loader from a new epoch; unshuffled, a fresh loader
+    then gives round 1 the same batches too, and the result is equal bit
+    for bit."""
+    _, tcfg = _cfgs(fixture)
+    tcfg.augment_flip = True
+    spec = parse_cfg(fixture["text"])
+
+    def run(fracs, ck, resume=False):
+        loader = BatchLoader(fixture["samples"], batch_size=2, net_h=NET,
+                             net_w=NET, max_boxes=8, shuffle=False,
+                             device="cpu")
+        return iterative_prune_finetune(
+            spec, params_from_jax(fixture["np_params"], spec), tcfg,
+            loader, fractions=fracs, steps_per_round=2,
+            eval_fn=lambda s, p: {}, mode="magnitude",
+            rng=torch.Generator().manual_seed(7), logger=_quiet(),
+            ckpt_dir=str(ck), resume=resume)
+
+    full = run([0.5, 0.75], tmp_path / "a")
+    run([0.5], tmp_path / "b")
+    resumed = run([0.5, 0.75], tmp_path / "b", resume=True)
+    assert len(resumed) == 1 and resumed[0].round_idx == 1
+    assert resumed[0].seen == full[1].seen
+    for k, p in full[1].params.items():
+        for n, v in p.items():
+            assert torch.equal(resumed[0].params[k][n], v), (k, n)
+
+
+# ---- CLIs -------------------------------------------------------------------
+
+def _ft(fixture, *extra, device=("--device", "cpu")):
+    return ["--cfg", fixture["cfg"], "--weights", fixture["weights"],
+            "--data", fixture["data"], "--steps", "1", "--batch", "2",
+            "--out", str(fixture["tmp"] / "o.weights"), *extra, *device]
+
+
+USAGE = {
+    "tied_alone": (["--tied", "group"], "--tied group requires --iterate"),
+    "preserve_iterate": (["--preserve-sparsity", "--iterate", "0.5"],
+                         "--preserve-sparsity cannot be combined"),
+    "gmp_preserve": (["--gmp", "0.5", "--preserve-sparsity"],
+                     "--gmp is a standalone"),
+    "gmp_qat": (["--gmp", "0.5", "--qat"], "--gmp cannot be combined"),
+    "qat_iterate": (["--qat", "--iterate", "0.5"], "--qat cannot be"),
+    "save_qmodel": (["--save-qmodel", "q"], "--save-qmodel requires --qat"),
+    "pack": (["--pack"], "--pack entropy-codes"),
+    "freeze": (["--freeze", "6"], "--freeze 6 must leave"),
+    "ema_range": (["--ema", "1.5"], "--ema decay must be in (0, 1)"),
+    "ema_iterate": (["--ema", "0.9", "--iterate", "0.5"], "single-pass"),
+    "jitter": (["--jitter", "0.6"], "--jitter must be in [0, 0.5)"),
+    "batch_zero": (["--batch", "0"], "batch must be >= 1"),
+    "indivisible": (["--subdivisions", "3"], "must be divisible"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(USAGE))
+def test_finetune_usage_errors_worded_as_jax(fixture, capsys, case):
+    extra, message = USAGE[case]
+    for main, dev in ((jft_cli.main, ()), (ft_cli.main,
+                                            ("--device", "cpu"))):
+        assert main(_ft(fixture, *extra, device=dev)) == 2
+        assert message in capsys.readouterr().err
+
+
+NOT_PORTED = {
+    "gmp": (["--gmp", "0.5"], 6), "qat": (["--qat"], 6),
+    "distill": (["--distill", "t.weights"], 6), "dp": (["--dp", "2"], 7),
+    "tp": (["--tp", "2"], 7),
+    "bn_gamma": (["--iterate", "0.5", "--iterate-mode", "bn_gamma"], 5),
+    "taylor": (["--iterate", "0.5", "--iterate-mode", "taylor"], 5),
+    "lamp": (["--iterate", "0.5", "--iterate-mode", "lamp"], 6),
+    "tied_group": (["--iterate", "0.5", "--tied", "group"], 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOT_PORTED))
+def test_finetune_not_ported_exit_2_naming_item(fixture, capsys, case):
+    extra, item = NOT_PORTED[case]
+    assert ft_cli.main(_ft(fixture, *extra)) == 2
+    err = capsys.readouterr().err
+    assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
+
+
+def test_cli_default_device_is_cuda(fixture, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((ft_cli.main, _ft(fixture, device=())),
+                       (train_cli.main, ["--cfg", fixture["cfg"], "--data",
+                                         fixture["data"], "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+
+
+def test_finetune_preserve_sparsity_keeps_zeros(fixture, tmp_path, capsys):
+    spec = load_cfg(fixture["cfg"])
+    params, _ = load_weights(fixture["weights"], spec)
+    pruned = str(tmp_path / "pruned.weights")
+    for k, p in params.items():
+        p["w"].view(-1)[::2] = 0.0
+    from modelcompression_tpu_torch.models import save_weights
+    save_weights(pruned, spec, params, seen=100)
+    out = str(tmp_path / "ft.weights")
+    argv = ["--cfg", fixture["cfg"], "--weights", pruned, "--data",
+            fixture["data"], "--steps", "3", "--batch", "2", "--out", out,
+            "--preserve-sparsity", "--device", "cpu", "--ema", "0.5"]
+    assert ft_cli.main(argv) == 0
+    text = capsys.readouterr().out
+    assert "preserving sparsity in 6 layers" in text
+    assert "mAP@50" in text and "EMA weights" in text
+    got, seen = load_weights(out, spec)
+    assert seen == 100 + 3 * 2
+    for k, p in params.items():
+        zero = p["w"] == 0
+        assert not got[k]["w"][zero].any(), k
+        assert not torch.equal(got[k]["w"], p["w"]), k
+
+
+@pytest.mark.parametrize("mode", ["magnitude", "l1_filter"])
+def test_finetune_iterate_writes_the_last_round(fixture, tmp_path, capsys,
+                                                mode):
+    out = str(tmp_path / "it.weights")
+    argv = ["--cfg", fixture["cfg"], "--weights", fixture["weights"],
+            "--data", fixture["data"], "--steps", "1", "--batch", "2",
+            "--out", out, "--iterate", "0.5,0.75", "--iterate-mode", mode,
+            "--device", "cpu"]
+    assert ft_cli.main(argv) == 0
+    text = capsys.readouterr().out
+    assert text.count("mAP@50") == 2
+    if mode == "l1_filter":
+        spec = load_cfg(out[:-len(".weights")] + ".cfg")
+        assert spec.layers[0].filters == 4
+    else:
+        assert not os.path.exists(out[:-len(".weights")] + ".cfg")
+        spec = load_cfg(fixture["cfg"])
+    got, seen = load_weights(out, spec)
+    assert seen == 100 + 2 * 2
+    if mode == "magnitude":
+        for k, p in got.items():
+            assert int((p["w"] == 0).sum()) == int(0.75 * p["w"].numel())
+
+
+def _train(fixture, ck, steps, *extra):
+    return train_cli.main(["--cfg", fixture["cfg"], "--weights",
+                           fixture["weights"], "--data", fixture["data"],
+                           "--steps", str(steps), "--batch", "2",
+                           "--max-boxes", "8", "--checkpoint-dir", str(ck),
+                           "--device", "cpu", *extra])
+
+
+def test_train_cli_resume_equals_uninterrupted(fixture, tmp_path, capsys):
+    """Killed after 2 steps and resumed to 4: params, momentum, counters
+    and generator equal to an uninterrupted 4-step run, bit for bit (the
+    jitter and flip draws make the generator matter)."""
+    a, b = tmp_path / "a", tmp_path / "b"
+    jl = str(tmp_path / "m.jsonl")
+    assert _train(fixture, a, 4) == 0
+    assert _train(fixture, b, 2, "--log-jsonl", jl) == 0
+    assert _train(fixture, b, 4, "--resume", "--log-jsonl", jl) == 0
+    assert "resumed" in capsys.readouterr().out
+    _, sa, _ = load_checkpoint(latest_checkpoint(str(a)))
+    _, sb, _ = load_checkpoint(latest_checkpoint(str(b)))
+    assert latest_checkpoint(str(b)).endswith("step_00000004")
+    assert sa["step"] == sb["step"] == 4 and sa["seen"] == sb["seen"] == 108
+    for k, p in sa["params"].items():
+        for n, v in p.items():
+            assert torch.equal(sb["params"][k][n], v), (k, n)
+    for i, s in sa["optimizer"]["state"].items():
+        assert torch.equal(sb["optimizer"]["state"][i]["momentum_buffer"],
+                           s["momentum_buffer"])
+    assert torch.equal(sa["rng"].get_state(), sb["rng"].get_state())
+    steps = [json.loads(line)["step"] for line in open(jl)
+             if json.loads(line)["prefix"] == "train"]
+    assert steps == sorted(steps) and steps.count(2) == 1 and steps[-1] == 4
+
+
+def test_train_cli_resume_rules(fixture, tmp_path, capsys):
+    ck = tmp_path / "ck"
+    assert _train(fixture, ck, 2) == 0
+    assert _train(fixture, ck, 2, "--resume") == 0
+    assert "nothing to do" in capsys.readouterr().out
+    assert latest_checkpoint(str(ck)).endswith("step_00000002")
+    argv = ["--cfg", fixture["cfg"], "--data", fixture["data"], "--steps",
+            "2", "--batch", "2", "--resume", "--device", "cpu"]
+    assert train_cli.main(argv) == 2
+    assert "--resume requires --checkpoint-dir" in capsys.readouterr().err
+    assert train_cli.main(argv[:-3] + ["--dp", "2", "--device", "cpu"]) == 2
+    assert "item 7" in capsys.readouterr().err
+
+
+def test_train_cli_multi_scale_and_eval(fixture, tmp_path, capsys):
+    """From random init with the cfg's jitter, multi-scale batches (the
+    loader's sizes 32..96) and an eval every 2 steps."""
+    jl = str(tmp_path / "m.jsonl")
+    argv = ["--cfg", fixture["cfg"], "--data", fixture["data"], "--steps",
+            "2", "--batch", "2", "--multi-scale", "--eval-every", "2",
+            "--log-jsonl", jl, "--device", "cpu"]
+    assert train_cli.main(argv) == 0
+    recs = [json.loads(line) for line in open(jl)]
+    assert [r["prefix"] for r in recs] == ["train", "eval"]
+    assert np.isfinite(recs[0]["loss"]) and "map50" in recs[1]
