@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving, magnitude-prune, evaluation and
-fine-tune paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, magnitude-prune, evaluation,
+fine-tune and YOLOv3 / YOLOv4 serving paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -36,7 +37,8 @@ Phases, each printing JSON lines on stdout:
             events.
 5. server   the serve CLI's build_server on 127.0.0.1 (--deployment
             --batch 64 --device cuda, random weights): /healthz, a few
-            canvases through the dispatcher queue, /stats, shutdown.
+            canvases through the dispatcher queue, two PNG frames posted
+            to /detect, /stats, shutdown.
 6. prune    the prune CLI on full-width YOLOv2-VOC (random weights from
             seed 0 written as .weights), --mode magnitude then --mode
             global at --sparsity 0.75 --device cuda. Each call must launch
@@ -91,6 +93,31 @@ Phases, each printing JSON lines on stdout:
             against an uninterrupted 4-step run (cuDNN's deterministic
             algorithms): step, seen and generator equal, params and
             momentum within 1e-4 of their largest magnitude.
+9. families YOLOv4-VOC 416 (random init, seed 0; its 20 classes, three
+            [yolo] heads, 10,647 candidates an image), unpruned and 75%-
+            filter-pruned and repacked, served as in phase 4: (a) no
+            kernel launched (conv1 feeds a conv, so no input stage),
+            ms/batch, img/s, peak memory, a profiler window, the fp32
+            raw maps of one frame card vs CPU within 1e-4 max rel per
+            head; (b) the same step with the bisect prefilter: count /
+            tie-count / apply launched exactly 32 / 1 / 1 times at S=64,
+            its keep-set equal to the plain route's on the same scores,
+            timed; the three kernels against their plain versions at
+            this shape; (c) at this NMS shape (B=64, N=10,647, C=20,
+            K=32) the default, DIoU (beta 0.6), bisect, nms_padded and
+            soft-NMS (Gaussian, linear) on the card against the CPU on
+            the same candidates: selections equal (soft-NMS scores within
+            1e-6 relative), each timed. The serve CLI's server on
+            yolov4-voc.cfg as in phase 5, with --diou-nms --diou-beta 0.6
+            --nms-prefilter-impl bisect: exactly 32 / 1 / 1 launches for
+            every batch it served. (d) YOLOv3-tiny 416 (80 classes)
+            at batch 64: exactly 1 tensor-core input-stage launch at C=16
+            a batch, and the fp32 card-vs-CPU forward through the fp32
+            input stage. (e) detect --dir on 8 fixture images and eval
+            --diou-nms --nms-prefilter 128 --nms-prefilter-impl bisect on
+            phase 7's fixture (32 / 1 / 1 launches a batch), both on
+            random-weight YOLOv4-tiny-VOC 416, and summary of yolov4.cfg
+            (608): each exits 0.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -318,7 +345,8 @@ def phase_kernels(torch):
     torch.backends.cudnn.allow_tf32 = False  # fp32 cases: no TF32 yardstick
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = {}
-    for c_out in (32, 8):
+    # C=32 / C=8: YOLOv2-VOC unpruned / 75%-pruned; C=16: YOLOv3-tiny
+    for c_out in (32, 8, 16):
         for dtype in (torch.bfloat16, torch.float32):
             r = input_stage_case(torch, c_out, dtype, gen)
             cases[(c_out, r["dtype"])] = r
@@ -350,15 +378,18 @@ def _topk_layout(torch, spec, params, per_layer, variant):
     return ct._prune_layout(params, spec, sparsity, per_layer, ())
 
 
-def topk_case(torch, spec, params, per_layer, variant):
+def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
+              library=None):
     """The three top-k/mask kernels against their plain versions on the
-    inputs a prune of this case feeds them (derived by the plain rule),
-    then timed: counts equal, outputs bit-equal (every output is a count
-    or a copy of an input)."""
+    inputs a prune of this flat ``layout`` (``_prune_layout``'s tuple)
+    feeds them (derived by the plain rule), then timed: counts equal,
+    outputs bit-equal (every output is a count or a copy of an input).
+    ``kth_library``: time torch.kthvalue for the single real segment's
+    k-th |w|; ``library``: another PyTorch call for the whole selection,
+    timed instead; ``pad_segment``: the last segment is the padding."""
     from modelcompression_tpu_torch.ops import cuda_topk as ct
     from modelcompression_tpu_torch.ops import topk_mask as tm
-    keys, cat, sizes, seg, n_zero, S = _topk_layout(torch, spec, params,
-                                                   per_layer, variant)
+    keys, cat, sizes, seg, n_zero, S = layout
     n = cat.numel()
     bits = tm.abs_bits(cat)
     k = (n_zero - 1).clamp_min(0)
@@ -407,9 +438,10 @@ def topk_case(torch, spec, params, per_layer, variant):
                 **bound(n_bytes, n_ops, PEAK_OPS_PER_S["float32"])}
 
     chunks = per_chunk.shape[0]
+    real = slice(0, S - 1) if pad_segment else slice(0, S)
     r = {"S": S, "variant": variant, "n": n, "weights": sum(sizes),
-         "segments_at_threshold_zero": int((tau[:-1] == 0).sum()),
-         "ties_at_threshold": int(pc[:, :-1].sum()),  # padding excluded
+         "segments_at_threshold_zero": int((tau[real] == 0).sum()),
+         "ties_at_threshold": int(pc[:, real].sum()),  # padding excluded
          # bytes: each input read once, each output written once
          "count_le": timed("count_le", ct.count_le_cuda, ct.count_le_plain,
                            (bits, seg, kth, S), 8 * n + 12 * S, 2 * n),
@@ -422,7 +454,9 @@ def topk_case(torch, spec, params, per_layer, variant):
          "bisection_ms": time_ms(torch, lambda: tm.segmented_kth_bits(
              bits, seg, k, S, count_le=ct.count_le_cuda), iters=3, warmup=1),
          "kthvalue_ms": None}
-    if not per_layer:
+    if library is not None:
+        r["kthvalue_ms"] = time_ms(torch, library, iters=3, warmup=1)
+    if kth_library:
         # the one PyTorch call for the bisection's job: the k-th |w|
         absw = cat[:sum(sizes)].abs()
         kk = int(k[0]) + 1
@@ -444,7 +478,9 @@ def phase_topk_kernels(torch):
     cases = {}
     for per_layer in (True, False):
         for variant in TOPK_VARIANTS:
-            r = topk_case(torch, spec, params, per_layer, variant)
+            r = topk_case(torch, _topk_layout(torch, spec, params,
+                                              per_layer, variant),
+                          variant, kth_library=not per_layer)
             cases[(r["S"], variant)] = r
             emit({"phase": "kernels", "ok": True, "kernel": "topk", **r})
     return cases
@@ -464,8 +500,8 @@ def _models(torch):
     return [("unpruned", spec, params), ("pruned75", pspec, pparams)]
 
 
-def _agrees_with_cpu(torch, kernels, spec, params):
-    """The card against the CPU on 2 frames, in two halves:
+def _agrees_with_cpu(torch, kernels, spec, params, n_frames=2):
+    """The card against the CPU on ``n_frames`` frames, in two halves:
 
     * letterbox + forward (the fp32 input-stage kernel included, its
       launches counted) in fp32 with TF32 off: the raw maps must agree
@@ -474,7 +510,11 @@ def _agrees_with_cpu(torch, kernels, spec, params):
       (IEEE elementwise ops and a stable sort on both devices). The halves
       are split because random weights put every candidate above conf and
       many scores on near-ties, where a last-bit forward difference
-      legitimately reorders the top-K."""
+      legitimately reorders the top-K.
+
+    The fp32 input-stage kernel must launch when ``input_stage_match``
+    holds for the spec, and no input stage otherwise. Multi-head ([yolo])
+    specs are held head by head."""
     import numpy as np
     from modelcompression_tpu_torch.core.precision import BITMATCH
     from modelcompression_tpu_torch.data.preprocess import letterbox_device
@@ -485,8 +525,10 @@ def _agrees_with_cpu(torch, kernels, spec, params):
     from modelcompression_tpu_torch.models import (
         fold_batchnorm, forward_folded, params_to,
     )
+    from modelcompression_tpu_torch.ops import input_stage_match
     frames = np.random.default_rng(SEED).integers(
-        0, 256, (2, SRC_H, SRC_W, 3), np.uint8)
+        0, 256, (n_frames, SRC_H, SRC_W, 3), np.uint8)
+    fp32_stage = input_stage_match(spec)  # the fusion's precondition
     folded = fold_batchnorm(params, spec)
     BITMATCH.apply_backend_flags()
     raw = {}
@@ -495,20 +537,25 @@ def _agrees_with_cpu(torch, kernels, spec, params):
         for dev in ("cpu", "cuda"):
             x = letterbox_device(torch.as_tensor(frames, device=dev),
                                  NET, NET)
-            raw[dev] = forward_folded(params_to(folded, dev), x, spec,
-                                      BITMATCH, fuse_input_stage=True).cpu()
+            y = forward_folded(params_to(folded, dev), x, spec, BITMATCH,
+                               fuse_input_stage=fp32_stage)
+            raw[dev] = [t.cpu() for t in
+                        (y if isinstance(y, (tuple, list)) else [y])]
     counts = read_counts(kernels)
-    check(counts[FP32_INPUT_STAGE] >= 1 and counts["input_stage_mma"] == 0
-          and counts[YARDSTICK] == 0,
+    check(counts[FP32_INPUT_STAGE] == int(fp32_stage)
+          and counts["input_stage_mma"] == 0 and counts[YARDSTICK] == 0,
           f"fp32 forward: input-stage launches {counts}")
     with torch.inference_mode():
-        rel = ((raw["cuda"] - raw["cpu"]).abs().max()
-               / raw["cpu"].abs().max()).item()
-        check(rel <= 1e-4, f"fp32 raw map card vs CPU: max rel {rel} > 1e-4")
-        boxes, obj, cls = decode_heads(raw["cpu"], spec)
+        rels = [((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(raw["cuda"], raw["cpu"])]
+        rel = max(rels)
+        check(rel <= 1e-4, f"fp32 raw maps card vs CPU: max rel {rels} > "
+              "1e-4")
+        heads = raw["cpu"] if spec.is_multi_head else raw["cpu"][0]
+        boxes, obj, cls = decode_heads(heads, spec)
         scores, corners = obj[..., None] * cls, center_to_corners(boxes)
-        wh = torch.tensor([[float(SRC_W)], [float(SRC_W)]]), \
-            torch.tensor([[float(SRC_H)], [float(SRC_H)]])
+        wh = torch.full((n_frames, 1), float(SRC_W)), \
+            torch.full((n_frames, 1), float(SRC_H))
         post = {}
         for dev in ("cpu", "cuda"):
             sel, sc, valid = batched_per_class_nms_prefiltered(
@@ -520,16 +567,21 @@ def _agrees_with_cpu(torch, kernels, spec, params):
     for a, b in zip(post["cuda"], post["cpu"]):
         check(torch.equal(a, b), "NMS on the card differs from the CPU on "
               "the same candidates")
-    return {"raw_max_rel": rel, "nms_equal": True,
+    return {"raw_max_rel": rel, "raw_max_rel_by_head": rels,
+            "nms_equal": True,
             "valid_detections": int(post["cpu"][2].sum().item()),
             "launches": counts}
 
 
-def drive_serving(torch, kernels, spec, params, label):
+def drive_serving(torch, kernels, spec, params, label, want=None,
+                  profile=False, **cfg_kw):
     """The fused serving step at batch 64 from 384x512 frames with the
-    deployment config, on the card: run once with every launch count at 0
-    (each kernel of the serving path must launch; outputs finite with the
-    stated shapes), then steady img/s from CUDA events."""
+    deployment config (``cfg_kw`` adds EvalConfig options), on the card:
+    run once with every launch count at 0 (each kernel of the serving
+    path must launch, or with ``want`` exactly those counts; outputs
+    finite with the stated shapes), then steady img/s from CUDA events
+    and the peak device memory of the timed steps; with ``profile`` a
+    profiler window (device operations per step, busy and idle)."""
     from modelcompression_tpu_torch.core.precision import FAST
     from modelcompression_tpu_torch.evaluation import (
         EvalConfig, make_eval_step,
@@ -542,15 +594,20 @@ def drive_serving(torch, kernels, spec, params, label):
                            generator=gen, device="cuda", dtype=torch.uint8)
     img_w = torch.full((BATCH,), float(SRC_W), device="cuda")
     img_h = torch.full((BATCH,), float(SRC_H), device="cuda")
-    cfg = EvalConfig(conf_thresh=0.01, max_detections=32, nms_prefilter=128,
-                     precision=FAST, device="cuda")
+    cfg = EvalConfig(**{"conf_thresh": 0.01, "max_detections": 32,
+                        "nms_prefilter": 128, "precision": FAST,
+                        "device": "cuda", **cfg_kw})
     folded = params_to(fold_batchnorm(params, spec), "cuda")
     step = make_eval_step(spec, cfg, src_hw=(SRC_H, SRC_W))
     reset_counts(kernels)
     outs = step(folded, images, img_w, img_h)
     torch.cuda.synchronize()
     counts = read_counts(kernels)
-    for name in SERVING_KERNELS:
+    at = read_widths(kernels)
+    if want is not None:
+        want = {name: want.get(name, 0) for name, _ in kernels}
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+    for name in SERVING_KERNELS if want is None else ():
         check(counts[name] >= 1, f"{label}: kernel {name} launched "
               f"{counts[name]} times on the serving path")
     for name in (FP32_INPUT_STAGE, YARDSTICK):
@@ -564,13 +621,21 @@ def drive_serving(torch, kernels, spec, params, label):
     check(all(torch.isfinite(o.float()).all().item()
               for o in outs[:2]), f"{label}: non-finite outputs")
     n_valid = int(outs[2].sum().item())
+    torch.cuda.reset_peak_memory_stats()
     ms = time_ms(torch, lambda: step(folded, images, img_w, img_h),
                  iters=10)
-    return {"ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
-            "conv_gflop_per_img": num_conv_flops(spec) / 1e9,
-            "conv1_filters": spec.layers[0].filters,
-            "launches": counts, "valid_detections": n_valid,
-            "n_any_max": int(outs[4].max().item())}
+    r = {"ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "conv_gflop_per_img": num_conv_flops(spec) / 1e9,
+         "conv1_filters": spec.layers[0].filters,
+         "launches": counts, "launches_by_width": at,
+         "valid_detections": n_valid,
+         "n_any_max": int(outs[4].max().item())}
+    if profile:
+        from modelcompression_tpu_torch.cli._profiling import profile_window
+        r["profile"], _ = profile_window(
+            lambda: step(folded, images, img_w, img_h), steps=2)
+    return r
 
 
 def phase_main(torch, kernels, card):
@@ -587,28 +652,40 @@ def phase_main(torch, kernels, card):
     return launches
 
 
-def phase_server(torch, kernels, card):
+def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
+                 classes=20, extra=(), want=None, want_cfg=None,
+                 label="yolov2_voc", phase="server"):
+    """The serve CLI's server (``build_server``) on the card at batch 64
+    with the deployment preset (``extra`` adds flags): /healthz, 8 canvases
+    submitted and 2 frames posted to /detect as PNG, /stats. Each kernel of
+    the serving path must launch, or with ``want`` (launches per batch)
+    exactly those counts for every batch served; ``want_cfg`` holds the
+    resolved EvalConfig's fields. Returns the launches by width."""
     import urllib.request
 
+    import cv2
     import numpy as np
     from modelcompression_tpu_torch.cli import serve
     from modelcompression_tpu_torch.models import cfg_path
     args = serve.build_parser().parse_args(
-        ["--cfg", cfg_path("yolov2-voc.cfg"), "--host", "127.0.0.1",
+        ["--cfg", cfg_path(cfg_name), "--host", "127.0.0.1",
          "--port", "0", "--deployment", "--batch", str(BATCH),
-         "--device", "cuda", "--max-wait-ms", "20"])
+         "--device", "cuda", "--max-wait-ms", "20", *extra])
     httpd, state = serve.build_server(args)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
+        for key, value in (want_cfg or {}).items():
+            check(getattr(state.cfg, key) == value, f"server {label}: "
+                  f"{key} = {getattr(state.cfg, key)!r}, expected {value!r}")
         port = httpd.server_address[1]
         base = f"http://127.0.0.1:{port}"
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
-        check(health["ok"] and health["classes"] == 20
+        check(health["ok"] and health["classes"] == classes
               and health["device"] == "cuda", f"/healthz said {health}")
         rng = np.random.default_rng(SEED)
-        n_req = 8
+        n_req, n_post = 8, 2
         reset_counts(kernels)
         items = [state.submit(rng.integers(0, 256, (NET, NET, 3), np.uint8),
                               float(SRC_W), float(SRC_H))
@@ -618,19 +695,47 @@ def phase_server(torch, kernels, card):
             check(it.event.wait(300), "request timed out")
             check(it.error is None, f"request failed: {it.error}")
             check(isinstance(it.result, list), "no detection list")
-        counts = read_counts(kernels)
-        for name in SERVING_KERNELS:
+        posted = []
+        for _ in range(n_post):
+            ok, png = cv2.imencode(".png", rng.integers(
+                0, 256, (SRC_H, SRC_W, 3), np.uint8))
+            check(ok, "PNG encoding failed")
+            req = urllib.request.Request(base + "/detect", data=bytes(png),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                out = json.loads(r.read())
+            check(r.status == 200 and out["width"] == SRC_W
+                  and out["height"] == SRC_H
+                  and isinstance(out["detections"], list),
+                  f"/detect said {r.status}: {str(out)[:200]}")
+            posted.append(len(out["detections"]))
+        # a batch is counted just after its waiters wake
+        deadline = time.monotonic() + 60
+        while (state.stats()["images"] < n_req + n_post
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        check(stats["images"] == n_req + n_post,
+              f"/stats served {stats['images']}")
+        counts, at = read_counts(kernels), read_widths(kernels)
+        if want is not None:
+            want = {name: stats["batches"] * want.get(name, 0)
+                    for name, _ in kernels}
+            check(counts == want, f"server {label}: launches {counts} over "
+                  f"{stats['batches']} batches, expected {want}")
+        for name in SERVING_KERNELS if want is None else ():
             check(counts[name] >= 1, f"server: kernel {name} launched "
                   f"{counts[name]} times")
         for name in (FP32_INPUT_STAGE, YARDSTICK):
             check(counts[name] == 0, f"server: the fp32 input stage {name} "
                   f"launched {counts[name]} times")
-        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
-            stats = json.loads(r.read())
-        check(stats["images"] >= n_req, f"/stats served {stats['images']}")
-        emit({"phase": "server", "ok": True, "card": card,
-              "requests": n_req, "stats": stats, "launches": counts,
-              "detections_first": len(items[0].result)})
+        emit({"phase": phase, "ok": True, "card": card, "server": label,
+              "requests": n_req, "posted": n_post, "stats": stats,
+              "launches": counts, "launches_by_width": at,
+              "detections_first": len(items[0].result),
+              "detections_posted": posted})
+        return at
     finally:
         state.stop.set()
         httpd.shutdown()
@@ -1348,6 +1453,245 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
     return widths
 
 
+# the families phase: YOLOv4-VOC served at its cfg size (416, 20 classes),
+# YOLOv3-tiny (80 classes) through the tensor-core input stage, the NMS
+# variants at YOLOv4-VOC's NMS shape, and the detect / eval / summary CLIs
+FAMILY_CFG = "yolov4-voc.cfg"
+V3_TINY_CFG = "yolov3-tiny.cfg"
+CLI_CFG = "yolov4-tiny-voc.cfg"
+SUMMARY_CFG = "yolov4.cfg"
+NMS_K, NMS_PREFILTER, NMS_IOU, NMS_CONF = 32, 128, 0.45, 0.01
+DIOU_BETA = 0.6
+DETECT_IMAGES = 8
+
+
+def _family_models(torch):
+    from modelcompression_tpu_torch.compress import (
+        repack, uniform_filter_fraction_keep_sets,
+    )
+    from modelcompression_tpu_torch.models import (
+        cfg_path, init_params, load_cfg,
+    )
+    spec = load_cfg(cfg_path(FAMILY_CFG))
+    params = init_params(spec, seed=SEED)
+    keep = uniform_filter_fraction_keep_sets(spec, params, PRUNE_FRACTION)
+    pspec, pparams = repack(spec, params, keep)
+    return [("yolov4_voc", spec, params),
+            ("yolov4_voc_pruned75", pspec, pparams)]
+
+
+def _candidates_on_card(torch, spec, params):
+    """The serving step's NMS inputs on the card (the FAST forward of
+    ``drive_serving``'s batch, decoded): corners (B, N, 4) and class
+    scores (B, N, C)."""
+    from modelcompression_tpu_torch.core.precision import FAST
+    from modelcompression_tpu_torch.evaluation import (
+        EvalConfig, center_to_corners, decode_heads,
+    )
+    from modelcompression_tpu_torch.evaluation.pipeline import _network
+    from modelcompression_tpu_torch.models import fold_batchnorm, params_to
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    images = torch.randint(0, 256, (BATCH, SRC_H, SRC_W, 3),
+                           generator=gen, device="cuda", dtype=torch.uint8)
+    cfg = EvalConfig(precision=FAST, device="cuda")
+    folded = params_to(fold_batchnorm(params, spec), "cuda")
+    with torch.inference_mode():
+        boxes, obj, cls = decode_heads(
+            _network(spec, cfg, (SRC_H, SRC_W))(folded, images), spec)
+        return center_to_corners(boxes), obj[..., None] * cls
+
+
+def _bisect_layout(torch, scores):
+    """The bisect prefilter's flat layout (``_prune_layout``'s tuple) on
+    the card: the thresholded max class scores, one segment per image,
+    N - N' of each to drop; and the (B, N) scores."""
+    b, n, _ = scores.shape
+    m = scores.amax(-1)
+    m = torch.where(m > NMS_CONF, m, torch.zeros_like(m))
+    seg = torch.arange(b * n, device="cuda", dtype=torch.int32) // n
+    n_zero = torch.full((b,), n - NMS_PREFILTER, dtype=torch.int64,
+                        device="cuda")
+    return (None, m.reshape(-1).contiguous(), [n] * b, seg, n_zero, b), m
+
+
+def _nms_variants_card_vs_cpu(torch, corners, scores):
+    """Each NMS variant at the serving NMS shape, on the card's
+    candidates and on the same candidates copied to the CPU: selections
+    (valid, boxes) equal, scores equal (soft-NMS: within 1e-6 relative,
+    its exp); each timed on the card."""
+    from modelcompression_tpu_torch.evaluation import nms
+    args = (NMS_IOU, NMS_CONF, NMS_K)
+    variants = {
+        "default_topk128": lambda b, s: nms.batched_per_class_nms_prefiltered(
+            b, s, *args, prefilter=NMS_PREFILTER),
+        "diou_topk128": lambda b, s: nms.batched_per_class_nms_prefiltered(
+            b, s, *args, prefilter=NMS_PREFILTER, diou=True,
+            diou_beta=DIOU_BETA),
+        "bisect128": lambda b, s: nms.batched_per_class_nms_prefiltered(
+            b, s, *args, prefilter=NMS_PREFILTER, impl="bisect"),
+        "padded": lambda b, s: nms.batched_per_class_nms_padded(b, s, *args),
+        "soft_gaussian": lambda b, s: nms.batched_per_class_soft_nms(
+            b, s, *args),
+        "soft_linear": lambda b, s: nms.batched_per_class_soft_nms(
+            b, s, *args, linear=True),
+    }
+    cpu = (corners.cpu(), scores.cpu())
+    out = {}
+    with torch.inference_mode():
+        for name, fn in variants.items():
+            got = [t.cpu() for t in fn(corners, scores)]
+            t0 = time.perf_counter()
+            want = fn(*cpu)
+            cpu_s = time.perf_counter() - t0
+            check(torch.equal(got[2], want[2])
+                  and torch.equal(got[0], want[0]),
+                  f"NMS {name}: the card's selections differ from the CPU's "
+                  f"({int((got[2] != want[2]).sum())} slots)")
+            if name.startswith("soft"):
+                rel = ((got[1] - want[1]).abs()
+                       / want[1].abs().clamp_min(1e-30)).max().item()
+                check(rel <= 1e-6, f"NMS {name}: scores rel {rel} > 1e-6")
+            else:
+                rel = 0.0
+                check(torch.equal(got[1], want[1]),
+                      f"NMS {name}: the card's scores differ from the CPU's")
+            out[name] = {"ms": time_ms(torch, lambda: fn(corners, scores),
+                                       iters=3, warmup=1),
+                         "cpu_s": cpu_s, "score_max_rel": rel,
+                         "valid": int(want[2].sum())}
+    return out
+
+
+def phase_families(torch, kernels, card, tmp, data):
+    """The YOLOv3 / YOLOv4 serving and evaluation path (module docstring,
+    phase 9). Returns each path's launches by kernel width and the top-k
+    kernel case at the bisect prefilter's shape."""
+    from modelcompression_tpu_torch.cli import detect, summary
+    from modelcompression_tpu_torch.cli import eval as eval_cli
+    from modelcompression_tpu_torch.data import read_data_cfg
+    from modelcompression_tpu_torch.evaluation import (
+        batched_bisect_prefilter,
+    )
+    from modelcompression_tpu_torch.models import (
+        cfg_path, init_params, load_cfg, save_weights,
+    )
+    from modelcompression_tpu_torch.ops import input_stage_match
+    widths, topk = {}, None
+    t_phase = time.perf_counter()
+
+    # (a)-(c) YOLOv4-VOC-416 unpruned and 75%-filter-pruned, each with the
+    # top-k and the bisect prefilter; no input stage (conv1 feeds a conv)
+    for label, spec, params in _family_models(torch):
+        check(not input_stage_match(spec), f"{label}: input stage matches")
+        r = drive_serving(torch, kernels, spec, params, label, want={},
+                          profile=True)
+        widths[label] = r["launches_by_width"]
+        r["cpu_reference"] = _agrees_with_cpu(torch, kernels, spec, params,
+                                              n_frames=1)
+        rb = drive_serving(torch, kernels, spec, params, f"{label} bisect",
+                           want=PRUNE_LAUNCHES, nms_prefilter_impl="bisect")
+        widths[f"{label}_bisect"] = at = rb["launches_by_width"]
+        check(at["topk_count_le"] == {BATCH: 32},
+              f"{label} bisect: count launches by S {at['topk_count_le']}")
+        corners, scores = _candidates_on_card(torch, spec, params)
+        got = batched_bisect_prefilter(corners, scores, NMS_CONF,
+                                       NMS_PREFILTER)
+        want = batched_bisect_prefilter(corners.cpu(), scores.cpu(),
+                                        NMS_CONF, NMS_PREFILTER)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"{label}: the bisect keep-set on the card differs from the "
+              "plain route's on the same scores")
+        rb["keep_set_equal_plain"] = True
+        r["bisect"] = rb
+        r["n_candidates"] = scores.shape[1]
+        if topk is None:  # the unpruned model's scores
+            layout, m = _bisect_layout(torch, scores)
+            topk = topk_case(
+                torch, layout, "bisect", pad_segment=False,
+                library=lambda: torch.topk(m, NMS_PREFILTER, dim=1))
+            emit({"phase": "families", "ok": True, "kernel": "topk",
+                  **topk})
+            r["nms_variants"] = _nms_variants_card_vs_cpu(torch, corners,
+                                                          scores)
+        emit({"phase": "families", "ok": True, "model": label,
+              "card": card, **r})
+
+    # the serve CLI on YOLOv4-VOC-416 at the deployment preset, with DIoU
+    # from the flags and the bisect prefilter: 32 / 1 / 1 a batch
+    widths["yolov4_voc_server"] = phase_server(
+        torch, kernels, card, cfg_name=FAMILY_CFG, label="yolov4_voc",
+        phase="families",
+        extra=["--diou-nms", "--diou-beta", str(DIOU_BETA),
+               "--nms-prefilter-impl", "bisect"],
+        want=PRUNE_LAUNCHES,
+        want_cfg={"diou_nms": True, "diou_beta": DIOU_BETA,
+                  "nms_prefilter_impl": "bisect",
+                  "nms_prefilter": NMS_PREFILTER, "conf_thresh": NMS_CONF,
+                  "max_detections": NMS_K})
+
+    # (d) YOLOv3-tiny-416, 80 classes: the tensor-core input stage at C=16
+    spec = load_cfg(cfg_path(V3_TINY_CFG))
+    params = init_params(spec, seed=SEED)
+    c1 = spec.layers[0].filters
+    r = drive_serving(torch, kernels, spec, params, "yolov3_tiny",
+                      want={"input_stage_mma": 1}, profile=True)
+    widths["yolov3_tiny"] = at = r["launches_by_width"]
+    check(at["input_stage_mma"] == {c1: 1},
+          f"yolov3_tiny: mma launches by C {at['input_stage_mma']}")
+    r["cpu_reference"] = _agrees_with_cpu(torch, kernels, spec, params)
+    widths["yolov3_tiny_fp32"] = read_widths(kernels)
+    emit({"phase": "families", "ok": True, "model": "yolov3_tiny",
+          "card": card, **r})
+
+    # (e) the CLIs on random-weight YOLOv4-tiny-VOC at 416
+    cli_cfg = cfg_path(CLI_CFG)
+    cli_spec = load_cfg(cli_cfg)
+    weights = os.path.join(tmp, "yolov4-tiny-voc.weights")
+    save_weights(weights, cli_spec, init_params(cli_spec, seed=SEED))
+    frames = os.path.join(tmp, "frames")
+    os.makedirs(frames)
+    with open(read_data_cfg(data)["valid"]) as f:
+        for path in f.read().split()[:DETECT_IMAGES]:
+            shutil.copy(path, frames)
+    base = ["--cfg", cli_cfg, "--weights", weights, "--device", "cuda"]
+    out, counts, at, det_s = _run_cli(
+        torch, kernels, detect.main,
+        base + ["--dir", frames, "--out-dir", os.path.join(tmp, "drawn"),
+                "--batch", str(DETECT_IMAGES), "--deployment"],
+        "detect --dir")
+    check(f"over {DETECT_IMAGES} images" in out
+          and len(os.listdir(os.path.join(tmp, "drawn"))) == DETECT_IMAGES
+          and not any(counts.values()), f"detect --dir: launches {counts}")
+    widths["detect"] = at
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    out, counts, at, ev_s = _run_cli(
+        torch, kernels, eval_cli.main,
+        base + ["--data", data, "--batch", str(BATCH), "--conf",
+                str(NMS_CONF), "--max-det", str(NMS_K), "--diou-nms",
+                "--diou-beta", str(DIOU_BETA), "--nms-prefilter",
+                str(NMS_PREFILTER), "--nms-prefilter-impl", "bisect"],
+        "eval --diou-nms --nms-prefilter-impl bisect")
+    want = {name: n_batches * PRUNE_LAUNCHES.get(name, 0)
+            for name, _ in kernels}
+    check(counts == want, f"eval bisect: launches {counts}, expected {want}")
+    check(at["topk_count_le"] == {BATCH: n_batches * 32},
+          f"eval bisect: count launches by S {at['topk_count_le']}")
+    m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
+                  re.M)
+    check(m and int(m.group(2)) == EVAL_IMAGES, "eval printed no summary")
+    widths["eval_diou_bisect"] = at
+    out, _, _, sum_s = _run_cli(torch, kernels, summary.main,
+                                ["--cfg", cfg_path(SUMMARY_CFG)], "summary")
+    foot = out.strip().splitlines()[-1]
+    check(foot.startswith("total: 64.43M params"), f"summary: {foot}")
+    emit({"phase": "families", "ok": True, "card": card,
+          "clis": {"detect_dir_s": det_s, "eval_s": ev_s,
+                   "eval_map50_pct": float(m.group(1)),
+                   "summary_s": sum_s, "summary_footer": foot},
+          "seconds": time.perf_counter() - t_phase})
+    return widths, topk
+
+
 TOPK_ENTRIES = (
     ("count_le", "topk_count_le", "pallas_topk.py:55"),
     ("tie_counts", "topk_tie_counts", "pallas_topk.py:190"),
@@ -1356,7 +1700,7 @@ TOPK_ENTRIES = (
 
 
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
-                   ft_widths):
+                   ft_widths, fam_widths, fam_topk):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -1372,16 +1716,24 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     whole 31-launch bisection's ``bisection_ms``; in global mode their
     ``library_ms`` is torch.kthvalue on the |w| vector, the call that finds
     the same k-th |w|, so it compares with ``bisection_ms`` (marked by
-    ``library_computes``). ``eval_launches`` and ``finetune_launches``
-    count each case's launches on each path of the eval and finetune
-    phases, read from the wrappers' counts by width (C or S)."""
-    def on_eval(source, width):
+    ``library_computes``). ``eval_launches``, ``finetune_launches`` and
+    ``families_launches`` count each case's launches on each path of the
+    eval, finetune and families phases, read from the wrappers' counts by
+    width (C or S). The families phase adds its own cases: the input
+    stages at C=16 (YOLOv3-tiny serving, bf16, and its card-vs-CPU
+    forward, fp32) and the top-k kernels at S=64 (the bisect prefilter
+    over YOLOv4-VOC's 64 x 10,647 candidates; the count entry's
+    ``library_ms`` is torch.topk of the 128 best per image, the whole
+    selection)."""
+    def on(widths, source, width):
         return {path: at[source].get(width, 0)
-                for path, at in eval_widths.items()}
+                for path, at in widths.items()}
+
+    def on_eval(source, width):
+        return on(eval_widths, source, width)
 
     def on_finetune(source, width):
-        return {path: at[source].get(width, 0)
-                for path, at in ft_widths.items()}
+        return on(ft_widths, source, width)
 
     entries = []
     for c_out, dtype, name, model in (
@@ -1402,7 +1754,24 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "prev_ms": r["prev_ms"],
             "prev_max_abs_err": r["prev_max_abs_err"],
             "eval_launches": on_eval(source, c_out),
-            "finetune_launches": on_finetune(source, c_out)})
+            "finetune_launches": on_finetune(source, c_out),
+            "families_launches": on(fam_widths, source, c_out)})
+    for dtype, name, path in (
+            ("bfloat16", "input_stage_mma[C=16]", "yolov3_tiny"),
+            ("float32", "input_stage_f32[C=16]", "yolov3_tiny_fp32")):
+        r = cases[(16, dtype)]
+        source = r["kernel"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
+            "replaces": "modelcompression_tpu/ops/input_stage.py:159",
+            "launches": fam_widths[path][source].get(16, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "prev_ms": r["prev_ms"],
+            "prev_max_abs_err": r["prev_max_abs_err"],
+            "families_launches": on(fam_widths, source, 16)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -1413,7 +1782,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "eval_launches": on_eval(YARDSTICK, 32),
-        "finetune_launches": on_finetune(YARDSTICK, 32)})
+        "finetune_launches": on_finetune(YARDSTICK, 32),
+        "families_launches": on(fam_widths, YARDSTICK, 32)})
     for s, mode in ((24, "magnitude"), (2, "global")):
         r = topk[(s, "random")]
         for key, source, body in TOPK_ENTRIES:
@@ -1427,7 +1797,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": None,
                 "eval_launches": on_eval(source, s),
-                "finetune_launches": on_finetune(source, s)}
+                "finetune_launches": on_finetune(source, s),
+                "families_launches": on(fam_widths, source, s)}
             if key == "count_le":
                 entry["bisection_ms"] = r["bisection_ms"]
                 if r["kthvalue_ms"] is not None:
@@ -1435,6 +1806,25 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                     entry["library_computes"] = (
                         "the k-th |w| of the whole 31-launch bisection")
             entries.append(entry)
+    s = fam_topk["S"]
+    for key, source, body in TOPK_ENTRIES:
+        k = fam_topk[key]
+        entry = {
+            "name": f"{source}[S={s},bisect]", "route": "cuda",
+            "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
+            "replaces": f"modelcompression_tpu/ops/{body}",
+            "launches": fam_widths["yolov4_voc_bisect"][source].get(s, 0),
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "families_launches": on(fam_widths, source, s)}
+        if key == "count_le":
+            entry["bisection_ms"] = fam_topk["bisection_ms"]
+            entry["library_ms"] = fam_topk["kthvalue_ms"]
+            entry["library_computes"] = (
+                "torch.topk of the 128 best scores per image: the whole "
+                "32-launch selection")
+        entries.append(entry)
     return entries
 
 
@@ -1475,9 +1865,11 @@ def main() -> int:
                                                weights, prune_widths)
                 ft_widths = phase_finetune(torch, KERNELS, card, tmp, data,
                                            weights)
+            fam_widths, fam_topk = phase_families(torch, KERNELS, card, tmp,
+                                                  data)
         emit({"kernels": kernel_entries(cases, launches, topk,
                                         prune_launches, eval_widths,
-                                        ft_widths)})
+                                        ft_widths, fam_widths, fam_topk)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

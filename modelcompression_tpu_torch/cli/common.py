@@ -144,13 +144,23 @@ def add_serving_nms_args(p: argparse.ArgumentParser):
                         "--deployment: 128)")
     p.add_argument("--nms-prefilter-impl", choices=("topk", "bisect"),
                    default="topk",
-                   help="prefilter implementation ('bisect' is not ported "
-                        "yet and is rejected)")
+                   help="prefilter implementation: 'topk' (per-image "
+                        "stable sort) or 'bisect' (sort-free batched "
+                        "segmented bisection through the top-k kernels; "
+                        "same exactness condition, evaluation/nms.py)")
     p.add_argument("--soft-nms", choices=("linear", "gaussian"),
                    default=None,
-                   help="Soft-NMS (not ported yet; rejected)")
+                   help="Soft-NMS score decay instead of greedy erasure "
+                        "(accuracy knob for dense/overlapping scenes)")
     p.add_argument("--diou-nms", action="store_true",
-                   help="DIoU-NMS (not ported yet; rejected)")
+                   help="DIoU-NMS: greedy suppression on IoU minus the "
+                        "center-distance penalty (occluded objects). "
+                        "Defaults ON when the cfg's [yolo] heads carry "
+                        "nms_kind=diounms")
+    p.add_argument("--diou-beta", type=float, default=None,
+                   help="DIoU-NMS penalty exponent (rho^2/c^2)^beta "
+                        "(darknet beta_nms; default 1.0, or the cfg's "
+                        "beta_nms when nms_kind=diounms)")
     p.add_argument("--deployment", action="store_true",
                    help="apply the measured deployment configuration "
                         "(conf 0.01, K=32, NMS prefilter 128); explicit "
@@ -160,9 +170,11 @@ def add_serving_nms_args(p: argparse.ArgumentParser):
 def resolve_serving_eval_config(args, spec=None):
     """Serving flags -> EvalConfig. Explicit flags override the
     --deployment preset; without it the demo defaults (conf 0.25, K=50,
-    prefilter off) apply. With ``spec``, a cfg's [yolo]
-    ``nms_kind=diounms`` becomes the NMS default, as in the JAX package
-    (and is then rejected as not ported)."""
+    prefilter off) apply.
+
+    With ``spec``: the cfg's [yolo] ``nms_kind=diounms`` / ``beta_nms``
+    keys become the NMS defaults, as in the JAX package; explicit
+    --diou-nms / --diou-beta / --soft-nms flags still win."""
     from modelcompression_tpu_torch.evaluation import EvalConfig
     preset = DEPLOYMENT_PRESET if getattr(args, "deployment", False) \
         else {"conf": 0.25, "max_detections": 50, "nms_prefilter": 0}
@@ -172,9 +184,14 @@ def resolve_serving_eval_config(args, spec=None):
         return preset[name] if v is None else v
 
     diou = bool(getattr(args, "diou_nms", False))
+    beta = getattr(args, "diou_beta", None)
     if spec is not None and not diou and not getattr(args, "soft_nms", None):
-        diou = any(getattr(spec.layers[i], "nms_kind", "") == "diounms"
-                   for i in spec.head_indices())
+        diou_heads = [spec.layers[i] for i in spec.head_indices()
+                      if getattr(spec.layers[i], "nms_kind", "") == "diounms"]
+        if diou_heads:
+            diou = True
+            if beta is None:
+                beta = diou_heads[0].beta_nms
     return EvalConfig(conf_thresh=pick("conf"), nms_thresh=args.nms,
                       max_detections=pick("max_detections"),
                       nms_prefilter=pick("nms_prefilter"),
@@ -182,6 +199,7 @@ def resolve_serving_eval_config(args, spec=None):
                                                  "topk"),
                       soft_nms=getattr(args, "soft_nms", None) or "",
                       diou_nms=diou,
+                      diou_beta=1.0 if beta is None else beta,
                       device=getattr(args, "device", "cuda"))
 
 

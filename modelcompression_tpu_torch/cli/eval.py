@@ -11,8 +11,10 @@ unfolded forward. ``.png`` images decode without cv2; other formats
 
 Not ported yet, each rejected with exit code 2 naming its ROADMAP item:
 --int8, --qmodel, --cluster-bits, --save-qmodel, --save-cmodel, --cmodel
-and --pack (Queue 1 item 6); --exact-nms, --soft-nms, --diou-nms and
---nms-prefilter-impl bisect (item 3); --dp / --tp above 1 (item 7).
+and --pack (Queue 1 item 6); --dp / --tp above 1 (item 7). Every NMS
+variant of the JAX CLI runs: --exact-nms, --soft-nms (--soft-nms-sigma),
+--diou-nms (--diou-beta), --nms-prefilter-impl bisect. [region] (YOLOv2)
+and [yolo] (YOLOv3 / YOLOv4) cfgs evaluate alike.
 
 Example:
   python -m modelcompression_tpu_torch.cli.eval --cfg yolov2-voc.cfg \\
@@ -58,17 +60,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "clear --conf (overflow is reported)")
     p.add_argument("--nms-prefilter-impl", choices=("topk", "bisect"),
                    default="topk",
-                   help=f"prefilter implementation ('bisect': "
-                        f"{_NOT_PORTED})")
+                   help="prefilter implementation: 'topk' (per-image "
+                        "stable sort) or 'bisect' (sort-free batched "
+                        "segmented bisection through the top-k kernels; "
+                        "same exactness condition, evaluation/nms.py)")
     p.add_argument("--exact-nms", action="store_true",
-                   help=f"exact greedy NMS over all candidates "
-                        f"({_NOT_PORTED})")
+                   help="exact greedy NMS over ALL candidates (no top-K "
+                        "candidate prefilter; --max-det serial argmax "
+                        "rounds per image-class, the mAP-audit switch)")
     p.add_argument("--soft-nms", choices=("linear", "gaussian"),
-                   default=None, help=f"Soft-NMS ({_NOT_PORTED})")
+                   default=None,
+                   help="Soft-NMS: decay overlapping scores instead of "
+                        "erasing boxes (gaussian s*=exp(-iou^2/sigma), "
+                        "linear s*=1-iou above --nms); excludes "
+                        "--exact-nms/--nms-prefilter")
     p.add_argument("--soft-nms-sigma", type=float, default=0.5,
-                   help="Gaussian soft-NMS temperature (with --soft-nms)")
+                   help="Gaussian soft-NMS temperature (default 0.5)")
     p.add_argument("--diou-nms", action="store_true",
-                   help=f"DIoU-NMS ({_NOT_PORTED})")
+                   help="DIoU-NMS: suppress on IoU - center-distance "
+                        "penalty > --nms; composes with --exact-nms/"
+                        "--nms-prefilter, excludes --soft-nms")
+    p.add_argument("--diou-beta", type=float, default=1.0,
+                   help="DIoU-NMS penalty exponent (rho^2/c^2)^beta "
+                        "(darknet beta_nms; default 1.0, the paper form)")
     p.add_argument("--metric", choices=("07", "continuous"), default="07",
                    help="VOC AP protocol: 11-point (07) or all-point")
     p.add_argument("--map-iou", type=float, default=0.5,
@@ -175,11 +189,6 @@ def _not_ported(args):
             ("--save-qmodel", args.save_qmodel, 6),
             ("--save-cmodel", args.save_cmodel, 6),
             ("--cmodel", args.cmodel, 6), ("--pack", args.pack, 6),
-            ("--exact-nms", args.exact_nms, 3),
-            ("--soft-nms", args.soft_nms, 3),
-            ("--diou-nms", args.diou_nms, 3),
-            ("--nms-prefilter-impl bisect",
-             args.nms_prefilter_impl == "bisect", 3),
             ("--dp", args.dp > 1, 7), ("--tp", args.tp > 1, 7)):
         if on:
             return (f"{flag} is not ported to the PyTorch package yet "
@@ -207,14 +216,18 @@ def main(argv=None) -> int:
         letterbox=not args.no_letterbox, precision=precision,
         devkit_iou=not args.continuous_iou,
         fold_bn=(precision.name != "bitmatch"),
-        nms_prefilter=args.nms_prefilter, device=args.device)
+        exact_nms=args.exact_nms, nms_prefilter=args.nms_prefilter,
+        nms_prefilter_impl=args.nms_prefilter_impl,
+        soft_nms=args.soft_nms or "", soft_nms_sigma=args.soft_nms_sigma,
+        diou_nms=args.diou_nms, diou_beta=args.diou_beta,
+        device=args.device)
     if args.recall:
         if args.dump_dir or args.map_coco:
             print("error: --recall is an objectness-only audit — it "
                   "produces no per-class detections, so --dump-dir/"
                   "--map-coco do not apply", file=sys.stderr)
             return 2
-        if args.nms_prefilter:
+        if args.exact_nms or args.nms_prefilter:
             print("error: --recall always uses the top-(--max-det) "
                   "class-agnostic proposal NMS (darknet detector recall "
                   "semantics); --exact-nms/--nms-prefilter do not apply "

@@ -5,8 +5,11 @@
 Requests are decoded and letterboxed on host threads, then gathered into
 fixed-size device batches by a single dispatch thread, so the card sees
 only batch-``B`` runs of one step. Runs on ``--device cuda`` (default) or
-``--device cpu``; a missing CUDA device is an error. Serves f32
-``.weights`` or a random model from seed 0 when ``--weights`` is omitted.
+``--device cpu``; a missing CUDA device is an error. Serves any bundled
+family ([region] YOLOv2, [yolo] YOLOv3 / YOLOv4) from f32 ``.weights``, or
+a random model from seed 0 when ``--weights`` is omitted, with every
+serving NMS flag of the JAX CLI (``--diou-nms`` / ``--diou-beta`` default
+to the cfg's ``nms_kind=diounms`` / ``beta_nms``).
 ``--qmodel``, ``--cmodel`` and ``--dp`` are not ported yet and are
 rejected.
 

@@ -1,13 +1,18 @@
-"""YOLOv2 region decode (port of the [region] part of
-``modelcompression_tpu/evaluation/decode.py``; ``decode_yolo`` waits for
-the YOLOv3 slice).
+"""YOLO decode, port of ``modelcompression_tpu/evaluation/decode.py``:
+the [region] head of YOLOv2 and the [yolo] heads of YOLOv3 / YOLOv4.
 
 The raw map is NHWC (B, H, W, A*(5+C)), Darknet's channel order: anchor-
-major, per anchor [tx, ty, tw, th, to, class logits...]:
+major, per anchor [tx, ty, tw, th, to, class logits...]. [region]:
 
     bx = (sigmoid(tx) + cx) / W      by = (sigmoid(ty) + cy) / H
     bw = pw * exp(tw) / W            bh = ph * exp(th) / H
     objectness = sigmoid(to)         class probs = softmax(logits)
+
+[yolo]: anchors in network-input pixels (only the head's ``mask``
+anchors), the YOLOv4 ``scale_x_y`` offset, sigmoid class probabilities:
+
+    bx = (s * sigmoid(tx) - (s - 1) / 2 + cx) / W
+    bw = pw * exp(tw) / net_w        class probs = sigmoid(logits)
 
 Everything is fixed-shape; thresholding happens downstream by masking.
 """
@@ -19,7 +24,9 @@ from typing import Tuple
 
 import torch
 
-from modelcompression_tpu_torch.models.cfg import NetworkSpec, RegionLayer
+from modelcompression_tpu_torch.models.cfg import (
+    NetworkSpec, RegionLayer, YoloLayer,
+)
 
 
 @functools.lru_cache(maxsize=32)
@@ -54,16 +61,50 @@ def decode_region(raw: torch.Tensor, region: RegionLayer
     return boxes, obj.reshape(b, n), cls.reshape(b, n, c)
 
 
+def decode_yolo(raw: torch.Tensor, layer: YoloLayer, net_h: int,
+                net_w: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One [yolo] head's raw map (B, H, W, A*(5+C)) fp32, A = len(mask)
+    -> boxes (B, H*W*A, 4) center-format normalized to [0, 1],
+    objectness (B, H*W*A), class probs (B, H*W*A, C) (independent
+    sigmoids, multi-label)."""
+    b, h, w, _ = raw.shape
+    a, c = layer.n, layer.classes
+    raw = raw.reshape(b, h, w, a, 5 + c)
+    dev = raw.device
+    cy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    cx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    anchors = _anchors_on(layer.anchor_pairs, dev)           # (A, 2) px
+    s = layer.scale_x_y
+    off = (s - 1.0) * 0.5
+    bx = (s * torch.sigmoid(raw[..., 0]) - off + cx[None, :, :, None]) / w
+    by = (s * torch.sigmoid(raw[..., 1]) - off + cy[None, :, :, None]) / h
+    bw = anchors[:, 0] * torch.exp(raw[..., 2]) / net_w
+    bh = anchors[:, 1] * torch.exp(raw[..., 3]) / net_h
+    obj = torch.sigmoid(raw[..., 4])
+    cls = torch.sigmoid(raw[..., 5:])
+    n = h * w * a
+    boxes = torch.stack([bx, by, bw, bh], dim=-1).reshape(b, n, 4)
+    return boxes, obj.reshape(b, n), cls.reshape(b, n, c)
+
+
 def decode_heads(raws, spec: NetworkSpec
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Decode ``forward``'s return value. This slice ports the [region]
-    family; [yolo] heads raise (ROADMAP Queue 1 item 3)."""
-    if spec.is_multi_head:
-        raise NotImplementedError(
-            "decode of [yolo] heads (decode_yolo) is not ported yet — "
-            "ROADMAP Queue 1 item 3 (decode_yolo)")
-    raw = raws[0] if isinstance(raws, (tuple, list)) else raws
-    return decode_region(raw, spec.region)
+    """Decode ``forward``'s return value: one map for a [region] spec, a
+    tuple of per-head maps for a [yolo] spec, whose candidates are
+    concatenated along N in network order."""
+    if not spec.is_multi_head:
+        raw = raws[0] if isinstance(raws, (tuple, list)) else raws
+        return decode_region(raw, spec.region)
+    heads = [spec.layers[i] for i in spec.head_indices()]
+    n_maps = len(raws) if isinstance(raws, (tuple, list)) else 1
+    if not isinstance(raws, (tuple, list)) or n_maps != len(heads):
+        raise ValueError(
+            f"multi-head spec has {len(heads)} [yolo] layers but forward "
+            f"returned {n_maps} maps")
+    net_h, net_w = spec.net.height, spec.net.width
+    parts = [decode_yolo(r, l, net_h, net_w) for r, l in zip(raws, heads)]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
 
 
 def center_to_corners(boxes: torch.Tensor) -> torch.Tensor:

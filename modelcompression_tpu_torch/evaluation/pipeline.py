@@ -1,8 +1,8 @@
 """End-to-end evaluation (port of ``modelcompression_tpu/evaluation/
 pipeline.py``): the fused serving step
 
-  [letterbox ->] normalize -> conv stack -> region decode -> per-class NMS
-  -> boxes in source-image pixels
+  [letterbox ->] normalize -> conv stack -> [region] / [yolo] decode ->
+  per-class NMS (any variant of ``nms.py``) -> boxes in source-image pixels
 
 and ``evaluate``, which feeds a dataset through it and scores the
 detections with the VOC AP protocol (``voc_map.py``).
@@ -44,7 +44,8 @@ from modelcompression_tpu_torch.evaluation.decode import (
     center_to_corners, corners_to_image, decode_heads,
 )
 from modelcompression_tpu_torch.evaluation.nms import (
-    batched_per_class_nms, batched_per_class_nms_prefiltered,
+    batched_per_class_nms, batched_per_class_nms_padded,
+    batched_per_class_nms_prefiltered, batched_per_class_soft_nms,
 )
 from modelcompression_tpu_torch.evaluation.voc_map import (
     Detection, GroundTruth, coco_map, coco_map_by_area, mean_ap,
@@ -75,12 +76,12 @@ class EvalConfig:
     applies when ``fold_bn`` and ``input_stage_match(spec)`` hold.
 
     Values the JAX package rejects raise what it raises, in its order
-    (``ValueError``). Valid options this port does not have yet raise
-    ``NotImplementedError`` naming the ROADMAP item after that:
-    ``exact_nms_prefilter=False``, ``soft_nms``, ``exact_nms``,
-    ``diou_nms``, ``nms_prefilter_impl='bisect'``, ``forward_fn`` and
-    ``int8_input``. ``soft_nms_sigma`` and ``diou_beta`` are kept for
-    those variants.
+    (``ValueError``). The int8 path's ``forward_fn`` and ``int8_input``
+    are not ported yet and raise ``NotImplementedError`` naming the
+    ROADMAP item after that. The NMS variants (``exact_nms``,
+    ``soft_nms`` with ``soft_nms_sigma``, ``diou_nms`` with
+    ``diou_beta``, ``nms_prefilter_impl='bisect'``,
+    ``exact_nms_prefilter=False``) are those of ``nms.py``.
     """
 
     batch_size: int = 8
@@ -98,16 +99,24 @@ class EvalConfig:
     letterbox: bool = True
     precision: Precision = FAST
     fold_bn: bool = True
-    # False: the JAX package's approx_max_k candidate prefilter
+    # False: the JAX package's approx_max_k candidate prefilter; no
+    # counterpart on this device, so the exact sort (the same result as True)
     exact_nms_prefilter: bool = True
+    # exact greedy NMS over ALL candidates (nms.nms_padded): max_detections
+    # serial argmax rounds per (image, class); the mAP-audit switch
     exact_nms: bool = False
     # class-agnostic top-N' candidate prefilter before the per-class NMS
     # sorts; 0 = off. Exact while at most N' candidates of an image have
     # any class above conf_thresh (the step's n_any counter shows it).
     nms_prefilter: int = 0
+    # 'topk' (per-image stable sort) or 'bisect' (the segmented bisection
+    # through the top-k kernels, nms.batched_bisect_prefilter)
     nms_prefilter_impl: str = "topk"
+    # Soft-NMS: "" off, "gaussian" (s *= exp(-iou^2/soft_nms_sigma)) or
+    # "linear" (s *= 1-iou above nms_thresh)
     soft_nms: str = ""
     soft_nms_sigma: float = 0.5
+    # DIoU-NMS: suppress on IoU - (rho^2/c^2)^diou_beta > nms_thresh
     diou_nms: bool = False
     diou_beta: float = 1.0
     fuse_input_stage: bool = True
@@ -151,19 +160,6 @@ class EvalConfig:
                 "canvas (compress.forward_quantized): the standard float "
                 "forward has no input grid to land on")
         # then the valid options this port does not have yet
-        if not self.exact_nms_prefilter:
-            raise _not_ported("exact_nms_prefilter=False",
-                              "Queue 1 item 3, approx_max_k prefilter")
-        if self.soft_nms:
-            raise _not_ported("soft_nms", "Queue 1 item 3, soft_nms_topk")
-        if self.exact_nms:
-            raise _not_ported("exact_nms", "Queue 1 item 3, nms_padded")
-        if self.diou_nms:
-            raise _not_ported("diou_nms", "Queue 1 item 3, DIoU-NMS")
-        if self.nms_prefilter_impl != "topk":
-            raise _not_ported("nms_prefilter_impl="
-                              f"{self.nms_prefilter_impl!r}",
-                              "Queue 1 item 3, batched_bisect_prefilter")
         if self.forward_fn is not None or self.int8_input:
             raise _not_ported("forward_fn/int8_input",
                               "Queue 1 item 6, int8 inference")
@@ -239,29 +235,38 @@ def make_eval_step(spec: NetworkSpec, config: EvalConfig,
 
     def step(params: Params, images, img_w, img_h):
         with torch.inference_mode():
-            raw = raw_map(params, images)
-            dev = raw.device
+            boxes, obj, cls = decode_heads(raw_map(params, images), spec)
+            dev = boxes.device
             img_w = torch.as_tensor(img_w, dtype=torch.float32, device=dev)
             img_h = torch.as_tensor(img_h, dtype=torch.float32, device=dev)
-            boxes, obj, cls = decode_heads(raw, spec)
             class_scores = obj[..., None] * cls                # (B, N, C)
             corners = center_to_corners(boxes)
             n_cand = (class_scores > config.conf_thresh).sum(
                 dim=1, dtype=torch.int32)                      # (B, C)
             n_any = (class_scores.amax(dim=-1) > config.conf_thresh).sum(
                 dim=-1, dtype=torch.int32)                     # (B,)
-            if config.nms_prefilter > 0:
+            common = dict(iou_thresh=config.nms_thresh,
+                          score_thresh=config.conf_thresh,
+                          max_out=config.max_detections)
+            diou = dict(diou=config.diou_nms, diou_beta=config.diou_beta)
+            if config.soft_nms:
+                sel, scores, valid = batched_per_class_soft_nms(
+                    corners, class_scores, **common,
+                    sigma=config.soft_nms_sigma,
+                    linear=(config.soft_nms == "linear"))
+            elif config.exact_nms:
+                sel, scores, valid = batched_per_class_nms_padded(
+                    corners, class_scores, **common, **diou)
+            elif config.nms_prefilter > 0:
                 sel, scores, valid = batched_per_class_nms_prefiltered(
-                    corners, class_scores, iou_thresh=config.nms_thresh,
-                    score_thresh=config.conf_thresh,
-                    max_out=config.max_detections,
+                    corners, class_scores, **common,
                     prefilter=config.nms_prefilter,
+                    exact_prefilter=config.exact_nms_prefilter, **diou,
                     impl=config.nms_prefilter_impl)
             else:
                 sel, scores, valid = batched_per_class_nms(
-                    corners, class_scores, iou_thresh=config.nms_thresh,
-                    score_thresh=config.conf_thresh,
-                    max_out=config.max_detections)
+                    corners, class_scores, **common,
+                    exact_prefilter=config.exact_nms_prefilter, **diou)
             sel = corners_to_image(sel, img_w[:, None, None],
                                    img_h[:, None, None], net_w, net_h,
                                    config.letterbox)
@@ -478,6 +483,7 @@ def evaluate(params: Params, spec: NetworkSpec, samples: Sequence[Sample],
         nms_overflow_frac=(n_overflow / n_cells if n_cells else 0.0),
         nms_max_candidates=max_cand,
         max_detections=config.max_detections,
+        exact_nms=config.exact_nms,
         nms_prefilter=config.nms_prefilter,
         prefilter_overflow_frac=(n_pf_overflow / n_images
                                  if n_images else 0.0),
@@ -510,6 +516,8 @@ class EvalResult:
     nms_overflow_frac: float = 0.0
     nms_max_candidates: int = 0
     max_detections: int = 0
+    # the run used exact greedy NMS over all candidates (nms_padded)
+    exact_nms: bool = False
     # class-agnostic prefilter: fraction of images whose any-class
     # candidate count exceeded nms_prefilter, and the worst image's count
     nms_prefilter: int = 0
@@ -551,6 +559,12 @@ class EvalResult:
             lines.append("AP by object size: " + "  ".join(
                 f"{band}={'n/a' if ap is None else f'{ap * 100:.2f}'}"
                 for band, ap in self.map_coco_area.items()))
+        if self.exact_nms:
+            lines.append(
+                f"NMS: exact greedy over all candidates "
+                f"(worst cell {self.nms_max_candidates} candidates; "
+                f"output capped at {self.max_detections} survivors)")
+            return "\n".join(lines)
         exact_run = self.nms_overflow_frac == 0.0
         lines.append(
             f"NMS: top-{self.max_detections} prefilter; "
@@ -567,8 +581,7 @@ class EvalResult:
                 f"any-class candidates)")
         lines.append(
             "NMS: exact-equal to greedy NMS on this run" if exact_run
-            else "NMS: greedy over the top-K candidates only on this run "
-                 "(exact NMS is not ported yet, ROADMAP Queue 1 item 3)")
+            else "NMS: re-run with exact_nms (eval --exact-nms) to audit")
         return "\n".join(lines)
 
 

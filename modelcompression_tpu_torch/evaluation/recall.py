@@ -58,13 +58,12 @@ def make_recall_step(spec: NetworkSpec, config: EvalConfig,
 
     def step(params: Params, images, img_w, img_h, gt_boxes, gt_mask):
         with torch.inference_mode():
-            raw = raw_map(params, images)
-            dev = raw.device
+            boxes, obj, _cls = decode_heads(raw_map(params, images), spec)
+            dev = boxes.device
             img_w, img_h, gt_boxes = (
                 torch.as_tensor(a, dtype=torch.float32, device=dev)
                 for a in (img_w, img_h, gt_boxes))
             gt_mask = torch.as_tensor(gt_mask, dtype=torch.bool, device=dev)
-            boxes, obj, _cls = decode_heads(raw, spec)
             corners = center_to_corners(boxes)
             n_cand = (obj > config.conf_thresh).sum(dim=-1,
                                                      dtype=torch.int32)

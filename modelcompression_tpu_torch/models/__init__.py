@@ -15,7 +15,10 @@ from modelcompression_tpu_torch.models.weights_io import (
     load_weights, roundtrip_bytes, save_weights,
 )
 from modelcompression_tpu_torch.models.zoo import (
-    CONFIG_DIR, cfg_path, tiny_yolov2_voc, yolov2_voc,
+    CONFIG_DIR, cfg_path, coco_names_path, tiny_yolov2_coco,
+    tiny_yolov2_voc, voc_names_path, yolov2_coco, yolov2_voc, yolov3_coco,
+    yolov3_spp_coco, yolov3_tiny_coco, yolov3_tiny_voc, yolov3_voc,
+    yolov4_coco, yolov4_tiny_coco, yolov4_tiny_voc, yolov4_voc,
 )
 
 __all__ = [
@@ -26,5 +29,9 @@ __all__ = [
     "fold_batchnorm", "forward", "forward_folded", "init_params", "maxpool",
     "num_conv_flops", "num_params", "params_to", "reorg", "route_part",
     "upsample_nearest", "load_weights", "roundtrip_bytes", "save_weights",
-    "CONFIG_DIR", "cfg_path", "tiny_yolov2_voc", "yolov2_voc",
+    "CONFIG_DIR", "cfg_path", "coco_names_path", "tiny_yolov2_coco",
+    "tiny_yolov2_voc", "voc_names_path", "yolov2_coco", "yolov2_voc",
+    "yolov3_coco", "yolov3_spp_coco", "yolov3_tiny_coco", "yolov3_tiny_voc",
+    "yolov3_voc", "yolov4_coco", "yolov4_tiny_coco", "yolov4_tiny_voc",
+    "yolov4_voc",
 ]

@@ -502,3 +502,74 @@ def test_finetune_iterate_l1_filter_evals_at_each_width(cuda_device,
     assert {c: mma.LAUNCHES_AT[c] - at0.get(c, 0) for c in (16, 8, 4)} \
         == {16: 0, 8: 2, 4: 2}
     assert (tmp_path / "slim.cfg").exists()
+
+
+def _nms_case(b, n, c, seed, levels=None):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 1, (b, n, 2))
+    wh = rng.uniform(0.02, 0.2, (b, n, 2))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
+    scores = rng.uniform(0, 1, (b, n, c)) ** 4
+    if levels is not None:  # many ties at the N'-th value
+        scores = np.round(scores * levels) / levels
+    return torch.from_numpy(boxes), torch.from_numpy(scores.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, n, c, prefilter, levels", [
+    (64, 10647, 20, 128, None),   # YOLOv4-VOC-416's shape, overflow
+    (4, 2535, 3, 64, 16),         # ties at the N'-th value
+    (3, 500, 5, 1024, None),      # N' > N: keep all
+])
+def test_bisect_prefilter_kernels_match_plain(cuda_device, b, n, c,
+                                              prefilter, levels):
+    """The bisect prefilter on CUDA tensors launches count / tie-count /
+    apply 32 / 1 / 1 times and keeps exactly the plain route's set (the
+    CPU run of the same function) in the same slots."""
+    from modelcompression_tpu_torch.evaluation import nms as tnms
+    boxes, scores = _nms_case(b, n, c, seed=n, levels=levels)
+    want = tnms.batched_bisect_prefilter(boxes, scores, 0.01, prefilter)
+    kernels = (ct.count_le_cuda, ct.tie_counts_cuda, ct.apply_threshold_cuda)
+    n0 = [k.LAUNCHES for k in kernels]
+    got = tnms.batched_bisect_prefilter(boxes.to(cuda_device),
+                                        scores.to(cuda_device), 0.01,
+                                        prefilter)
+    torch.cuda.synchronize()
+    assert [k.LAUNCHES - n for k, n in zip(kernels, n0)] == [32, 1, 1]
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    sel = tnms.batched_per_class_nms_prefiltered(
+        boxes.to(cuda_device), scores.to(cuda_device), 0.45, 0.01, 32,
+        prefilter=prefilter, impl="bisect")
+    ref = tnms.batched_per_class_nms_prefiltered(
+        boxes, scores, 0.45, 0.01, 32, prefilter=prefilter, impl="bisect")
+    for g, w in zip(sel, ref):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["padded", "padded_diou", "soft_gauss",
+                                     "soft_linear", "diou_topk"])
+def test_nms_variants_card_equals_cpu(cuda_device, variant):
+    """Each NMS variant on identical inputs: the card's selections equal
+    the CPU's (IEEE elementwise ops, stable sorts, first-max argmax);
+    soft-NMS scores within 1e-6 relative (exp)."""
+    from modelcompression_tpu_torch.evaluation import nms as tnms
+    boxes, scores = _nms_case(2, 600, 4, seed=7)
+    fns = {
+        "padded": lambda b, s: tnms.batched_per_class_nms_padded(
+            b, s, 0.45, 0.01, 16),
+        "padded_diou": lambda b, s: tnms.batched_per_class_nms_padded(
+            b, s, 0.45, 0.01, 16, diou=True, diou_beta=0.6),
+        "soft_gauss": lambda b, s: tnms.batched_per_class_soft_nms(
+            b, s, 0.45, 0.01, 16),
+        "soft_linear": lambda b, s: tnms.batched_per_class_soft_nms(
+            b, s, 0.45, 0.01, 16, linear=True),
+        "diou_topk": lambda b, s: tnms.batched_per_class_nms(
+            b, s, 0.45, 0.01, 16, diou=True, diou_beta=0.6),
+    }
+    want = fns[variant](boxes, scores)
+    got = [t.cpu() for t in fns[variant](boxes.to(cuda_device),
+                                         scores.to(cuda_device))]
+    assert torch.equal(got[2], want[2]) and torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)

@@ -1,0 +1,277 @@
+"""The port's summary and detect CLIs on the CPU: the summary table is
+text-equal to the JAX package's for every bundled cfg (and with a
+``--weights`` file's nonzero column); detect runs in image, directory
+(padded final batch) and video mode on a [yolo] fixture, each image's
+detection count equal to the serving step's on the same canvas, and in
+image and directory mode against the JAX package's detect on the same
+files and flags.
+
+Tolerance against JAX: serving is FAST (bf16), whose roundings differ
+between XLA and ATen, so as in tests/test_torch_eval.py every image has
+the same number of detections, and every JAX detection is found in the
+port's with the same class, score within 2% relative and box within 1
+source pixel."""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+
+from modelcompression_tpu.cli import detect as jdetect
+from modelcompression_tpu.cli import summary as jsummary
+from modelcompression_tpu.data.fixtures import tiny_yolo4_cfg
+from modelcompression_tpu.models import load_cfg as j_load
+from modelcompression_tpu.models import save_weights as j_save
+from modelcompression_tpu.models import init_params as j_init
+from modelcompression_tpu_torch.cli import detect
+from modelcompression_tpu_torch.cli import summary as tsummary
+from modelcompression_tpu_torch.models import (
+    CONFIG_DIR, cfg_path, dump_cfg, init_params, parse_cfg, save_weights,
+)
+
+CFGS = sorted(f for f in os.listdir(CONFIG_DIR) if f.endswith(".cfg"))
+
+
+@pytest.mark.parametrize("name", CFGS)
+def test_summary_cli_text_equals_jax(name, capsys):
+    assert jsummary.main(["--cfg", cfg_path(name)]) == 0
+    want = capsys.readouterr().out
+    assert tsummary.main(["--cfg", cfg_path(name)]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    assert got.splitlines()[-1].startswith("total: ")
+
+
+def test_summary_with_weights_nonzero_column(tmp_path, capsys):
+    """A masked checkpoint written by the JAX package: the per-conv
+    nonzero fractions and the footer equal the JAX CLI's."""
+    text = tiny_yolo4_cfg(num_classes=3)
+    cfg = str(tmp_path / "v4.cfg")
+    with open(cfg, "w") as f:
+        f.write(text)
+    spec = j_load(cfg)
+    params = jax.tree.map(np.array, j_init(spec, jax.random.key(3)))
+    for k in list(params)[::2]:  # zero half of every other conv
+        w = params[k]["w"]
+        w.reshape(-1)[: w.size // 2] = 0.0
+    weights = str(tmp_path / "v4.weights")
+    j_save(weights, spec, params, seen=64)
+    argv = ["--cfg", cfg, "--weights", weights]
+    assert jsummary.main(argv) == 0
+    want = capsys.readouterr().out
+    assert tsummary.main(argv) == 0
+    got = capsys.readouterr().out
+    assert got == want and "nonzero" in got and "seen=64" in got
+
+
+# ---- detect --------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def model(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("detect")
+    spec = parse_cfg(tiny_yolo4_cfg(num_classes=3))
+    cfg = str(tmp / "v4.cfg")
+    with open(cfg, "w") as f:
+        f.write(dump_cfg(spec))
+    weights = str(tmp / "v4.weights")
+    save_weights(weights, spec, init_params(spec, seed=4), seen=0)
+    return spec, cfg, weights
+
+
+def _base(model):
+    _, cfg, weights = model
+    return ["--cfg", cfg, "--weights", weights, "--device", "cpu",
+            "--conf", "0.05", "--max-detections", "4"]
+
+
+def _images(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (48 + 8 * i, 80, 3), np.uint8)
+            for i in range(n)]
+
+
+def _direct_counts(model, imgs_bgr, extra=()):
+    """Detections per image from the serving step on the same canvases
+    (what detect draws)."""
+    from modelcompression_tpu_torch.cli.common import (
+        prepare_serving, resolve_serving_eval_config, run_padded_batch,
+        unpack_detections,
+    )
+    from modelcompression_tpu_torch.data.preprocess import letterbox_host
+    from modelcompression_tpu_torch.evaluation import make_eval_step
+    from modelcompression_tpu_torch.models import load_weights
+    spec, _, weights = model
+    args = detect.build_parser().parse_args(
+        ["--image", "x"] + _base(model) + list(extra))
+    cfg = resolve_serving_eval_config(args, spec=spec)
+    params, _ = load_weights(weights, spec)
+    folded = prepare_serving(spec, params, False, cfg)
+    step = make_eval_step(spec, cfg)
+    counts = []
+    for im in imgs_bgr:
+        canvas = letterbox_host(im[:, :, ::-1], 64, 64)[0]
+        h, w = im.shape[:2]
+        sel, sc, valid = run_padded_batch(step, folded, [canvas],
+                                          [float(w)], [float(h)], 1)
+        counts.append(len(unpack_detections(sel[0], sc[0], valid[0], w, h)))
+    return counts
+
+
+@pytest.mark.parametrize("extra", [[], ["--diou-nms", "--diou-beta", "0.6"],
+                                   ["--nms-prefilter", "16",
+                                    "--nms-prefilter-impl", "bisect"]])
+def test_detect_image(model, tmp_path, capsys, extra):
+    cv2 = pytest.importorskip("cv2")
+    img = _images(1, seed=1)[0]
+    src, out = str(tmp_path / "in.png"), str(tmp_path / "out.png")
+    cv2.imwrite(src, img)
+    assert detect.main(_base(model) + ["--image", src, "--out", out,
+                                       *extra]) == 0
+    text = capsys.readouterr().out
+    n = _direct_counts(model, [img], extra)[0]
+    assert f"{n} detections -> {out}" in text and n > 0
+    assert cv2.imread(out).shape == img.shape
+
+
+def test_detect_dir_pads_the_final_batch(model, tmp_path, capsys):
+    cv2 = pytest.importorskip("cv2")
+    imgs = _images(5, seed=2)
+    d = tmp_path / "frames"
+    d.mkdir()
+    for i, im in enumerate(imgs):
+        cv2.imwrite(str(d / f"f{i}.png"), im)
+    (d / "notes.txt").write_text("not an image")
+    out = str(tmp_path / "out")
+    assert detect.main(_base(model) + ["--dir", str(d), "--out-dir", out,
+                                       "--batch", "2"]) == 0
+    text = capsys.readouterr().out
+    counts = _direct_counts(model, imgs)
+    for i, n in enumerate(counts):
+        assert f"f{i}.png: {n} detections" in text
+    assert f"{sum(counts)} detections over 5 images" in text
+    assert sorted(os.listdir(out)) == [f"f{i}.png" for i in range(5)]
+
+
+def test_detect_video(model, tmp_path, capsys):
+    cv2 = pytest.importorskip("cv2")
+    src = str(tmp_path / "clip.avi")
+    writer = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                             (80, 48))
+    assert writer.isOpened()
+    frames = [np.full((48, 80, 3), 40 * i, np.uint8) for i in range(5)]
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    out = str(tmp_path / "pred.avi")
+    assert detect.main(_base(model) + ["--video", src, "--out-video", out,
+                                       "--batch", "2"]) == 0
+    text = capsys.readouterr().out
+    assert "over 5 frames" in text
+    cap = cv2.VideoCapture(out)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 5
+
+
+def _record_unpacked(monkeypatch, module):
+    """Every image's unpacked detections, in the order ``module``'s detect
+    draws them (padded rows of a batch are never unpacked)."""
+    seen = []
+    unpack = module.unpack_detections
+
+    def record(*a, **k):
+        seen.append(unpack(*a, **k))
+        return seen[-1]
+    monkeypatch.setattr(module, "unpack_detections", record)
+    return seen
+
+
+def _assert_detections_match(got, want):
+    assert len(got) == len(want)
+    for g_img, w_img in zip(got, want):
+        assert len(g_img) == len(w_img)
+        for w in w_img:
+            assert any(g["class_id"] == w["class_id"]
+                       and abs(g["score"] - w["score"]) <= 0.02 * w["score"]
+                       and np.abs(np.subtract(g["box"], w["box"])).max()
+                       <= 1.0 for g in g_img), w
+
+
+@pytest.mark.parametrize("mode, extra", [
+    ("image", []),
+    ("image", ["--diou-nms", "--diou-beta", "0.6", "--nms-prefilter", "16",
+               "--nms-prefilter-impl", "bisect"]),
+    ("dir", ["--batch", "2"]),
+])
+def test_detect_matches_jax(model, tmp_path, monkeypatch, capsys, mode,
+                            extra):
+    """The same files, weights and flags through the JAX package's detect
+    and the port's: the per-image detections (source-pixel boxes, clamped
+    at the image edge, and scores) agree within the FAST tolerance, and in
+    directory mode over 5 images at batch 2 (a padded final batch) the
+    printed per-image lines are equal."""
+    cv2 = pytest.importorskip("cv2")
+    _, cfg, weights = model
+    imgs = _images(5 if mode == "dir" else 1, seed=3)
+    src = tmp_path / "frames"
+    src.mkdir()
+    for i, im in enumerate(imgs):
+        cv2.imwrite(str(src / f"f{i}.png"), im)
+    common = ["--cfg", cfg, "--weights", weights, "--conf", "0.05",
+              "--max-detections", "4", *extra]
+    runs = {}
+    for side, mod, dev in (("jax", jdetect, []),
+                           ("torch", detect, ["--device", "cpu"])):
+        seen = _record_unpacked(monkeypatch, mod)
+        out = tmp_path / side
+        io = (["--image", str(src / "f0.png"), "--out", str(out) + ".png"]
+              if mode == "image" else
+              ["--dir", str(src), "--out-dir", str(out)])
+        assert mod.main(common + io + dev) == 0
+        runs[side] = (seen, capsys.readouterr().out.replace(str(out),
+                                                            "<out>"))
+    (got, got_text), (want, want_text) = runs["torch"], runs["jax"]
+    _assert_detections_match(got, want)
+    assert sum(map(len, want)) > 0
+    if mode == "dir":
+        assert got_text == want_text
+        assert len(got) == 5
+    else:
+        assert got_text.splitlines()[-1] == want_text.splitlines()[-1]
+
+
+@pytest.mark.parametrize("extra, weights, message", [
+    (["--dp", "2", "--dir", "x"], True, "ROADMAP Queue 1 item 7"),
+    (["--image", "a.png", "--dir", "x"], True, "exactly one of --image"),
+    (["--image", "a.png"], False, "exactly one of --weights"),
+    (["--qmodel", "q.npz", "--image", "a.png"], True,
+     "exactly one of --weights"),
+    (["--qmodel", "q.npz", "--image", "a.png"], False, "item 6"),
+    (["--cmodel", "c.npz", "--image", "a.png"], False, "item 6"),
+])
+def test_detect_rejections(model, capsys, extra, weights, message):
+    """Exit 2, as the JAX package's detect does, unless exactly one of
+    --weights/--qmodel/--cmodel is given; the artifacts and --dp name
+    their ROADMAP items."""
+    pytest.importorskip("cv2")
+    base = _base(model)
+    if not weights:
+        i = base.index("--weights")
+        base = base[:i] + base[i + 2:]
+    assert detect.main(base + extra) == 2
+    assert message in capsys.readouterr().err
+
+
+def test_detect_defaults_to_cuda(model, monkeypatch, capsys):
+    pytest.importorskip("cv2")
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg, weights = model
+    assert detect.build_parser().parse_args(
+        ["--cfg", cfg, "--image", "a.png"]).device == "cuda"
+    assert detect.main(["--cfg", cfg, "--weights", weights,
+                        "--image", "a.png"]) == 2
+    assert "CUDA" in capsys.readouterr().err

@@ -433,8 +433,17 @@ _MAP_LINE = re.compile(r"^mAP@[0-9.]+ \([^)]*\): [0-9.]+", re.M)
     ["--precision", "bitmatch", "--map-iou", "0.1"],
     ["--precision", "bitmatch", "--metric", "continuous", "--map-coco",
      "--map-iou", "0.2", "--continuous-iou"],
+    # the NMS variants (rejected with exit 2 before they were ported)
+    ["--precision", "bitmatch", "--map-iou", "0.1", "--exact-nms"],
+    ["--precision", "bitmatch", "--map-iou", "0.1", "--soft-nms",
+     "linear"],
+    ["--precision", "bitmatch", "--map-iou", "0.1", "--diou-nms"],
+    ["--precision", "bitmatch", "--map-iou", "0.1", "--nms-prefilter",
+     "64", "--nms-prefilter-impl", "bisect"],
 ])
 def test_eval_cli_map_line_equals_jax(cli_model, capsys, tmp_path, extra):
+    """The mAP line, the COCO line and the NMS lines (overflow and
+    exactness report) equal the JAX CLI's."""
     cfg, weights, data = cli_model
     argv = ["--cfg", cfg, "--weights", weights, "--data", data,
             "--batch", "2", *extra]
@@ -445,8 +454,9 @@ def test_eval_cli_map_line_equals_jax(cli_model, capsys, tmp_path, extra):
     got = capsys.readouterr().out
     assert _MAP_LINE.findall(got) == _MAP_LINE.findall(want)
     assert len(_MAP_LINE.findall(got)) == 1
-    coco = [l for l in want.splitlines() if l.startswith("mAP@[")]
-    assert coco == [l for l in got.splitlines() if l.startswith("mAP@[")]
+    for head in ("mAP@[", "NMS:"):
+        lines = [l for l in want.splitlines() if l.startswith(head)]
+        assert lines == [l for l in got.splitlines() if l.startswith(head)]
     assert sorted(os.listdir(tmp_path / "t")) == \
         sorted(os.listdir(tmp_path / "j"))
 
@@ -474,11 +484,6 @@ NOT_PORTED = {
     "save_cmodel": (["--cluster-bits", "4", "--save-cmodel", "c.npz"], 6),
     "pack": (["--cluster-bits", "4", "--save-cmodel", "c.npz", "--pack"],
              6),
-    "exact_nms": (["--exact-nms"], 3),
-    "soft_nms": (["--soft-nms", "linear"], 3),
-    "diou_nms": (["--diou-nms"], 3),
-    "bisect": (["--nms-prefilter", "64", "--nms-prefilter-impl", "bisect"],
-               3),
     "dp": (["--dp", "2"], 7),
     "tp": (["--tp", "2"], 7),
 }

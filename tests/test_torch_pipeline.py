@@ -209,11 +209,29 @@ def test_l1_scores_and_keep_rule_match_jax():
             jcrit.keep_sets_from_scores(tied, f)[0])
 
 
+@pytest.mark.parametrize("kw", [
+    {"soft_nms": "linear"},
+    {"soft_nms": "gaussian", "soft_nms_sigma": 0.3},
+    {"exact_nms": True},
+    {"exact_nms": True, "diou_nms": True, "diou_beta": 0.6},
+    {"diou_nms": True},
+    {"nms_prefilter_impl": "bisect", "nms_prefilter": 128},
+    {"nms_prefilter_impl": "bisect", "nms_prefilter": 20},
+    {"exact_nms_prefilter": False, "nms_prefilter": 64, "diou_nms": True},
+])
+def test_eval_step_nms_variants_match_jax(kw):
+    """Every NMS variant of EvalConfig (these options raised
+    NotImplementedError before the variants were ported): the serving
+    step equals the JAX package's, on device-letterboxed frames. A
+    prefilter of 20 overflows (n_any above it) in the bisect case."""
+    jspec, tspec = _specs()
+    npp = random_np_params(jspec, seed=34)
+    got, want = _run_both(jspec, npp, tspec, params_from_jax(npp),
+                          (48, 80), **kw)
+    _assert_step_equal(got, want)
+
+
 @pytest.mark.parametrize("kw, match", [
-    ({"soft_nms": "linear"}, "soft_nms"),
-    ({"exact_nms": True}, "exact_nms"),
-    ({"diou_nms": True}, "diou_nms"),
-    ({"nms_prefilter_impl": "bisect"}, "bisect"),
     # int8_input alone is invalid (ValueError, as in JAX)
     ({"int8_input": True, "forward_fn": lambda p, x, s: x}, "int8"),
     ({"forward_fn": lambda p, x, s: x}, "forward_fn"),
@@ -227,6 +245,9 @@ def _fwd(p, x, s):
     return x
 
 
+ACCEPTED = "accepted"
+
+
 @pytest.mark.parametrize("kw, unported", [
     # invalid for the JAX package: the same exception type from both
     ({"nms_prefilter_impl": "bogus"}, None),
@@ -236,27 +257,32 @@ def _fwd(p, x, s):
     ({"soft_nms": "gaussian", "diou_nms": True}, None),
     ({"int8_input": True}, None),
     ({"map_iou": 0.0}, None),
+    # valid in both packages: the same fields
+    ({"exact_nms_prefilter": False}, ACCEPTED),
+    ({"soft_nms": "gaussian", "soft_nms_sigma": 0.3}, ACCEPTED),
+    ({"exact_nms": True}, ACCEPTED),
+    ({"diou_nms": True, "diou_beta": 0.6}, ACCEPTED),
+    ({"nms_prefilter_impl": "bisect", "nms_prefilter": 64}, ACCEPTED),
     # valid in the JAX package, not ported: NotImplementedError naming the
     # ROADMAP item
-    ({"exact_nms_prefilter": False}, "Queue 1 item 3"),
-    ({"soft_nms": "gaussian", "soft_nms_sigma": 0.3}, "Queue 1 item 3"),
-    ({"exact_nms": True}, "Queue 1 item 3"),
-    ({"diou_nms": True, "diou_beta": 0.6}, "Queue 1 item 3"),
-    ({"nms_prefilter_impl": "bisect", "nms_prefilter": 64},
-     "Queue 1 item 3"),
     ({"forward_fn": _fwd}, "Queue 1 item 6"),
     ({"forward_fn": _fwd, "int8_input": True}, "Queue 1 item 6"),
 ])
 def test_eval_config_validates_as_jax(kw, unported):
     """Invalid options raise what the JAX package raises (it checks them
-    before anything else); valid options the port lacks raise
-    NotImplementedError naming their ROADMAP item, and JAX takes them."""
+    before anything else); valid options both packages take give the same
+    fields; valid options the port lacks raise NotImplementedError naming
+    their ROADMAP item, and JAX takes them."""
     if unported is None:
         with pytest.raises(Exception) as jexc:
             jpipe.EvalConfig(**kw)
         with pytest.raises(Exception) as texc:
             tpipe.EvalConfig(device="cpu", **kw)
         assert type(texc.value) is type(jexc.value) is ValueError
+    elif unported == ACCEPTED:
+        j, t = jpipe.EvalConfig(**kw), tpipe.EvalConfig(device="cpu", **kw)
+        for name in kw:
+            assert getattr(t, name) == getattr(j, name)
     else:
         jpipe.EvalConfig(**kw)
         with pytest.raises(NotImplementedError, match=unported):

@@ -223,8 +223,16 @@ def test_nms_topk_equals_greedy_under_budget():
     np.testing.assert_array_equal(got, s[kept])
 
 
-def test_prefilter_impl_bisect_not_ported():
-    boxes, scores = _det_case(seed=1)
-    with pytest.raises(NotImplementedError, match="bisect"):
-        tnms.batched_per_class_nms_prefiltered(
-            torch.from_numpy(boxes), torch.from_numpy(scores), impl="bisect")
+def test_prefilter_impl_bisect_matches_jax():
+    """impl='bisect' (rejected before it was ported) equals the JAX
+    package's bisect prefilter, with the prefilter overflowing (90
+    candidates, 32 slots) and not."""
+    boxes, scores = _det_case(n=90, seed=1)
+    for prefilter in (32, 128):
+        got = tnms.batched_per_class_nms_prefiltered(
+            torch.from_numpy(boxes), torch.from_numpy(scores), 0.45, 0.01,
+            8, prefilter=prefilter, impl="bisect")
+        want = jnms.batched_per_class_nms_prefiltered(
+            jnp.asarray(boxes), jnp.asarray(scores), 0.45, 0.01, 8,
+            prefilter=prefilter, impl="bisect")
+        _assert_same(got, want)

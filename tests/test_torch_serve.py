@@ -157,9 +157,6 @@ def test_deployment_preset_resolution():
     (["--qmodel", "q.npz"], "qmodel"),
     (["--cmodel", "c.npz"], "cmodel"),
     (["--dp", "2"], "dp"),
-    (["--soft-nms", "linear"], "soft_nms"),
-    (["--diou-nms"], "diou_nms"),
-    (["--nms-prefilter-impl", "bisect"], "bisect"),
 ])
 def test_not_ported_options_are_rejected(tmp_path, capsys, extra, match):
     _, cfg_path, wpath = _write_model(tmp_path)
@@ -190,3 +187,86 @@ def test_submit_backpressure_bounded_queue():
     assert state.submit(canvas, 4.0, 4.0) is None
     st = state.stats()
     assert st["rejected"] == 1 and st["requests"] == cap + 1
+
+
+def _diou_cfg_text():
+    """The v4-tiny fixture with darknet's nms_kind=diounms / beta_nms on
+    its [yolo] heads."""
+    from modelcompression_tpu.data.fixtures import tiny_yolo4_cfg
+    return tiny_yolo4_cfg(num_classes=3).replace(
+        "[yolo]\n", "[yolo]\nnms_kind=diounms\nbeta_nms=0.6\n")
+
+
+@pytest.mark.parametrize("cfg_name", ["yolov2-voc.cfg", "diounms"])
+@pytest.mark.parametrize("extra", [
+    [], ["--diou-nms"], ["--diou-beta", "0.8"], ["--soft-nms", "linear"],
+    ["--deployment", "--nms-prefilter-impl", "bisect"],
+    ["--diou-nms", "--diou-beta", "0.3", "--nms-prefilter", "64"],
+])
+def test_serving_eval_config_resolves_as_jax(tmp_path, cfg_name, extra):
+    """The same argv resolves the same EvalConfig in both packages: the
+    cfg's nms_kind=diounms / beta_nms are the NMS defaults and explicit
+    --diou-nms / --diou-beta / --soft-nms win."""
+    from modelcompression_tpu.cli import common as jcommon
+    from modelcompression_tpu.cli import serve as jserve
+    from modelcompression_tpu.models import load_cfg as j_load
+    from modelcompression_tpu_torch.cli.common import (
+        resolve_serving_eval_config,
+    )
+    from modelcompression_tpu_torch.models import cfg_path, load_cfg
+    if cfg_name == "diounms":
+        path = str(tmp_path / "diou.cfg")
+        with open(path, "w") as f:
+            f.write(_diou_cfg_text())
+    else:
+        path = cfg_path(cfg_name)
+    argv = ["--cfg", path, *extra]
+    j = jcommon.resolve_serving_eval_config(
+        jserve.build_parser().parse_args(argv), spec=j_load(path))
+    t = resolve_serving_eval_config(
+        serve.build_parser().parse_args(argv + ["--device", "cpu"]),
+        spec=load_cfg(path))
+    for name in ("conf_thresh", "nms_thresh", "max_detections",
+                 "nms_prefilter", "nms_prefilter_impl", "soft_nms",
+                 "soft_nms_sigma", "diou_nms", "diou_beta", "exact_nms"):
+        assert getattr(t, name) == getattr(j, name), name
+    if cfg_name == "diounms" and not extra:
+        assert (t.diou_nms, t.diou_beta) == (True, 0.6)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--soft-nms", "linear"],
+    ["--diou-nms", "--diou-beta", "0.6"],
+    ["--nms-prefilter", "16", "--nms-prefilter-impl", "bisect"],
+])
+def test_serve_yolo_family_with_nms_variants(tmp_path, extra):
+    """The daemon serves a [yolo] (v4-tiny) cfg with each serving NMS
+    variant (rejected before they were ported): a canvas through the
+    dispatcher gives the direct step's detections."""
+    from modelcompression_tpu.data.fixtures import tiny_yolo4_cfg
+    spec = parse_cfg(tiny_yolo4_cfg(num_classes=3))
+    cfg_path = str(tmp_path / "v4.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(dump_cfg(spec))
+    wpath = str(tmp_path / "v4.weights")
+    save_weights(wpath, spec, init_params(spec, seed=11), seen=0)
+    args = serve.build_parser().parse_args(
+        ["--cfg", cfg_path, "--weights", wpath, "--port", "0",
+         "--device", "cpu", "--batch", "1", "--max-wait-ms", "10",
+         "--conf", "0.05", *extra])
+    httpd, state = serve.build_server(args)
+    try:
+        canvas = np.random.default_rng(5).integers(0, 256, (64, 64, 3),
+                                                   np.uint8)
+        item = state.submit(canvas, 64.0, 64.0)
+        assert item.event.wait(60) and item.error is None
+        sel, sc, valid, _, _ = state.step(state.params, canvas[None],
+                                          [64.0], [64.0])
+        direct = sorted((ci, float(sc[0, ci, k]))
+                        for ci in range(sel.shape[1])
+                        for k in np.nonzero(valid[0, ci].numpy())[0])
+        got = sorted((d["class_id"], d["score"]) for d in item.result)
+        assert got == direct and len(got) > 0
+    finally:
+        state.stop.set()
+        httpd.server_close()
