@@ -19,11 +19,16 @@ Phases, each printing JSON lines on stdout:
             each timed beside the first CUDA-core kernel (``input_stage``,
             the yardstick no path launches) in the same dtype (``prev_ms``,
             ``prev_max_abs_err``). Top-k/mask
-            (count, tie count, apply): the flat layout of YOLOv2-VOC's 23
+            (radix select, tie count, apply, and the count kernel, the
+            yardstick no path launches): the flat layout of YOLOv2-VOC's 23
             convs (50,634,592 weights, padded), per-layer (S=24) and global
             (S=2), on the random weights, on bf16-valued weights (ties), and
             re-pruning pruned weights (0.5 then 0.75; 0.75 then 0.5, where
-            the threshold is 0.0): counts equal, outputs bit-equal.
+            the threshold is 0.0): the select's kth and n_below equal its
+            plain version's and the bisection's, counts equal, outputs
+            bit-equal. The select is timed whole and per launch beside the
+            31-round bisection through the count kernel; tie count and
+            apply at the chunk prune_flat sizes to the input and at 16K.
 4. main     YOLOv2-VOC 416 (random init, seed 0), FAST precision, the
             deployment config (conf 0.01, K 32, prefilter 128), the fused
             serving step with on-device letterbox from 384x512 frames at
@@ -39,12 +44,12 @@ Phases, each printing JSON lines on stdout:
             --batch 64 --device cuda, random weights): /healthz, a few
             canvases through the dispatcher queue, two PNG frames posted
             to /detect, /stats, shutdown.
-6. prune    the prune CLI on full-width YOLOv2-VOC (random weights from
-            seed 0 written as .weights), --mode magnitude then --mode
-            global at --sparsity 0.75 --device cuda. Each call must launch
-            the count kernel exactly 32 times and the tie-count and apply
-            kernels once; the written masks must equal the reference
-            (stable argsort) backend's on the card, with exactly
+6. prune    the prune CLI on full-width YOLOv2-VOC (random weights from seed
+            0 written as .weights), --mode magnitude then --mode global at
+            --sparsity 0.75 --device cuda. Each call must launch the radix
+            select exactly 5 times, the tie-count and apply kernels once,
+            and the count kernel never; the written masks must equal the
+            reference (stable argsort) backend's on the card, with exactly
             floor(0.75 n) zeros per layer (global: of all N). The written
             .weights are reloaded and served at batch 64 as in phase 4,
             through the mma input-stage kernel.
@@ -59,65 +64,66 @@ Phases, each printing JSON lines on stdout:
             eval step's on the same 64 canvases. Then --precision bitmatch
             on the first 64 images (no input-stage launch), --recall (exit
             0), and prune --mode magnitude --sweep 0.5,0.75 --data at
-            --batch 64 (count / tie-count / apply launched 64 / 2 / 2
-            times; a finite mAP@50 per point). Reports steady eval img/s
-            (host PNG decode included), the mAP (random weights: a smoke
-            value, not an accuracy figure), each path's launches by kernel
-            width (C, S), and the host decode time of one 416x416 image
-            re-encoded with each PNG row filter.
+            --batch 64 (radix select / count / tie-count / apply launched
+            10 / 0 / 2 / 2 times; a finite mAP@50 per point). Reports
+            steady eval img/s (host PNG decode included), the mAP (random
+            weights: a smoke value, not an accuracy figure), each path's
+            launches by kernel width (C, S), and the host decode time of
+            one 416x416 image re-encoded with each PNG row filter.
 8. finetune with ``import cv2`` still made to fail: full-width YOLOv2-VOC
             (the cfg's batch 64, subdivisions 8, jitter .3, FAST) on phase
             7's fixture as train and eval list. First the train step alone
-            on fixed batches: steady ms and img/s at 416 with subdivisions
-            8 and 1, and at 320 and 608 (the ends of the multi-scale band
-            the train CLI defaults to) with 8 (CUDA events), peak memory,
-            the share of the bf16 peak at 3 x the conv FLOPs per image, a
+            on fixed batches: steady ms and img/s at 416 with subdivisions 8
+            and 1, and at 320 and 608 (the ends of the multi-scale band the
+            train CLI defaults to) with 8 (CUDA events), peak memory, the
+            share of the bf16 peak at 3 x the conv FLOPs per image, a
             profiler window (device busy and idle); and, at 416, 320 and
             608, one step at batch 2 on the card and on the CPU from the
             same params, in BITMATCH (loss within 1e-5 relative, the last
             conv's gradient within 1e-4 of its largest magnitude; the
-            BN-side gradients, which fp32 gets only to ~1e-1 at random
-            init, are reported against float64) and in float64 (loss within
-            1e-5 relative, every gradient tensor within 1e-4 of its largest
-            magnitude). Then the CLIs:
-            (a) finetune --preserve-sparsity on phase 6's magnitude-pruned
-            .weights: finite losses, every zero still zero, seen grown by
-            steps x 64, 3 input-stage launches in the final eval; (b)
-            --iterate 0.5,0.75 --iterate-mode magnitude: count / tie /
-            apply launched 64 / 2 / 2 times at S=24, each round's masks
-            with floor(s n) zeros per conv and its pruned weights zero
-            after the round's steps, mask ms against the round's train
-            seconds; (c) --iterate-mode l1_filter: the rounds' evals launch
-            the input stage at C=16, then C=8; (e) the train CLI killed
-            after 2 steps and resumed to 4 (--checkpoint-dir, --resume)
-            against an uninterrupted 4-step run (cuDNN's deterministic
-            algorithms): step, seen and generator equal, params and
-            momentum within 1e-4 of their largest magnitude.
+            BN-side gradients, which fp32 gets only to ~1e-1 at random init,
+            are reported against float64) and in float64 (loss within 1e-5
+            relative, every gradient tensor within 1e-4 of its largest
+            magnitude). Then the CLIs: (a) finetune --preserve-sparsity on
+            phase 6's magnitude-pruned .weights: finite losses, every zero
+            still zero, seen grown by steps x 64, 3 input-stage launches in
+            the final eval; (b) --iterate 0.5,0.75 --iterate-mode magnitude:
+            radix select / count / tie / apply launched 10 / 0 / 2 / 2 times
+            at S=24, each round's masks with floor(s n) zeros per conv and
+            its pruned weights zero after the round's steps, mask ms against
+            the round's train seconds; (c) --iterate-mode l1_filter: the
+            rounds' evals launch the input stage at C=16, then C=8; (e) the
+            train CLI killed after 2 steps and resumed to 4
+            (--checkpoint-dir, --resume) against an uninterrupted 4-step run
+            (cuDNN's deterministic algorithms): step, seen and generator
+            equal, params and momentum within 1e-4 of their largest
+            magnitude.
 9. families YOLOv4-VOC 416 (random init, seed 0; its 20 classes, three
             [yolo] heads, 10,647 candidates an image), unpruned and 75%-
-            filter-pruned and repacked, served as in phase 4: (a) no
-            kernel launched (conv1 feeds a conv, so no input stage),
-            ms/batch, img/s, peak memory, a profiler window, the fp32
-            raw maps of one frame card vs CPU within 1e-4 max rel per
-            head; (b) the same step with the bisect prefilter: count /
-            tie-count / apply launched exactly 32 / 1 / 1 times at S=64,
-            its keep-set equal to the plain route's on the same scores,
-            timed; the three kernels against their plain versions at
-            this shape; (c) at this NMS shape (B=64, N=10,647, C=20,
-            K=32) the default, DIoU (beta 0.6), bisect, nms_padded and
-            soft-NMS (Gaussian, linear) on the card against the CPU on
-            the same candidates: selections equal (soft-NMS scores within
-            1e-6 relative), each timed. The serve CLI's server on
-            yolov4-voc.cfg as in phase 5, with --diou-nms --diou-beta 0.6
-            --nms-prefilter-impl bisect: exactly 32 / 1 / 1 launches for
-            every batch it served. (d) YOLOv3-tiny 416 (80 classes)
-            at batch 64: exactly 1 tensor-core input-stage launch at C=16
-            a batch, and the fp32 card-vs-CPU forward through the fp32
-            input stage. (e) detect --dir on 8 fixture images and eval
-            --diou-nms --nms-prefilter 128 --nms-prefilter-impl bisect on
-            phase 7's fixture (32 / 1 / 1 launches a batch), both on
-            random-weight YOLOv4-tiny-VOC 416, and summary of yolov4.cfg
-            (608): each exits 0.
+            filter-pruned and repacked, served as in phase 4: (a) no kernel
+            launched (conv1 feeds a conv, so no input stage), ms/batch,
+            img/s, peak memory, a profiler window, the fp32 raw maps of one
+            frame card vs CPU within 1e-4 max rel per head; (b) the same
+            step with the bisect prefilter: radix select / count / tie-count
+            / apply launched exactly 5 / 0 / 1 / 1 times at S=64, its
+            keep-set equal to the plain route's on the same scores, timed;
+            the top-k kernels against their plain versions at this shape,
+            timed as in phase 3 (torch.topk of the 128 best per image beside
+            the select); (c) at this NMS shape (B=64, N=10,647, C=20, K=32)
+            the default, DIoU (beta 0.6), bisect, nms_padded and soft-NMS
+            (Gaussian, linear) on the card against the CPU on the same
+            candidates: selections equal (soft-NMS scores within 1e-6
+            relative), each timed. The serve CLI's server on yolov4-voc.cfg
+            as in phase 5, with --diou-nms --diou-beta 0.6
+            --nms-prefilter-impl bisect: exactly 5 / 0 / 1 / 1 launches for
+            every batch it served. (d) YOLOv3-tiny 416 (80 classes) at batch
+            64: exactly 1 tensor-core input-stage launch at C=16 a batch,
+            and the fp32 card-vs-CPU forward through the fp32 input stage.
+            (e) detect --dir on 8 fixture images and eval --diou-nms
+            --nms-prefilter 128 --nms-prefilter-impl bisect on phase 7's
+            fixture (5 / 0 / 1 / 1 launches a batch), both on random-weight
+            YOLOv4-tiny-VOC 416, and summary of yolov4.cfg (608): each exits
+            0.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -157,9 +163,15 @@ FP32_INPUT_STAGE = "input_stage_f32"
 # the first CUDA-core input stage: timed as both routes' yardstick, never
 # launched by a path
 YARDSTICK = "input_stage"
-# launches of one magnitude prune: 31 bisection rounds + the n_below count
-PRUNE_LAUNCHES = {"topk_count_le": 32, "topk_tie_counts": 1,
+# launches of one magnitude prune: the radix select's 4 histogram passes
+# and its select launch, then the tie count and the apply; the count
+# kernel (the bisection's yardstick) never
+PRUNE_LAUNCHES = {"topk_radix_select": 5, "topk_tie_counts": 1,
                   "topk_apply": 1}
+SELECT_LAUNCHES = PRUNE_LAUNCHES["topk_radix_select"]
+# the count kernel: the PR 2 bisection's, timed as the radix select's
+# yardstick and never launched by a path
+TOPK_YARDSTICK = "topk_count_le"
 # the eval fixture: two full batches and a ragged one
 EVAL_IMAGES = 160
 SWEEP_POINTS = (0.5, 0.75)
@@ -378,15 +390,61 @@ def _topk_layout(torch, spec, params, per_layer, variant):
     return ct._prune_layout(params, spec, sparsity, per_layer, ())
 
 
+def radix_pass_ms(torch, bits, seg, k, S, iters=10):
+    """Each of the radix select's 5 launches timed alone with CUDA events
+    (the wrapper's loop, outside its launch count), mean ms over
+    ``iters`` selects after one warm-up: the four histogram passes, then
+    the select launch."""
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    kk = k.to(torch.int64).contiguous()
+    n_launch = len(ct.RADIX_SHIFTS) + 1
+    total = [0.0] * n_launch
+    for it in range(iters + 1):
+        hist = torch.zeros((len(ct.RADIX_SHIFTS), S, ct.RADIX_BINS),
+                           dtype=torch.int32, device=bits.device)
+        kth = torch.empty(S, dtype=torch.int64, device=bits.device)
+        below = torch.empty_like(kth)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(n_launch + 1)]
+        ev[0].record()
+        for p in range(n_launch):
+            ct._launch("topk_radix_select", (bits, seg, kk, hist, kth, below),
+                       bits.numel(), S, p)
+            ev[p + 1].record()
+        ev[-1].synchronize()
+        if it:  # the first select warms up
+            for p in range(n_launch):
+                total[p] += ev[p].elapsed_time(ev[p + 1])
+    return [t / iters for t in total]
+
+
+def device_ms(fn, calls=10) -> float:
+    """Device time per call of ``fn``: its kernels' device time summed
+    over a torch.profiler window of ``calls`` calls, ms. Where launches
+    are shorter than the host's time to issue them, CUDA events around a
+    run of calls measure the host; this does not."""
+    from modelcompression_tpu_torch.cli._profiling import profile_window
+    return profile_window(fn, steps=calls)[0]["device_busy_ms_per_step"]
+
+
 def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
-              library=None):
-    """The three top-k/mask kernels against their plain versions on the
-    inputs a prune of this flat ``layout`` (``_prune_layout``'s tuple)
-    feeds them (derived by the plain rule), then timed: counts equal,
-    outputs bit-equal (every output is a count or a copy of an input).
-    ``kth_library``: time torch.kthvalue for the single real segment's
-    k-th |w|; ``library``: another PyTorch call for the whole selection,
-    timed instead; ``pad_segment``: the last segment is the padding."""
+              library=None, device_times=False):
+    """The top-k/mask kernels against their plain versions on the inputs
+    a prune of this flat ``layout`` (``_prune_layout``'s tuple) feeds
+    them, then timed: outputs equal (every output is a count, a bit
+    pattern or a copy of an input). The radix select's kth and n_below
+    equal its plain version's and the bisection's rule; the count kernel
+    (the yardstick) equals its plain version at the bisection's pivots;
+    the tie-count and apply kernels run at the chunk ``prune_flat`` sizes
+    to the input (``ct.grid_chunk``), and are timed at 16K as well
+    (``chunk16k_ms``, PR 2's grid). The select is timed whole
+    (``select_ms``) and per launch (``pass_ms``) beside the 31-round
+    bisection through the count kernel (``prev_ms``). ``kth_library``:
+    time torch.kthvalue for the single real segment's k-th |w|;
+    ``library``: another PyTorch call for the whole selection, timed
+    instead; ``pad_segment``: the last segment is the padding;
+    ``device_times``: each kernel's device time as well (``device_ms``,
+    ``chunk16k_device_ms``), for launches shorter than their host cost."""
     from modelcompression_tpu_torch.ops import cuda_topk as ct
     from modelcompression_tpu_torch.ops import topk_mask as tm
     keys, cat, sizes, seg, n_zero, S = layout
@@ -399,14 +457,16 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
     n_below = torch.where((n_zero > 0) & (tau > 0),
                           ct.count_le_plain(bits, seg, below, S), 0)
     budget = torch.where(n_zero > 0, n_zero - n_below, 0)
-    per_chunk = ct.tie_counts_plain(bits, seg, tau, S)
+    chunk = ct.grid_chunk(n, cat.device)
+    per_chunk = ct.tie_counts_plain(bits, seg, tau, S, chunk)
     pc = per_chunk.long()
     chunk_off = torch.cumsum(pc.sum(1), 0) - pc.sum(1)
     seg_start = torch.cumsum(pc.sum(0), 0) - pc.sum(0)
     ones = torch.ones_like(cat)
     rest = (bits, seg, tau, budget, seg_start, chunk_off)
     label = f"top-k S={S} {variant}"
-    err = {"count_le": 0.0, "tie_counts": 0.0, "apply": 0.0}
+    err = {"radix_select": 0.0, "count_le": 0.0, "tie_counts": 0.0,
+           "apply": 0.0}
 
     def compare(key, got, want, what):
         err[key] = max(err[key], (got.double() - want.double()).abs().max()
@@ -415,15 +475,24 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
                           want.view(torch.int32) if key == "apply" else want),
               f"{label}: {what} differs from its plain version")
 
+    plain_sel = ct.radix_select_plain(bits, seg, k, S)
+    check(torch.equal(plain_sel[0], kth), f"{label}: the plain radix select "
+          "differs from the bisection")
+    check(torch.equal(plain_sel[1],
+                      ct.count_le_plain(bits, seg, kth - 1, S)),
+          f"{label}: the plain radix select's n_below is not count(< kth)")
+    for got, want, what in zip(ct.radix_select_cuda(bits, seg, k, S),
+                               plain_sel, ("kth", "n_below")):
+        compare("radix_select", got, want, f"radix-select kernel {what}")
     for mid in (kth, below):
         compare("count_le", ct.count_le_cuda(bits, seg, mid, S),
                 ct.count_le_plain(bits, seg, mid, S), "count kernel")
-    compare("tie_counts", ct.tie_counts_cuda(bits, seg, tau, S), per_chunk,
-            "tie-count kernel")
+    compare("tie_counts", ct.tie_counts_cuda(bits, seg, tau, S, chunk),
+            per_chunk, "tie-count kernel")
     outs = []
     for src in (ones, cat):  # the mask (the CLI's path), the weights
-        got = ct.apply_threshold_cuda(src, *rest)
-        compare("apply", got, ct.apply_threshold_plain(src, *rest),
+        got = ct.apply_threshold_cuda(src, *rest, chunk)
+        compare("apply", got, ct.apply_threshold_plain(src, *rest, chunk),
                 "apply kernel output (bit for bit)")
         outs.append(got)
     n_pruned = int((outs[0] == 0).sum())
@@ -437,27 +506,51 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
                                     warmup=1),
                 **bound(n_bytes, n_ops, PEAK_OPS_PER_S["float32"])}
 
+    # the tie table and the apply's chunk offsets at 16K, PR 2's grid
+    pc16 = ct.tie_counts_plain(bits, seg, tau, S).long()
+    off16 = torch.cumsum(pc16.sum(1), 0) - pc16.sum(1)
     chunks = per_chunk.shape[0]
     real = slice(0, S - 1) if pad_segment else slice(0, S)
+    bisection_ms = time_ms(torch, lambda: tm.segmented_kth_bits(
+        bits, seg, k, S, count_le=ct.count_le_cuda), iters=3, warmup=1)
+    pass_ms = radix_pass_ms(torch, bits, seg, k, S)
+    # each input read once (bits, seg: 8 B an element; k: 8 B a segment),
+    # each output written once (kth, n_below); one pass reads bits and seg
+    select = timed("radix_select", ct.radix_select_cuda,
+                   ct.radix_select_plain, (bits, seg, k, S), 8 * n + 24 * S,
+                   2 * n)
+    select.update({
+        "select_ms": select["ms"], "pass_ms": pass_ms,
+        "pass_bound_ms": bound(8 * n, 2 * n,
+                               PEAK_OPS_PER_S["float32"])["bound_ms"],
+        "four_pass_bound_ms": 4 * 8 * n / HBM_BYTES_PER_S * 1e3,
+        "prev_ms": bisection_ms})
     r = {"S": S, "variant": variant, "n": n, "weights": sum(sizes),
+         "chunk": chunk, "blocks": chunks,
          "segments_at_threshold_zero": int((tau[real] == 0).sum()),
          "ties_at_threshold": int(pc[:, real].sum()),  # padding excluded
          # bytes: each input read once, each output written once
+         "radix_select": select,
          "count_le": timed("count_le", ct.count_le_cuda, ct.count_le_plain,
                            (bits, seg, kth, S), 8 * n + 12 * S, 2 * n),
-         "tie_counts": timed("tie_counts", ct.tie_counts_cuda,
-                             ct.tie_counts_plain, (bits, seg, tau, S),
-                             8 * n + 4 * S + 4 * chunks * S, 2 * n),
-         "apply": timed("apply", ct.apply_threshold_cuda,
-                        ct.apply_threshold_plain, (ones,) + rest,
-                        16 * n + 12 * S + 8 * chunks, 4 * n),
-         "bisection_ms": time_ms(torch, lambda: tm.segmented_kth_bits(
-             bits, seg, k, S, count_le=ct.count_le_cuda), iters=3, warmup=1),
+         "tie_counts": dict(
+             timed("tie_counts", ct.tie_counts_cuda, ct.tie_counts_plain,
+                   (bits, seg, tau, S, chunk),
+                   8 * n + 4 * S + 4 * chunks * S, 2 * n),
+             chunk16k_ms=time_ms(torch, lambda: ct.tie_counts_cuda(
+                 bits, seg, tau, S), iters=10)),
+         "apply": dict(
+             timed("apply", ct.apply_threshold_cuda,
+                   ct.apply_threshold_plain, (ones,) + rest + (chunk,),
+                   16 * n + 12 * S + 8 * chunks, 4 * n),
+             chunk16k_ms=time_ms(torch, lambda: ct.apply_threshold_cuda(
+                 ones, bits, seg, tau, budget, seg_start, off16), iters=10)),
+         "bisection_ms": bisection_ms,
          "kthvalue_ms": None}
     if library is not None:
         r["kthvalue_ms"] = time_ms(torch, library, iters=3, warmup=1)
     if kth_library:
-        # the one PyTorch call for the bisection's job: the k-th |w|
+        # the one PyTorch call for the select's job: the k-th |w|
         absw = cat[:sum(sizes)].abs()
         kk = int(k[0]) + 1
         kv = torch.kthvalue(absw, kk).values.reshape(1)
@@ -466,6 +559,24 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
         if variant == "random":  # the main path's case; ~0.4 s a call
             r["kthvalue_ms"] = time_ms(
                 torch, lambda: torch.kthvalue(absw, kk), iters=3, warmup=1)
+    select["library_ms"] = r["kthvalue_ms"]
+    if device_times:
+        for key, fn in (
+                ("radix_select", lambda: ct.radix_select_cuda(bits, seg, k,
+                                                              S)),
+                ("count_le", lambda: ct.count_le_cuda(bits, seg, kth, S)),
+                ("tie_counts", lambda: ct.tie_counts_cuda(bits, seg, tau, S,
+                                                          chunk)),
+                ("apply", lambda: ct.apply_threshold_cuda(ones, *rest,
+                                                          chunk))):
+            r[key]["device_ms"] = device_ms(fn)
+        if library is not None:
+            r["radix_select"]["library_device_ms"] = device_ms(library)
+        r["tie_counts"]["chunk16k_device_ms"] = device_ms(
+            lambda: ct.tie_counts_cuda(bits, seg, tau, S))
+        r["apply"]["chunk16k_device_ms"] = device_ms(
+            lambda: ct.apply_threshold_cuda(ones, bits, seg, tau, budget,
+                                            seg_start, off16))
     return r
 
 
@@ -1591,8 +1702,10 @@ def phase_families(torch, kernels, card, tmp, data):
         rb = drive_serving(torch, kernels, spec, params, f"{label} bisect",
                            want=PRUNE_LAUNCHES, nms_prefilter_impl="bisect")
         widths[f"{label}_bisect"] = at = rb["launches_by_width"]
-        check(at["topk_count_le"] == {BATCH: 32},
-              f"{label} bisect: count launches by S {at['topk_count_le']}")
+        check(at["topk_radix_select"] == {BATCH: SELECT_LAUNCHES}
+              and at[TOPK_YARDSTICK] == {},
+              f"{label} bisect: select launches by S "
+              f"{at['topk_radix_select']}, count {at[TOPK_YARDSTICK]}")
         corners, scores = _candidates_on_card(torch, spec, params)
         got = batched_bisect_prefilter(corners, scores, NMS_CONF,
                                        NMS_PREFILTER)
@@ -1608,7 +1721,8 @@ def phase_families(torch, kernels, card, tmp, data):
             layout, m = _bisect_layout(torch, scores)
             topk = topk_case(
                 torch, layout, "bisect", pad_segment=False,
-                library=lambda: torch.topk(m, NMS_PREFILTER, dim=1))
+                library=lambda: torch.topk(m, NMS_PREFILTER, dim=1),
+                device_times=True)
             emit({"phase": "families", "ok": True, "kernel": "topk",
                   **topk})
             r["nms_variants"] = _nms_variants_card_vs_cpu(torch, corners,
@@ -1617,7 +1731,7 @@ def phase_families(torch, kernels, card, tmp, data):
               "card": card, **r})
 
     # the serve CLI on YOLOv4-VOC-416 at the deployment preset, with DIoU
-    # from the flags and the bisect prefilter: 32 / 1 / 1 a batch
+    # from the flags and the bisect prefilter: 5 / 0 / 1 / 1 a batch
     widths["yolov4_voc_server"] = phase_server(
         torch, kernels, card, cfg_name=FAMILY_CFG, label="yolov4_voc",
         phase="families",
@@ -1674,8 +1788,10 @@ def phase_families(torch, kernels, card, tmp, data):
     want = {name: n_batches * PRUNE_LAUNCHES.get(name, 0)
             for name, _ in kernels}
     check(counts == want, f"eval bisect: launches {counts}, expected {want}")
-    check(at["topk_count_le"] == {BATCH: n_batches * 32},
-          f"eval bisect: count launches by S {at['topk_count_le']}")
+    check(at["topk_radix_select"] == {BATCH: n_batches * SELECT_LAUNCHES}
+          and at[TOPK_YARDSTICK] == {},
+          f"eval bisect: select launches by S {at['topk_radix_select']}, "
+          f"count {at[TOPK_YARDSTICK]}")
     m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
                   re.M)
     check(m and int(m.group(2)) == EVAL_IMAGES, "eval printed no summary")
@@ -1693,7 +1809,8 @@ def phase_families(torch, kernels, card, tmp, data):
 
 
 TOPK_ENTRIES = (
-    ("count_le", "topk_count_le", "pallas_topk.py:55"),
+    ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
+    ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
     ("tie_counts", "topk_tie_counts", "pallas_topk.py:190"),
     ("apply", "topk_apply", "pallas_topk.py:124"),
 )
@@ -1709,20 +1826,28 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     ``prev_max_abs_err``); the yardstick (``input_stage``, the first
     CUDA-core kernel) has an entry of its own at fp32 C=32, marked
     ``yardstick``, with 0 launches: no path launches it. The top-k kernels
-    run per layer (S=24, the magnitude prune)
-    and globally (S=2) on the random weights. ``launches`` is that path's
-    count. No single PyTorch call computes a top-k kernel's own
-    function. The count entries carry, beside one launch's ``ms``, the
-    whole 31-launch bisection's ``bisection_ms``; in global mode their
-    ``library_ms`` is torch.kthvalue on the |w| vector, the call that finds
-    the same k-th |w|, so it compares with ``bisection_ms`` (marked by
-    ``library_computes``). ``eval_launches``, ``finetune_launches`` and
+    run per layer (S=24, the magnitude prune) and globally (S=2) on the
+    random weights. ``launches`` is that path's count. The radix select's
+    entries time the whole select (``ms`` = ``select_ms``, its 5
+    launches; ``pass_ms`` each launch) against the bound of reading its
+    inputs once (``bound_ms``; ``pass_bound_ms`` one pass,
+    ``four_pass_bound_ms`` the four passes), beside the PR 2 route to the
+    same kth, the 31-launch bisection through the count kernel
+    (``prev_ms``). Its ``library_ms`` is torch.kthvalue on the |w| vector
+    in global mode (S=2), the call that finds the same k-th |w|; no
+    single PyTorch call computes the per-layer select (S=24). The count
+    kernel (``topk_count_le``) is that bisection's yardstick, marked
+    ``yardstick`` with 0 launches, one launch's ``ms`` beside the whole
+    ``bisection_ms``. The tie-count and apply entries run at the chunk
+    ``prune_flat`` sizes to the input (``chunk``), with PR 2's 16K grid
+    beside them (``chunk16k_ms``); no single PyTorch call computes
+    their functions. ``eval_launches``, ``finetune_launches`` and
     ``families_launches`` count each case's launches on each path of the
     eval, finetune and families phases, read from the wrappers' counts by
     width (C or S). The families phase adds its own cases: the input
     stages at C=16 (YOLOv3-tiny serving, bf16, and its card-vs-CPU
     forward, fp32) and the top-k kernels at S=64 (the bisect prefilter
-    over YOLOv4-VOC's 64 x 10,647 candidates; the count entry's
+    over YOLOv4-VOC's 64 x 10,647 candidates; the radix entry's
     ``library_ms`` is torch.topk of the 128 best per image, the whole
     selection)."""
     def on(widths, source, width):
@@ -1784,47 +1909,53 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "eval_launches": on_eval(YARDSTICK, 32),
         "finetune_launches": on_finetune(YARDSTICK, 32),
         "families_launches": on(fam_widths, YARDSTICK, 32)})
+    def topk_entry(r, key, source, body, name, launches, widths, library):
+        k = r[key]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
+            "replaces": f"modelcompression_tpu/ops/{body}",
+            "launches": launches,
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None, **widths}
+        if key == "radix_select":
+            entry.update({n: k[n] for n in (
+                "select_ms", "pass_ms", "pass_bound_ms",
+                "four_pass_bound_ms", "prev_ms")})
+            entry["prev_computes"] = (
+                "the PR 2 route: the 31-round bisection through the count "
+                "kernel (topk_count_le), the same kth")
+            if library is not None:
+                entry["library_ms"] = k["library_ms"]
+                entry["library_computes"] = library
+        elif key == "count_le":
+            entry["yardstick"] = True
+            entry["bisection_ms"] = r["bisection_ms"]
+        else:
+            entry["chunk"] = r["chunk"]
+            entry["chunk16k_ms"] = k["chunk16k_ms"]
+        return entry
+
     for s, mode in ((24, "magnitude"), (2, "global")):
         r = topk[(s, "random")]
         for key, source, body in TOPK_ENTRIES:
-            k = r[key]
-            entry = {
-                "name": f"{source}[S={s}]", "route": "cuda",
-                "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
-                "replaces": f"modelcompression_tpu/ops/{body}",
-                "launches": prune_launches[mode][source],
-                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": None,
-                "eval_launches": on_eval(source, s),
-                "finetune_launches": on_finetune(source, s),
-                "families_launches": on(fam_widths, source, s)}
-            if key == "count_le":
-                entry["bisection_ms"] = r["bisection_ms"]
-                if r["kthvalue_ms"] is not None:
-                    entry["library_ms"] = r["kthvalue_ms"]
-                    entry["library_computes"] = (
-                        "the k-th |w| of the whole 31-launch bisection")
-            entries.append(entry)
+            entries.append(topk_entry(
+                r, key, source, body, f"{source}[S={s}]",
+                prune_launches[mode][source],
+                {"eval_launches": on_eval(source, s),
+                 "finetune_launches": on_finetune(source, s),
+                 "families_launches": on(fam_widths, source, s)},
+                None if s == 24 else
+                "torch.kthvalue: the k-th |w| of the one real segment"))
     s = fam_topk["S"]
     for key, source, body in TOPK_ENTRIES:
-        k = fam_topk[key]
-        entry = {
-            "name": f"{source}[S={s},bisect]", "route": "cuda",
-            "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
-            "replaces": f"modelcompression_tpu/ops/{body}",
-            "launches": fam_widths["yolov4_voc_bisect"][source].get(s, 0),
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
-            "families_launches": on(fam_widths, source, s)}
-        if key == "count_le":
-            entry["bisection_ms"] = fam_topk["bisection_ms"]
-            entry["library_ms"] = fam_topk["kthvalue_ms"]
-            entry["library_computes"] = (
-                "torch.topk of the 128 best scores per image: the whole "
-                "32-launch selection")
-        entries.append(entry)
+        entries.append(topk_entry(
+            fam_topk, key, source, body, f"{source}[S={s},bisect]",
+            fam_widths["yolov4_voc_bisect"][source].get(s, 0),
+            {"families_launches": on(fam_widths, source, s)},
+            "torch.topk of the 128 best scores per image: the whole "
+            "selection"))
     return entries
 
 

@@ -146,7 +146,7 @@ def add_serving_nms_args(p: argparse.ArgumentParser):
                    default="topk",
                    help="prefilter implementation: 'topk' (per-image "
                         "stable sort) or 'bisect' (sort-free batched "
-                        "segmented bisection through the top-k kernels; "
+                        "segmented select through the top-k kernels; "
                         "same exactness condition, evaluation/nms.py)")
     p.add_argument("--soft-nms", choices=("linear", "gaussian"),
                    default=None,

@@ -62,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="topk",
                    help="prefilter implementation: 'topk' (per-image "
                         "stable sort) or 'bisect' (sort-free batched "
-                        "segmented bisection through the top-k kernels; "
+                        "segmented select through the top-k kernels; "
                         "same exactness condition, evaluation/nms.py)")
     p.add_argument("--exact-nms", action="store_true",
                    help="exact greedy NMS over ALL candidates (no top-K "

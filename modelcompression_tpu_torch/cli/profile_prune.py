@@ -10,8 +10,11 @@ layer and global. Prints one JSON line per mode:
   (``compress/criteria``), timed in turns (kernels, reference, reference,
   kernels, twice) with CUDA events;
 * ``stages_ms``: the flat layout (HWIO flattening, concatenation, segment
-  ids), the 31-round bisection, and the rest of ``prune_flat`` plus the
-  unflattening, each timed alone with CUDA events;
+  ids), the threshold by the radix select (``select``, the route
+  ``prune_flat`` takes: 5 launches), the same threshold by the 31-round
+  bisection through the count kernel (``bisection``, the yardstick no
+  path runs), the whole ``prune_flat`` and the unflattening, each timed
+  alone with CUDA events;
 * ``profile``: a ``torch.profiler`` window over 3 mask computations:
   device time by kernel (top 12), device operations per computation and
   the device's busy and idle share of the wall time.
@@ -65,6 +68,8 @@ def main() -> int:
         stages = {
             "layout": time_ms(lambda: ct._prune_layout(
                 params, spec, SPARSITY, per_layer, ()), iters=5),
+            "select": time_ms(lambda: ct.radix_select(
+                bits, seg, k, S), iters=5),
             "bisection": time_ms(lambda: tm.segmented_kth_bits(
                 bits, seg, k, S, count_le=ct.count_le), iters=5),
             "prune_flat": time_ms(lambda: ct.prune_flat(

@@ -5,7 +5,8 @@ The JAX package has two fast routes: ``fused`` (one XLA program of
 segmented bisection) and ``pallas`` (the same rule through hand-written
 TPU kernels). Here the two are one route, ``ops/cuda_topk.magnitude_masks_*``:
 the hand-written CUDA kernels for CUDA tensors and their plain PyTorch
-versions for CPU tensors. ``pallas`` is kept as a name for it, so JAX
+versions for CPU tensors; they find the same threshold by a radix select
+in place of the bisection. ``pallas`` is kept as a name for it, so JAX
 command lines (``--mask-backend pallas``, ``--use-pallas``) run unchanged.
 
 * ``fused`` (default) and ``pallas``: ``ops/cuda_topk.py``.

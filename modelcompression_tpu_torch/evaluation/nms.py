@@ -21,10 +21,11 @@ The other variants, each as in the JAX package:
   takes ``lax.approx_max_k`` to 4K candidates before the exact top-K.
   ``approx_max_k`` has no counterpart on this device, so False selects the
   exact stable sort, as JAX's own CPU lowering of ``approx_max_k`` does.
-* ``impl='bisect'`` prefilter (``batched_bisect_prefilter``): the
-  class-agnostic top-N' by max class score as the segmented bisection of
-  the weight masks (``ops/cuda_topk.prune_flat``, one segment per image):
-  on CUDA tensors it launches the count, tie-count and apply kernels.
+* ``impl='bisect'`` prefilter (``batched_bisect_prefilter``, named as in
+  the JAX package): the class-agnostic top-N' by max class score with the
+  weight masks' rule (``ops/cuda_topk.prune_flat``, one segment per
+  image): on CUDA tensors it launches the radix-select, tie-count and
+  apply kernels.
 
 Tie order: ``lax.top_k`` is stable (equal scores keep the lower index
 first), the order greedy argmax visits them. ``torch.topk`` makes no such
@@ -276,16 +277,17 @@ def batched_bisect_prefilter(boxes: torch.Tensor, class_scores: torch.Tensor,
                              score_thresh: float, prefilter: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The class-agnostic candidate prefilter as a batched segmented
-    bisection instead of a sort: per image, keep the top-``prefilter``
+    select instead of a sort (the JAX package's segmented bisection; here
+    a radix select finds the same threshold): per image, keep the top-``prefilter``
     candidates by max class score with the weight masks' rule
     (``ops/cuda_topk.prune_flat`` with ``return_mask``, one contiguous
     segment per image, ``n_zero = N - N'``: ties at the N'-th value are
     dropped lowest index first), then compact the survivors into N' slots
     per image with a cumsum-position scatter, in candidate-index order.
 
-    On CUDA tensors ``prune_flat`` launches the count kernel 32 times and
-    the tie-count and apply kernels once each; on CPU tensors it runs
-    their plain versions. Set-equal to the top-k prefilter while at most
+    On CUDA tensors ``prune_flat`` launches the radix-select kernel 5
+    times and the tie-count and apply kernels once each; on CPU tensors
+    it runs their plain versions. Set-equal to the top-k prefilter while at most
     N' candidates of an image clear ``score_thresh``; above that the kept
     sets can differ only on ties at the N'-th value (top-k keeps the
     lowest indices).
@@ -329,7 +331,7 @@ def batched_per_class_nms_prefiltered(boxes: torch.Tensor,
                                       impl: str = "topk") -> Result:
     """(B, N, 4), (B, N, C) -> (B, C, K, ...). ``impl``: 'topk' (the
     per-image stable sort) or 'bisect' (``batched_bisect_prefilter``, the
-    sort-free segmented bisection; same exactness condition)."""
+    sort-free segmented select; same exactness condition)."""
     if impl == "bisect":
         b2, cs2 = batched_bisect_prefilter(boxes, class_scores,
                                            score_thresh, prefilter)

@@ -109,8 +109,8 @@ class EvalConfig:
     # sorts; 0 = off. Exact while at most N' candidates of an image have
     # any class above conf_thresh (the step's n_any counter shows it).
     nms_prefilter: int = 0
-    # 'topk' (per-image stable sort) or 'bisect' (the segmented bisection
-    # through the top-k kernels, nms.batched_bisect_prefilter)
+    # 'topk' (per-image stable sort) or 'bisect' (the sort-free segmented
+    # select through the top-k kernels, nms.batched_bisect_prefilter)
     nms_prefilter_impl: str = "topk"
     # Soft-NMS: "" off, "gaussian" (s *= exp(-iou^2/soft_nms_sigma)) or
     # "linear" (s *= 1-iou above nms_thresh)

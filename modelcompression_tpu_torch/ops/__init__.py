@@ -10,7 +10,8 @@ for callers that build every kernel up front or read every count
 
 from modelcompression_tpu_torch.ops.cuda_topk import (
     apply_threshold, apply_threshold_cuda, apply_threshold_plain, count_le,
-    count_le_cuda, count_le_plain, prune_flat, tie_counts, tie_counts_cuda,
+    count_le_cuda, count_le_plain, prune_flat, radix_select,
+    radix_select_cuda, radix_select_plain, tie_counts, tie_counts_cuda,
     tie_counts_plain,
 )
 from modelcompression_tpu_torch.ops.input_stage import (
@@ -20,10 +21,12 @@ from modelcompression_tpu_torch.ops.input_stage import (
 )
 
 # (csrc source name, wrapper) for every kernel of the port;
-# ``input_stage`` is the yardstick that no path launches
+# ``input_stage`` and ``topk_count_le`` are the yardsticks that no path
+# launches
 KERNELS = (("input_stage", fused_conv1_pool_cuda),
            ("input_stage_mma", fused_conv1_pool_mma),
            ("input_stage_f32", fused_conv1_pool_f32),
+           ("topk_radix_select", radix_select_cuda),
            ("topk_count_le", count_le_cuda),
            ("topk_tie_counts", tie_counts_cuda),
            ("topk_apply", apply_threshold_cuda))
@@ -32,5 +35,7 @@ __all__ = ["KERNELS", "apply_threshold", "apply_threshold_cuda",
            "apply_threshold_plain", "count_le", "count_le_cuda",
            "count_le_plain", "fused_conv1_pool", "fused_conv1_pool_cuda",
            "fused_conv1_pool_f32", "fused_conv1_pool_mma",
-           "fused_conv1_pool_plain", "input_stage_match", "pack_mma_weights", "prune_flat",
-           "tie_counts", "tie_counts_cuda", "tie_counts_plain"]
+           "fused_conv1_pool_plain", "input_stage_match",
+           "pack_mma_weights", "prune_flat", "radix_select",
+           "radix_select_cuda", "radix_select_plain", "tie_counts",
+           "tie_counts_cuda", "tie_counts_plain"]

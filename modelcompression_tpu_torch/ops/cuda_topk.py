@@ -2,14 +2,22 @@
 ``modelcompression_tpu/ops/pallas_topk.py``.
 
 The name drops "pallas" because Pallas is the TPU's kernel language and
-nothing of it is left here: the three kernels are hand-written CUDA C++
-for Hopper, built by ``ops/_build.py``. The threshold is found by the
-segmented bisection over |w| bit patterns of ``ops/topk_mask.py``; ties
-at it are pruned lowest index first. Each kernel has three functions:
+nothing of it is left here: the kernels are hand-written CUDA C++ for
+Hopper, built by ``ops/_build.py``. Each segment's threshold is the k-th
+smallest |w| bit pattern (the rule of ``ops/topk_mask.py``); ties at it
+are pruned lowest index first. Each kernel has three functions:
 
+* ``radix_select_plain`` / ``radix_select_cuda`` / ``radix_select``
+  (``csrc/topk_radix_select.cu``): per segment, the k-th smallest bit
+  pattern and the count strictly below it, by a radix select over four
+  8-bit digits: four histogram passes and one select launch, with the
+  digits chosen on the device. The threshold is bit-equal to the 31-round
+  bisection's.
 * ``count_le_plain`` / ``count_le_cuda`` / ``count_le``
   (``csrc/topk_count_le.cu``): per segment, the count of ``bits <=
-  mid[s]``. 31 bisection rounds and one ``n_below`` count per prune.
+  mid[s]``, one bisection round. No path launches it: it drives the
+  bisection (``topk_mask.segmented_kth_bits``) that the radix select is
+  timed against, as its yardstick.
 * ``tie_counts_plain`` / ``tie_counts_cuda`` / ``tie_counts``
   (``csrc/topk_tie_counts.cu``): the (chunks, S) count of ``bits ==
   tau[s]``.
@@ -20,22 +28,26 @@ The ``*_plain`` version is plain PyTorch; ``*_cuda`` launches the kernel
 or raises, and counts its launches in ``LAUNCHES`` (and by segment
 count S in ``LAUNCHES_AT``); the undecorated name
 sends CPU tensors to the plain version and CUDA tensors to the kernel,
-never one in place of the other. ``prune_flat`` drives the three (the
-port of ``pallas_prune_flat``); ``magnitude_prune`` and
-``magnitude_masks*`` run it on a network's conv kernels.
+never one in place of the other. ``prune_flat`` drives the select, the
+tie count and the apply (the port of ``pallas_prune_flat``);
+``magnitude_prune`` and ``magnitude_masks*`` run it on a network's conv
+kernels.
 
 The flat layout is the JAX package's: kernels flattened in HWIO order
 (``topk_mask.hwio_flat``, so ties break as in the JAX package) and
 concatenated, then zero padding to a multiple of ``CHUNK`` as a segment
-of its own with nothing to prune. ``CHUNK`` is the port's tile, one CUDA
-block each; the plain versions take the chunk as a parameter, so the
-tests can hold them against the TPU kernels' 128K chunk.
+of its own with nothing to prune. The tie-count and apply kernels take
+one CUDA block per chunk; ``prune_flat`` sizes the chunk to the input
+(``grid_chunk``), ``CHUNK`` at most. The plain versions take the chunk
+as a parameter, so the tests can hold them against the TPU kernels' 128K
+chunk.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Dict, Sequence
 
 import torch
@@ -45,14 +57,50 @@ from modelcompression_tpu_torch.models.cfg import NetworkSpec
 from modelcompression_tpu_torch.models.darknet import Params
 from modelcompression_tpu_torch.ops.topk_mask import (
     _prunable_keys, abs_bits, count_le_rule, hwio_flat, oihw_from_flat,
-    segmented_kth_bits,
 )
 
-CHUNK = 16 * 1024  # elements per CUDA block: 16 rounds of 1024
+TILE = 1024  # csrc/topk_tile.cuh: elements a block takes per round
+CHUNK = 16 * TILE  # the largest chunk of elements per CUDA block
 MAX_SEGMENTS = 2048  # csrc/topk_tile.cuh: per-segment arrays in shared memory
+BLOCKS_PER_SM = 4  # what grid_chunk aims for, as the radix select's grid
+# the radix select's digits, high to low: bits 24-30, 16-23, 8-15, 0-7
+RADIX_SHIFTS = (24, 16, 8, 0)
+RADIX_BINS = 256
 
 
 # ---- plain versions -------------------------------------------------------
+
+def radix_select_plain(bits: torch.Tensor, seg_ids: torch.Tensor,
+                       k: torch.Tensor, n_segments: int):
+    """Per segment s, ``(kth[s], n_below[s])``: the k[s]-th smallest bit
+    pattern (0-indexed) and the count of ``bits < kth[s]``, both int64
+    (S,). Four digit passes: each counts, per segment and digit, the
+    elements whose higher digits equal the segment's prefix so far, and
+    takes the first digit whose running count passes the rank still to
+    find. Where k[s] is past the segment no digit does, and each pass
+    takes the top one: kth[s] is then 0x7FFFFFFF, as the bisection's."""
+    seg = seg_ids.long()
+    b = bits.long()
+    dev = bits.device
+    rank = k.long().reshape(n_segments).clone()
+    prefix = torch.zeros(n_segments, dtype=torch.int64, device=dev)
+    n_below = torch.zeros_like(prefix)
+    for p, shift in enumerate(RADIX_SHIFTS):
+        live = ((b ^ prefix[seg]) >> (shift + 8)) == 0
+        digit = (b >> shift) & (RADIX_BINS - 1)
+        hist = torch.zeros(n_segments * RADIX_BINS, dtype=torch.int64,
+                           device=dev).index_add_(
+            0, seg * RADIX_BINS + digit, live.long())
+        cum = hist.view(n_segments, RADIX_BINS).cumsum(1)
+        top = 127 if p == 0 else RADIX_BINS - 1  # bit 31 is clear
+        d = (cum <= rank[:, None]).sum(1).clamp_max(top)
+        below = torch.where(
+            d > 0, cum.gather(1, (d - 1).clamp_min(0)[:, None])[:, 0], 0)
+        prefix |= d << shift
+        rank -= below
+        n_below += below
+    return prefix, n_below
+
 
 def count_le_plain(bits: torch.Tensor, seg_ids: torch.Tensor,
                    mid: torch.Tensor, n_segments: int) -> torch.Tensor:
@@ -132,22 +180,67 @@ def _per_segment(v: torch.Tensor, n: int, dtype, device,
     return v.reshape(n).to(device=device, dtype=dtype).contiguous()
 
 
-def _launch(source: str, tensors, n: int, n_segments: int) -> None:
-    """Call ``mc_<source>`` of ``csrc/<source>.cu`` on PyTorch's current
-    stream: the tensors' pointers, then n, S and the chunk."""
+def _check_chunk(chunk: int) -> None:
+    if not TILE <= chunk <= CHUNK or chunk % TILE:
+        raise ValueError(f"chunk must be a multiple of {TILE} in "
+                         f"[{TILE}, {CHUNK}], got {chunk}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(source: str, n_tensors: int):
+    """``mc_<source>`` of ``csrc/<source>.cu`` (built on first use), its
+    argument types set once: ``n_tensors`` pointers, then n, S, one int
+    and the stream."""
     from modelcompression_tpu_torch.ops import _build
     fn = getattr(_build.load(source), f"mc_{source}")
     # pointers and the stream as c_void_p: ctypes would pass a bare Python
     # int as a 32-bit int and cut the pointer
-    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [
+    fn.argtypes = [ctypes.c_void_p] * n_tensors + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(source: str, tensors, n: int, n_segments: int,
+            arg: int) -> None:
+    """Call ``mc_<source>`` of ``csrc/<source>.cu`` on PyTorch's current
+    stream: the tensors' pointers, then n, S and ``arg`` (the chunk; the
+    radix select's pass)."""
+    fn = _entry(source, len(tensors))
     with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), n, n_segments, CHUNK,
+        err = fn(*(t.data_ptr() for t in tensors), n, n_segments, arg,
                  stream)
     if err != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
+
+
+def radix_select_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
+                      k: torch.Tensor, n_segments: int):
+    """Launch ``csrc/topk_radix_select.cu`` 5 times: the four histogram
+    passes, then the select. bits, seg_ids: contiguous (N,) int32 on a
+    CUDA device, N < 2^31, values in [0, 0x7FFFFFFF], segments contiguous
+    ascending blocks; k (S,). Returns ``(kth, n_below)``, int64 (S,)."""
+    _check_flat(bits, seg_ids, n_segments)
+    n = bits.numel()
+    if n > 0x7FFFFFFF:
+        raise ValueError(f"radix select takes N < 2^31, got {n}")
+    dev = bits.device
+    k = _per_segment(k, n_segments, torch.int64, dev, "k")
+    hist = torch.zeros((len(RADIX_SHIFTS), n_segments, RADIX_BINS),
+                       dtype=torch.int32, device=dev)
+    kth = torch.empty(n_segments, dtype=torch.int64, device=dev)
+    n_below = torch.empty_like(kth)
+    for p in range(len(RADIX_SHIFTS) + 1):
+        _launch("topk_radix_select", (bits, seg_ids, k, hist, kth, n_below),
+                n, n_segments, p)
+        radix_select_cuda.LAUNCHES += 1
+        radix_select_cuda.LAUNCHES_AT[n_segments] += 1
+    return kth, n_below
+
+
+radix_select_cuda.LAUNCHES = 0
+radix_select_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 def count_le_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
@@ -159,7 +252,7 @@ def count_le_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
     mid = _per_segment(mid, n_segments, torch.int32, bits.device, "mid")
     out = torch.zeros(n_segments, dtype=torch.int64, device=bits.device)
     _launch("topk_count_le", (bits, seg_ids, mid, out), bits.numel(),
-            n_segments)
+            n_segments, CHUNK)
     count_le_cuda.LAUNCHES += 1
     count_le_cuda.LAUNCHES_AT[n_segments] += 1
     return out
@@ -170,16 +263,18 @@ count_le_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 def tie_counts_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
-                    tau: torch.Tensor, n_segments: int) -> torch.Tensor:
-    """Launch ``csrc/topk_tie_counts.cu``. Returns int32
-    (ceil(N / CHUNK), S)."""
+                    tau: torch.Tensor, n_segments: int,
+                    chunk: int = CHUNK) -> torch.Tensor:
+    """Launch ``csrc/topk_tie_counts.cu``, one block per ``chunk``
+    elements. Returns int32 (ceil(N / chunk), S)."""
     _check_flat(bits, seg_ids, n_segments)
+    _check_chunk(chunk)
     tau = _per_segment(tau, n_segments, torch.int32, bits.device, "tau")
-    n_chunks = -(-bits.numel() // CHUNK)
+    n_chunks = -(-bits.numel() // chunk)
     out = torch.empty((n_chunks, n_segments), dtype=torch.int32,
                       device=bits.device)
     _launch("topk_tie_counts", (bits, seg_ids, tau, out), bits.numel(),
-            n_segments)
+            n_segments, chunk)
     tie_counts_cuda.LAUNCHES += 1
     tie_counts_cuda.LAUNCHES_AT[n_segments] += 1
     return out
@@ -193,12 +288,14 @@ def apply_threshold_cuda(w: torch.Tensor, bits: torch.Tensor,
                          seg_ids: torch.Tensor, tau: torch.Tensor,
                          tie_budget: torch.Tensor,
                          seg_tie_start: torch.Tensor,
-                         chunk_tie_off: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/topk_apply.cu``. w: contiguous (N,) float32 on the
-    bits' device; segments contiguous ascending blocks; ``chunk_tie_off``
-    per ``CHUNK``. Returns float32 (N,)."""
+                         chunk_tie_off: torch.Tensor,
+                         chunk: int = CHUNK) -> torch.Tensor:
+    """Launch ``csrc/topk_apply.cu``, one block per ``chunk`` elements.
+    w: contiguous (N,) float32 on the bits' device; segments contiguous
+    ascending blocks; ``chunk_tie_off`` per chunk. Returns float32 (N,)."""
     n_segments = tau.numel()
     _check_flat(bits, seg_ids, n_segments)
+    _check_chunk(chunk)
     if (w.dtype != torch.float32 or w.shape != bits.shape
             or w.device != bits.device or not w.is_contiguous()):
         raise ValueError(f"w must be a contiguous float32 tensor shaped as "
@@ -210,11 +307,11 @@ def apply_threshold_cuda(w: torch.Tensor, bits: torch.Tensor,
                         "seg_tie_start")
            + _per_segment(tie_budget, n_segments, torch.int64, dev,
                           "tie_budget"))
-    chunk_off = _per_segment(chunk_tie_off, -(-bits.numel() // CHUNK),
+    chunk_off = _per_segment(chunk_tie_off, -(-bits.numel() // chunk),
                              torch.int64, dev, "chunk_tie_off")
     out = torch.empty_like(w)
     _launch("topk_apply", (w, bits, seg_ids, tau, lim, chunk_off, out),
-            bits.numel(), n_segments)
+            bits.numel(), n_segments, chunk)
     apply_threshold_cuda.LAUNCHES += 1
     apply_threshold_cuda.LAUNCHES_AT[n_segments] += 1
     return out
@@ -234,20 +331,38 @@ def _route(t: torch.Tensor, cuda_fn, plain_fn):
     raise ValueError(f"unsupported device {t.device}")
 
 
+def radix_select(bits, seg_ids, k, n_segments):
+    return _route(bits, radix_select_cuda, radix_select_plain)(
+        bits, seg_ids, k, n_segments)
+
+
 def count_le(bits, seg_ids, mid, n_segments):
     return _route(bits, count_le_cuda, count_le_plain)(
         bits, seg_ids, mid, n_segments)
 
 
-def tie_counts(bits, seg_ids, tau, n_segments):
+def tie_counts(bits, seg_ids, tau, n_segments, chunk=CHUNK):
     return _route(bits, tie_counts_cuda, tie_counts_plain)(
-        bits, seg_ids, tau, n_segments)
+        bits, seg_ids, tau, n_segments, chunk)
 
 
 def apply_threshold(w, bits, seg_ids, tau, tie_budget, seg_tie_start,
-                    chunk_tie_off):
+                    chunk_tie_off, chunk=CHUNK):
     return _route(bits, apply_threshold_cuda, apply_threshold_plain)(
-        w, bits, seg_ids, tau, tie_budget, seg_tie_start, chunk_tie_off)
+        w, bits, seg_ids, tau, tie_budget, seg_tie_start, chunk_tie_off,
+        chunk)
+
+
+def grid_chunk(n: int, device: torch.device) -> int:
+    """The tie-count and apply kernels' chunk for ``n`` elements: the
+    largest multiple of ``TILE``, ``CHUNK`` at most, that still gives
+    ``BLOCKS_PER_SM`` blocks on every SM of a CUDA device (at 681,408
+    elements and 132 SMs, 1024 in place of 16K: 666 blocks, not 42).
+    ``CHUNK`` on the CPU, where the chunk only shapes the tie table."""
+    if device.type != "cuda":
+        return CHUNK
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(TILE, min(CHUNK, n // (sms * BLOCKS_PER_SM) // TILE * TILE))
 
 
 # ---- the prune ------------------------------------------------------------------
@@ -259,24 +374,21 @@ def prune_flat(w_cat: torch.Tensor, seg_ids: torch.Tensor,
     zeroed, ties lowest index first; with ``return_mask`` the same
     decision applied to ones (the keep mask, already-zero weights ranked
     smallest). Segments are contiguous ascending blocks. Launches the
-    count kernel 32 times, the tie-count and apply kernels once each, and
-    reads nothing back to the host."""
+    radix-select kernel 5 times, the tie-count and apply kernels once
+    each, and reads nothing back to the host."""
     bits = abs_bits(w_cat)
     nz = n_zero.long().clamp_min(0)
-    kth = segmented_kth_bits(bits, seg_ids, (nz - 1).clamp_min(0),
-                             n_segments, count_le=count_le)
+    kth, n_below = radix_select(bits, seg_ids, (nz - 1).clamp_min(0),
+                                n_segments)
     # a segment with nothing to prune gets the impossible threshold 0 and
     # no budget
     tau = torch.where(nz > 0, kth, 0)
-    # n_below must be count(bits < tau); the kernel counts <=, so count
-    # <= tau - 1, except for tau == 0 (the k-th smallest |w| is 0.0, as
-    # when re-pruning pruned weights): nothing is below 0, and counting
-    # <= 0 would spend the whole tie budget on the zeros and prune nothing
-    n_below = count_le(bits, seg_ids, torch.where(tau > 0, tau - 1, 0),
-                       n_segments)
-    n_below = torch.where((nz > 0) & (tau > 0), n_below, 0)
+    # n_below counts bits < kth: 0 where the k-th smallest |w| is 0.0 (as
+    # when re-pruning pruned weights), so the whole budget goes to the
+    # zeros, lowest index first
     budget = torch.where(nz > 0, nz - n_below, 0)
-    per_chunk = tie_counts(bits, seg_ids, tau, n_segments).long()
+    chunk = grid_chunk(bits.numel(), bits.device)
+    per_chunk = tie_counts(bits, seg_ids, tau, n_segments, chunk).long()
     # ties before each chunk (all segments) and before each segment
     chunk_tot = per_chunk.sum(1)
     chunk_tie_off = torch.cumsum(chunk_tot, 0) - chunk_tot
@@ -284,7 +396,7 @@ def prune_flat(w_cat: torch.Tensor, seg_ids: torch.Tensor,
     seg_tie_start = torch.cumsum(seg_tot, 0) - seg_tot
     src = torch.ones_like(w_cat) if return_mask else w_cat
     return apply_threshold(src, bits, seg_ids, tau, budget, seg_tie_start,
-                           chunk_tie_off)
+                           chunk_tie_off, chunk)
 
 
 def _layout(params: Params, keys):

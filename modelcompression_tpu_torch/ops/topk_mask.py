@@ -11,8 +11,11 @@ PyTorch (port of ``abs_bits`` and ``segmented_kth_bits`` of
   (``count_le``) and no sort. Nothing in the loop reads a device value on
   the host.
 
-``ops/cuda_topk.py`` drives this rule through its hand-written kernels
-(or, for CPU tensors, ``count_le_rule``) and builds the masks from it.
+``segmented_kth_bits`` is the rule the JAX package defines and the tests'
+reference. ``ops/cuda_topk.prune_flat`` no longer runs it: it finds the
+same k-th pattern with a radix select (``cuda_topk.radix_select``, four
+histogram passes). The bisection stays as the radix select's yardstick,
+driven on the card through the count kernel (``cuda_topk.count_le``).
 
 Flat order: the tie rule ranks ties by their index in the concatenation of
 the JAX package's HWIO-flattened kernels. The port stores kernels OIHW, so

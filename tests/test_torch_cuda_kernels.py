@@ -314,21 +314,117 @@ def test_topk_kernels_match_plain(cuda_device, case, unaligned):
     assert torch.equal(pruned, n_zero)
 
 
+def _small_segments_case(device, unaligned):
+    """2,048 segments of 1-40 elements (some all equal, some past k):
+    every block spans more segments than it has shared histograms, so
+    most counts take the global-atomic path."""
+    rng = np.random.default_rng(2048)
+    sizes = rng.integers(1, 41, ct.MAX_SEGMENTS)
+    n = int(sizes.sum())
+    w = rng.standard_normal(n).astype(np.float32)
+    w = (w.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    w[rng.random(n) < 0.2] = 0.0
+    starts = np.cumsum(sizes) - sizes
+    for s in range(0, ct.MAX_SEGMENTS, 97):  # all-equal segments
+        w[starts[s]:starts[s] + sizes[s]] = 0.75
+    seg = np.repeat(np.arange(ct.MAX_SEGMENTS, dtype=np.int32), sizes)
+    k = rng.integers(0, sizes + 2)  # k >= size in some segments
+    bits = ttm.abs_bits(torch.from_numpy(w).to(device))
+    seg = torch.from_numpy(seg).to(device)
+    if unaligned:
+        bits, seg = _unaligned(bits), _unaligned(seg)
+    return bits, seg, torch.from_numpy(k).to(device), ct.MAX_SEGMENTS
+
+
+def _assert_radix_matches_plain(bits, seg, k, S):
+    n0, at0 = ct.radix_select_cuda.LAUNCHES, ct.radix_select_cuda \
+        .LAUNCHES_AT[S]
+    kth, n_below = ct.radix_select_cuda(bits, seg, k, S)
+    torch.cuda.synchronize()
+    assert ct.radix_select_cuda.LAUNCHES - n0 == 5
+    assert ct.radix_select_cuda.LAUNCHES_AT[S] - at0 == 5
+    want_kth, want_below = ct.radix_select_plain(bits, seg, k, S)
+    assert kth.dtype == n_below.dtype == torch.int64
+    assert torch.equal(kth, want_kth)
+    assert torch.equal(n_below, want_below)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("case", sorted(TOPK_CASES) + ["small_2048"])
+def test_radix_select_matches_plain(cuda_device, case, unaligned):
+    """The radix-select kernel's kth and n_below equal its plain
+    version's exactly: at the prune's k, at k = 0 and at k = size - 1 of
+    each segment, and (2,048 small segments) on the global-atomic path
+    with k past some segments."""
+    if case == "small_2048":
+        _assert_radix_matches_plain(*_small_segments_case(cuda_device,
+                                                          unaligned))
+        return
+    _, bits, seg, n_zero, S = _topk_case(case, cuda_device, unaligned)
+    sizes = torch.bincount(seg.long(), minlength=S)
+    for k in ((n_zero - 1).clamp_min(0), torch.zeros_like(n_zero),
+              sizes - 1):
+        _assert_radix_matches_plain(bits, seg, k, S)
+
+
+@pytest.mark.cuda
+def test_radix_select_one_full_size_segment(cuda_device):
+    """One segment of 50,634,592 weights (YOLOv2-VOC's conv count), the
+    global prune's k-th |w|: equal to the plain version and to
+    torch.kthvalue."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn(50_634_592, generator=gen, device=cuda_device) * 0.05
+    bits = ttm.abs_bits(w)
+    seg = torch.zeros_like(bits)
+    k = torch.tensor([int(0.75 * w.numel()) - 1], device=cuda_device)
+    _assert_radix_matches_plain(bits, seg, k, 1)
+    kth, _ = ct.radix_select_cuda(bits, seg, k, 1)
+    kv = torch.kthvalue(w.abs(), int(k[0]) + 1).values.reshape(1)
+    assert int(kth[0]) == int(ttm.abs_bits(kv)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+def test_tie_counts_and_apply_at_grid_chunk_match_plain(cuda_device, case):
+    """The tie-count and apply kernels at the chunk ``prune_flat`` sizes
+    to the input equal their plain versions at that chunk."""
+    w, bits, seg, n_zero, S = _topk_case(case, cuda_device, False)
+    chunk = ct.grid_chunk(bits.numel(), bits.device)
+    assert chunk % 1024 == 0 and 1024 <= chunk <= ct.CHUNK
+    kth, n_below = ct.radix_select_plain(bits, seg, (n_zero - 1)
+                                         .clamp_min(0), S)
+    tau = torch.where(n_zero > 0, kth, 0)
+    per_chunk = ct.tie_counts_cuda(bits, seg, tau, S, chunk)
+    assert torch.equal(per_chunk,
+                       ct.tie_counts_plain(bits, seg, tau, S, chunk))
+    pc = per_chunk.long()
+    chunk_off = torch.cumsum(pc.sum(1), 0) - pc.sum(1)
+    seg_start = torch.cumsum(pc.sum(0), 0) - pc.sum(0)
+    budget = n_zero - torch.where(n_zero > 0, n_below, 0)
+    args = (bits, seg, tau, budget, seg_start, chunk_off, chunk)
+    got = ct.apply_threshold_cuda(w, *args)
+    want = ct.apply_threshold_plain(w, *args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("return_mask", [False, True])
 @pytest.mark.parametrize("case", ["ties_S24", "tau0_S24"])
 def test_prune_flat_cuda_matches_cpu(cuda_device, case, return_mask):
     """The whole prune on the card (kernels) equals the prune on the CPU
-    (plain versions), with 32 count, 1 tie-count and 1 apply launch."""
+    (plain versions), with 5 radix-select launches, no count launch, and
+    1 tie-count and 1 apply launch."""
     w, _, seg, n_zero, S = _topk_case(case, cuda_device, False)
-    kernels = (ct.count_le_cuda, ct.tie_counts_cuda, ct.apply_threshold_cuda)
+    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
+               ct.apply_threshold_cuda)
     before = [k.LAUNCHES for k in kernels]
     before_at = [k.LAUNCHES_AT[S] for k in kernels]
     got = ct.prune_flat(w, seg, n_zero, S, return_mask=return_mask)
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - b for k, b in zip(kernels, before)] == [32, 1, 1]
+    assert [k.LAUNCHES - b for k, b in zip(kernels, before)] == [5, 0, 1, 1]
     assert [k.LAUNCHES_AT[S] - b
-            for k, b in zip(kernels, before_at)] == [32, 1, 1]
+            for k, b in zip(kernels, before_at)] == [5, 0, 1, 1]
     want = ct.prune_flat(w.cpu(), seg.cpu(), n_zero.cpu(), S,
                          return_mask=return_mask)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
@@ -467,19 +563,21 @@ def _finetune(cfg, weights, data, out, *extra):
 def test_finetune_iterate_magnitude_launches_topk_per_round(cuda_device,
                                                             tmp_path):
     """Two magnitude rounds recompute the masks through the kernels: the
-    count kernel 32 times a round, tie count and apply once; every round's
+    radix select 5 times a round (the count kernel never), tie count and
+    apply once; every round's
     eval runs the tensor-core input stage once per batch (8 images at
     batch 4); the written weights have floor(0.75 n) zeros per conv."""
     from modelcompression_tpu_torch.models import load_weights
     cfg, weights, data, spec = _finetune_fixture(tmp_path)
-    wrappers = (ct.count_le_cuda, ct.tie_counts_cuda,
+    wrappers = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
                 ct.apply_threshold_cuda, tis.fused_conv1_pool_mma)
     n0 = [k.LAUNCHES for k in wrappers]
     out = str(tmp_path / "mag.weights")
     assert _finetune(cfg, weights, data, out, "--iterate", "0.5,0.75",
                      "--iterate-mode", "magnitude") == 0
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [64, 2, 2, 4]
+    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] \
+        == [10, 0, 2, 2, 4]
     got, seen = load_weights(out, spec)
     assert seen == 2 * 2 * 4
     for k, p in got.items():
@@ -523,19 +621,21 @@ def _nms_case(b, n, c, seed, levels=None):
 ])
 def test_bisect_prefilter_kernels_match_plain(cuda_device, b, n, c,
                                               prefilter, levels):
-    """The bisect prefilter on CUDA tensors launches count / tie-count /
-    apply 32 / 1 / 1 times and keeps exactly the plain route's set (the
-    CPU run of the same function) in the same slots."""
+    """The bisect prefilter on CUDA tensors launches radix select /
+    count / tie-count / apply 5 / 0 / 1 / 1 times and keeps exactly the
+    plain route's set (the CPU run of the same function) in the same
+    slots."""
     from modelcompression_tpu_torch.evaluation import nms as tnms
     boxes, scores = _nms_case(b, n, c, seed=n, levels=levels)
     want = tnms.batched_bisect_prefilter(boxes, scores, 0.01, prefilter)
-    kernels = (ct.count_le_cuda, ct.tie_counts_cuda, ct.apply_threshold_cuda)
+    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
+               ct.apply_threshold_cuda)
     n0 = [k.LAUNCHES for k in kernels]
     got = tnms.batched_bisect_prefilter(boxes.to(cuda_device),
                                         scores.to(cuda_device), 0.01,
                                         prefilter)
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - n for k, n in zip(kernels, n0)] == [32, 1, 1]
+    assert [k.LAUNCHES - n for k, n in zip(kernels, n0)] == [5, 0, 1, 1]
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     sel = tnms.batched_per_class_nms_prefiltered(

@@ -172,11 +172,15 @@ def test_prune_flat_matches_pallas_prune_flat(return_mask):
 def test_cuda_wrappers_refuse_cpu_tensors():
     _, bits, seg = _flat_case()
     n0 = ct.count_le_cuda.LAUNCHES
+    r0 = ct.radix_select_cuda.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
         ct.count_le_cuda(_t(bits), _t(seg), torch.zeros(3), 3)
     with pytest.raises(ValueError, match="CUDA"):
         ct.tie_counts_cuda(_t(bits), _t(seg), torch.zeros(3), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ct.radix_select_cuda(_t(bits), _t(seg), torch.zeros(3), 3)
     assert ct.count_le_cuda.LAUNCHES == n0
+    assert ct.radix_select_cuda.LAUNCHES == r0
 
 
 # ---- masks on a network ------------------------------------------------------
