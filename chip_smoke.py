@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, magnitude-prune, evaluation,
-fine-tune and YOLOv3 / YOLOv4 serving paths on one NVIDIA GPU and check
-them.
+fine-tune, YOLOv3 / YOLOv4 serving and YOLOv3 / YOLOv4 fine-tune and
+structured-prune paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -124,6 +124,38 @@ Phases, each printing JSON lines on stdout:
             fixture (5 / 0 / 1 / 1 launches a batch), both on random-weight
             YOLOv4-tiny-VOC 416, and summary of yolov4.cfg (608): each exits
             0.
+10. families_train  YOLOv4-VOC 416 (random init, seed 0, BN gammas drawn
+            uniform in [0.5, 1.5) so bn_gamma ranks are not ties; the
+            cfg's batch 64, subdivisions 8, CIoU heads) on phase 7's
+            fixture, FAST unless stated: (a) the train step alone, steady
+            ms and img/s, peak memory without and with remat, a profiler
+            window of one step; one step at batch 2 card vs CPU in float64
+            (every gradient within 1e-4 of its max) and BITMATCH (the loss
+            within 1e-5 relative; the gradients' distances reported, the
+            last conv's too); remat against plain from the same
+            params with cuDNN's deterministic algorithms (loss equal,
+            params within 1e-4 of their max, two plain steps' distance
+            beside it). (b) finetune of YOLOv3-tiny-VOC for 3 steps: finite
+            losses, exactly 3 tensor-core input-stage launches at C=16 in
+            the final eval. (c) prune of YOLOv4-VOC: --mode magnitude
+            --sparsity 0.75 (exactly 5 / 0 / 1 / 1 radix / count / tie /
+            apply at S=111, the 110 convs and the padding segment; masks
+            equal to the reference backend's, floor(0.75 n) zeros per conv)
+            and the top-k kernels against their plain versions at that
+            layout, timed as in phase 3; then --mode fpgm --tied group
+            --fraction 0.5, --mode bn_gamma --target-flops 0.5 and (d)
+            --mode taylor --tied group on 2 batches of 8: no kernel launch,
+            each written model reloaded (shortcut widths aligned) and
+            served; fpgm and bn_gamma keep-sets equal card vs CPU (scores
+            within 1e-5 of a layer's largest; a change only where the
+            swapped scores tie within it, reported), Taylor scores on 2
+            batches of 2 card vs CPU within 1e-6 of the largest in float64,
+            the fp32 distances reported. (e) finetune --iterate 0.5,0.75
+            on YOLOv4-VOC: --iterate-mode magnitude (10 / 0 / 2 / 2 at
+            S=111, each round's masks and zeros checked, mask ms against
+            train seconds) and --iterate-mode l1_filter --tied group (each
+            round's checkpoint: shortcut widths aligned, each tied group
+            one width).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -854,18 +886,81 @@ def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
         thread.join(timeout=30)
 
 
+def magnitude_prune_cli(torch, kernels, cfg, spec, src, dev_params, mode,
+                        out, label):
+    """``prune --mode {magnitude|global} --sparsity 0.75 --device cuda``
+    on ``src``: exactly 5 / 0 / 1 / 1 radix / count / tie / apply
+    launches; the written weights are the params times the reference
+    (stable argsort) backend's masks on the card, which equal the kernel
+    route's, with floor(0.75 n) zeros per conv (global: of all N). The
+    written weights are then served at batch 64 (``drive_serving``'s
+    default launch rule for specs with the input stage, none without).
+    Returns the phase line's fields with ``launches`` and
+    ``launches_by_width``."""
+    from modelcompression_tpu_torch.cli import prune
+    from modelcompression_tpu_torch.compress import criteria
+    from modelcompression_tpu_torch.models import load_weights
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    from modelcompression_tpu_torch.ops import input_stage_match
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    rc = prune.main(["--cfg", cfg, "--weights", src, "--mode", mode,
+                     "--sparsity", str(SPARSITY), "--device", "cuda",
+                     "--out", out])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    widths = read_widths(kernels)
+    check(rc == 0, f"{label}: prune --mode {mode} exited {rc}")
+    want = {name: PRUNE_LAUNCHES.get(name, 0) for name, _ in kernels}
+    check(counts == want, f"{label}: prune --mode {mode}: launches "
+          f"{counts}, expected {want}")
+    per_layer = mode == "magnitude"
+    name = "perlayer" if per_layer else "global"
+    fn = getattr(ct, f"magnitude_masks_{name}")
+    ref_fn = getattr(criteria, f"magnitude_masks_{name}")
+    ref = ref_fn(dev_params, spec, SPARSITY)
+    masks = fn(dev_params, spec, SPARSITY)
+    written, _ = load_weights(out, spec)
+    for key, m in ref.items():
+        w = written[key]["w"].to(m.device)
+        check(torch.equal(masks[key], m), f"{label} {mode}: the mask of "
+              f"{key} differs from the reference backend's")
+        # the written weights are the params times that mask
+        check(torch.equal(w[m], dev_params[key]["w"][m])
+              and not w[~m].any(), f"{label} {mode}: the written weights "
+              f"of {key} are not the reference-masked params")
+    zeros = {key: int((~m).sum()) for key, m in ref.items()}
+    sizes = {key: m.numel() for key, m in ref.items()}
+    if per_layer:
+        check(all(zeros[key] == int(SPARSITY * sizes[key]) for key in ref),
+              f"{label} {mode}: per-layer zero counts")
+    else:
+        total = sum(sizes.values())
+        check(sum(zeros.values()) == int(SPARSITY * total),
+              f"{label} {mode}: {sum(zeros.values())} zeros of {total}")
+    return {"mode": mode, "sparsity": SPARSITY,
+            "achieved": sum(zeros.values()) / sum(sizes.values()),
+            "weights": sum(sizes.values()), "convs": len(sizes),
+            "launches": counts, "launches_by_width": widths,
+            "cli_s": cli_s, "masks_equal_reference": True,
+            "masks_ms": time_ms(torch, lambda: fn(
+                dev_params, spec, SPARSITY), iters=3, warmup=1),
+            "reference_masks_ms": time_ms(torch, lambda: ref_fn(
+                dev_params, spec, SPARSITY), iters=2, warmup=1),
+            "served": drive_serving(
+                torch, kernels, spec, written, f"{label} {mode}",
+                want=None if input_stage_match(spec) else {})}
+
+
 def phase_prune(torch, kernels, card, tmp):
     """The prune CLI on full-width YOLOv2-VOC in both magnitude modes, its
     launches and masks checked, then the pruned weights served. Writes the
     random weights to ``tmp``; returns each mode's launch counts, the same
     by width, and the weights' path."""
-    from modelcompression_tpu_torch.cli import prune
-    from modelcompression_tpu_torch.compress import criteria
     from modelcompression_tpu_torch.models import (
-        cfg_path, init_params, load_cfg, load_weights, params_to,
-        save_weights,
+        cfg_path, init_params, load_cfg, params_to, save_weights,
     )
-    from modelcompression_tpu_torch.ops import cuda_topk as ct
     cfg = cfg_path("yolov2-voc.cfg")
     spec = load_cfg(cfg)
     params = init_params(spec, seed=SEED)
@@ -873,55 +968,12 @@ def phase_prune(torch, kernels, card, tmp):
     launches, widths = {}, {}
     src = os.path.join(tmp, "yolov2-voc.weights")
     save_weights(src, spec, params)
-    for mode, per_layer in (("magnitude", True), ("global", False)):
-        out = os.path.join(tmp, f"{mode}.weights")
-        reset_counts(kernels)
-        t0 = time.perf_counter()
-        rc = prune.main(["--cfg", cfg, "--weights", src, "--mode", mode,
-                         "--sparsity", str(SPARSITY), "--device", "cuda",
-                         "--out", out])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        counts = read_counts(kernels)
-        widths[mode] = read_widths(kernels)
-        check(rc == 0, f"prune --mode {mode} exited {rc}")
-        want = {name: PRUNE_LAUNCHES.get(name, 0) for name, _ in kernels}
-        check(counts == want, f"prune --mode {mode}: launches {counts}, "
-              f"expected {want}")
-        launches[mode] = counts
-        name = "perlayer" if per_layer else "global"
-        fn = getattr(ct, f"magnitude_masks_{name}")
-        ref_fn = getattr(criteria, f"magnitude_masks_{name}")
-        ref = ref_fn(dev_params, spec, SPARSITY)
-        masks = fn(dev_params, spec, SPARSITY)
-        written, _ = load_weights(out, spec)
-        for key, m in ref.items():
-            w = written[key]["w"].to(m.device)
-            check(torch.equal(masks[key], m), f"{mode}: the mask of "
-                  f"{key} differs from the reference backend's")
-            # the written weights are the params times that mask
-            check(torch.equal(w[m], dev_params[key]["w"][m])
-                  and not w[~m].any(), f"{mode}: the written weights of "
-                  f"{key} are not the reference-masked params")
-        zeros = {key: int((~m).sum()) for key, m in ref.items()}
-        sizes = {key: m.numel() for key, m in ref.items()}
-        if per_layer:
-            check(all(zeros[key] == int(SPARSITY * sizes[key])
-                      for key in ref), f"{mode}: per-layer zero counts")
-        else:
-            total = sum(sizes.values())
-            check(sum(zeros.values()) == int(SPARSITY * total),
-                  f"{mode}: {sum(zeros.values())} zeros of {total}")
-        r = {"mode": mode, "sparsity": SPARSITY,
-             "achieved": sum(zeros.values()) / sum(sizes.values()),
-             "weights": sum(sizes.values()), "launches": counts,
-             "cli_s": cli_s, "masks_equal_reference": True,
-             "masks_ms": time_ms(torch, lambda: fn(
-                 dev_params, spec, SPARSITY), iters=3, warmup=1),
-             "reference_masks_ms": time_ms(torch, lambda: ref_fn(
-                 dev_params, spec, SPARSITY), iters=2, warmup=1),
-             "served": drive_serving(torch, kernels, spec, written,
-                                     f"prune {mode}")}
+    for mode in ("magnitude", "global"):
+        r = magnitude_prune_cli(torch, kernels, cfg, spec, src, dev_params,
+                                mode, os.path.join(tmp, f"{mode}.weights"),
+                                "yolov2_voc")
+        launches[mode] = r["launches"]
+        widths[mode] = r.pop("launches_by_width")
         emit({"phase": "prune", "ok": True, "card": card, **r})
     return launches, widths, src
 
@@ -955,6 +1007,16 @@ def _run_cli(torch, kernels, main, argv, label):
     print(out, end="", flush=True)
     check(rc == 0, f"{label} exited {rc}")
     return out, read_counts(kernels), read_widths(kernels), seconds
+
+
+def expect_launches(kernels, counts, at, label, want, want_at):
+    """Exactly ``want`` launches of each kernel (0 where not named), and
+    ``want_at`` of the named kernels by width."""
+    full = {name: want.get(name, 0) for name, _ in kernels}
+    check(counts == full, f"{label}: launches {counts}, expected {full}")
+    for name, by in want_at.items():
+        check(at[name] == by, f"{label}: {name} launches by width "
+              f"{at[name]}, expected {by}")
 
 
 def _first_batch_equal(torch, kernels, spec, params, samples, names):
@@ -1185,11 +1247,12 @@ def _train_batch(torch, b, seed, device, net=NET):
             torch.from_numpy(targets).to(device))
 
 
-def train_step_timing(torch, spec, params, subdivisions, net=NET):
-    """The FAST train step (the cfg's augment: jitter .3 and flip) at
-    batch 64 on a fixed device batch at ``net`` x ``net`` (416, or a
-    multi-scale size): steady ms per step from CUDA events
-    over TIMED_STEPS steps after two warm-up steps, the host's time to
+def train_step_timing(torch, spec, params, subdivisions, net=NET,
+                      remat=False, timed=TIMED_STEPS):
+    """The FAST train step (the cfg's augment: jitter and flip) at batch
+    64 on a fixed device batch at ``net`` x ``net`` (416, or a multi-scale
+    size), with or without ``remat``: steady ms per step from CUDA events
+    over ``timed`` steps after two warm-up steps, the host's time to
     enqueue them, peak device memory, and the share of the bf16 peak
     counting 3 x the conv FLOPs per image (forward, and the backward's two
     products)."""
@@ -1197,7 +1260,8 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET):
     from modelcompression_tpu_torch.train import (
         TrainConfig, TrainState, make_optimizer, make_train_step,
     )
-    config = TrainConfig.from_spec(spec, subdivisions=subdivisions)
+    config = TrainConfig.from_spec(spec, subdivisions=subdivisions,
+                                   remat=remat)
     state = TrainState.create(params_to(params, "cuda"),
                               make_optimizer(config),
                               torch.Generator().manual_seed(SEED))
@@ -1211,19 +1275,19 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET):
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         _, m = step(state, images, targets)
     end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / timed
     end.synchronize()
-    ms = start.elapsed_time(end) / TIMED_STEPS
+    ms = start.elapsed_time(end) / timed
     losses.append(float(m["loss"]))
     check(all(math.isfinite(v) for v in losses),
           f"train step (subdivisions {subdivisions}, {net}): losses {losses}")
     # the conv FLOPs scale with the pixels
     gflop_img = 3 * num_conv_flops(spec) * (net / NET) ** 2 / 1e9
     return {"net": net, "subdivisions": subdivisions, "batch": BATCH,
-            "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
+            "remat": remat, "timed_steps": timed, "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
             "host_enqueue_ms_per_step": enqueue_ms,
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1236,26 +1300,27 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET):
                 "precision": config.precision.name}}
 
 
-def _train_profile(torch, spec, params):
-    """A profiler window over 2 steps at subdivisions 1: device busy and
-    idle share, device operations per step, top kernels."""
+def _train_profile(torch, spec, params, subdivisions=1, steps=2):
+    """A profiler window over ``steps`` FAST steps at ``subdivisions``:
+    device busy and idle share, device operations per step, top
+    kernels."""
     from modelcompression_tpu_torch.cli._profiling import profile_window
     from modelcompression_tpu_torch.models import params_to
     from modelcompression_tpu_torch.train import (
         TrainConfig, TrainState, make_optimizer, make_train_step,
     )
-    config = TrainConfig.from_spec(spec, subdivisions=1)
+    config = TrainConfig.from_spec(spec, subdivisions=subdivisions)
     state = TrainState.create(params_to(params, "cuda"),
                               make_optimizer(config),
                               torch.Generator().manual_seed(SEED))
     step = make_train_step(spec, config)
     images, targets = _train_batch(torch, BATCH, SEED, "cuda")
     summary, _ = profile_window(lambda: step(state, images, targets),
-                                steps=2)
+                                steps=steps)
     return summary
 
 
-def step_card_vs_cpu(torch, spec, params, net=NET):
+def step_card_vs_cpu(torch, spec, params, net=NET, hold_last_conv=True):
     """One train step at batch 2 and ``net`` x ``net``, augment off,
     subdivisions 1, from the same params on the card and on the CPU: in
     BITMATCH (fp32, TF32 off) and in float64.
@@ -1269,7 +1334,9 @@ def step_card_vs_cpu(torch, spec, params, net=NET):
     reported, not held. Float64: the same step on both devices (cuDNN's
     fp64 convs on the card), where the cancellation costs nothing the
     tolerance sees: the loss within 1e-5 relative and every gradient
-    tensor within 1e-4 of its largest magnitude."""
+    tensor within 1e-4 of its largest magnitude. ``hold_last_conv=False``
+    reports the BITMATCH last conv's distance without holding it (deep
+    networks carry the batch-stat BN noise into its input)."""
     import statistics
 
     from modelcompression_tpu_torch.core.precision import BITMATCH, Precision
@@ -1321,8 +1388,9 @@ def step_card_vs_cpu(torch, spec, params, net=NET):
     rel64 = loss_rel(res["cuda_f64"], res["cpu_f64"])
     card_cpu = err(card["grads"], cpu["grads"])
     last = f"conv{spec.conv_indices()[-1]}/w"
-    check(card_cpu[last] <= STEP_GRAD_TOL, f"BITMATCH step at {net}: {last} "
-          f"differs by {card_cpu[last]} of its max |g| (> {STEP_GRAD_TOL})")
+    check(card_cpu[last] <= STEP_GRAD_TOL or not hold_last_conv,
+          f"BITMATCH step at {net}: {last} differs by {card_cpu[last]} of "
+          f"its max |g| (> {STEP_GRAD_TOL})")
     card_cpu64 = err(res["cuda_f64"]["grads"], res["cpu_f64"]["grads"])
     worst64 = max(card_cpu64, key=card_cpu64.get)
     check(card_cpu64[worst64] <= STEP_GRAD_TOL,
@@ -1353,6 +1421,75 @@ def _max_rel(a, b):
     return diff / scale if scale else diff
 
 
+def iterate_magnitude(torch, kernels, argv, spec, tmp, tag, eval_want):
+    """``finetune ... --iterate-mode magnitude --ckpt-dir``: radix select /
+    count / tie / apply launched 5 / 0 / 1 / 1 times a round at S = the
+    convs + the padding segment, with ``eval_want`` of the other kernels
+    (the rounds' evals); each round's masks (read back from its
+    checkpoint) with floor(s n) zeros per conv and its pruned weights zero
+    after the round's steps; each round's mask ms against its train
+    seconds. Returns (the phase line's fields, launches by width)."""
+    from modelcompression_tpu_torch.cli import finetune
+    from modelcompression_tpu_torch.train import loop
+    from modelcompression_tpu_torch.utils.checkpoint import load_checkpoint
+    timings = {"mask_ms": [], "train_s": []}
+    orig_mask_fn, orig_train = loop.magnitude_mask_fn, loop.train
+
+    def timed_mask_fn(mode, backend):
+        fn = orig_mask_fn(mode, backend)
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timings["mask_ms"].append((time.perf_counter() - t0) * 1e3)
+            return masks
+        return run
+
+    def timed_train(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = orig_train(*a, **kw)
+        torch.cuda.synchronize()
+        timings["train_s"].append(time.perf_counter() - t0)
+        return state
+
+    ck = os.path.join(tmp, f"ck_magnitude_{tag}")
+    label = f"{tag}: finetune --iterate magnitude"
+    loop.magnitude_mask_fn, loop.train = timed_mask_fn, timed_train
+    try:
+        _, counts, at, secs = _run_cli(
+            torch, kernels, finetune.main,
+            argv + ["--iterate-mode", "magnitude", "--ckpt-dir", ck,
+                    "--out", os.path.join(tmp, f"mag_{tag}.weights")],
+            label)
+    finally:
+        loop.magnitude_mask_fn, loop.train = orig_mask_fn, orig_train
+    n_r = len(ITER_FRACTIONS)
+    prune_want = {name: n_r * n for name, n in PRUNE_LAUNCHES.items()}
+    s_layer = len(spec.conv_indices()) + 1  # + the padding segment
+    expect_launches(kernels, counts, at, label, dict(prune_want, **eval_want),
+                    {name: {s_layer: n} for name, n in prune_want.items()})
+    rounds = []
+    for ridx, frac in enumerate(ITER_FRACTIONS):
+        _, saved, meta = load_checkpoint(os.path.join(ck,
+                                                      f"step_{ridx:08d}"))
+        check(meta["fraction"] == frac, f"{label}: round {ridx} meta {meta}")
+        for k, m in saved["weight_masks"].items():
+            check(int((~m).sum()) == int(frac * m.numel()),
+                  f"{label}: round {ridx}: {k} has {int((~m).sum())} zeros "
+                  f"in its mask, expected {int(frac * m.numel())}")
+            check(not saved["params"][k]["w"][~m].any(),
+                  f"{label}: round {ridx}: {k} has a pruned weight off zero")
+        rounds.append({"fraction": frac, "mask_ms": timings["mask_ms"][ridx],
+                       "train_s": timings["train_s"][ridx],
+                       "map50": meta["metrics"]["map50"]})
+    shutil.rmtree(ck)
+    return ({"steps_per_round": ITER_STEPS, "segments": s_layer,
+             "seconds": secs, "rounds": rounds, "launches": counts}, at)
+
+
 def phase_finetune(torch, kernels, card, tmp, data, weights):
     """The fine-tune and train CLIs on full-width YOLOv2-VOC and the 160-
     image fixture (module docstring, phase 8). Returns each path's launch
@@ -1362,7 +1499,6 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
     from modelcompression_tpu_torch.models import (
         cfg_path, load_cfg, load_weights,
     )
-    from modelcompression_tpu_torch.train import loop
     from modelcompression_tpu_torch.utils.checkpoint import (
         latest_checkpoint, load_checkpoint,
     )
@@ -1393,13 +1529,6 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
         emit({"phase": "finetune", "part": key, "card": card,
               key: r[key]})
 
-    def expect(counts, at, label, want, want_at):
-        full = {name: want.get(name, 0) for name, _ in kernels}
-        check(counts == full, f"{label}: launches {counts}, expected {full}")
-        for name, by in want_at.items():
-            check(at[name] == by, f"{label}: {name} launches by width "
-                  f"{at[name]}, expected {by}")
-
     # (a) single pass on phase 6's magnitude-pruned weights
     pruned = os.path.join(tmp, "magnitude.weights")
     out_a = os.path.join(tmp, "ft.weights")
@@ -1411,9 +1540,9 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
         "finetune --preserve-sparsity")
     widths["finetune"] = at
     c1 = spec.layers[0].filters
-    expect(counts, at, "finetune --preserve-sparsity",
-           {"input_stage_mma": n_batches},
-           {"input_stage_mma": {c1: n_batches}})
+    expect_launches(kernels, counts, at, "finetune --preserve-sparsity",
+                    {"input_stage_mma": n_batches},
+                    {"input_stage_mma": {c1: n_batches}})
     losses = [rec["loss"] for rec in _read_jsonl(log_a)]
     check(losses and all(math.isfinite(v) for v in losses),
           f"finetune: logged losses {losses}")
@@ -1434,66 +1563,12 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
                         "map50_pct": _map_line(out)[0], "launches": counts}
 
     # (b) magnitude iterate, each round's masks timed and checked
-    timings = {"mask_ms": [], "train_s": []}
-    orig_mask_fn, orig_train = loop.magnitude_mask_fn, loop.train
-
-    def timed_mask_fn(mode, backend):
-        fn = orig_mask_fn(mode, backend)
-
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            masks = fn(*a, **kw)
-            torch.cuda.synchronize()
-            timings["mask_ms"].append((time.perf_counter() - t0) * 1e3)
-            return masks
-        return run
-
-    def timed_train(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = orig_train(*a, **kw)
-        torch.cuda.synchronize()
-        timings["train_s"].append(time.perf_counter() - t0)
-        return state
-
-    ck_b = os.path.join(tmp, "ck_magnitude")
     iterate = ["--steps", str(ITER_STEPS), "--iterate",
                ",".join(map(str, ITER_FRACTIONS))]
-    loop.magnitude_mask_fn, loop.train = timed_mask_fn, timed_train
-    try:
-        out, counts, at, secs = _run_cli(
-            torch, kernels, finetune.main,
-            base + ["--weights", weights, *iterate, "--iterate-mode",
-                    "magnitude", "--ckpt-dir", ck_b,
-                    "--out", os.path.join(tmp, "mag.weights")],
-            "finetune --iterate magnitude")
-    finally:
-        loop.magnitude_mask_fn, loop.train = orig_mask_fn, orig_train
-    widths["iterate_magnitude"] = at
     n_r = len(ITER_FRACTIONS)
-    prune_want = {name: n_r * n for name, n in PRUNE_LAUNCHES.items()}
-    s_layer = len(spec.conv_indices()) + 1  # + the padding segment
-    expect(counts, at, "finetune --iterate magnitude",
-           dict(prune_want, input_stage_mma=n_r * n_batches),
-           {name: {s_layer: n} for name, n in prune_want.items()})
-    rounds = []
-    for ridx, frac in enumerate(ITER_FRACTIONS):
-        _, saved, meta = load_checkpoint(os.path.join(ck_b,
-                                                      f"step_{ridx:08d}"))
-        check(meta["fraction"] == frac, f"round {ridx} meta {meta}")
-        for k, m in saved["weight_masks"].items():
-            check(int((~m).sum()) == int(frac * m.numel()),
-                  f"round {ridx}: {k} has {int((~m).sum())} zeros in its "
-                  f"mask, expected {int(frac * m.numel())}")
-            check(not saved["params"][k]["w"][~m].any(),
-                  f"round {ridx}: {k} has a pruned weight off zero")
-        rounds.append({"fraction": frac, "mask_ms": timings["mask_ms"][ridx],
-                       "train_s": timings["train_s"][ridx],
-                       "map50": meta["metrics"]["map50"]})
-    r["iterate_magnitude"] = {"steps_per_round": ITER_STEPS,
-                              "seconds": secs, "rounds": rounds,
-                              "launches": counts}
+    r["iterate_magnitude"], widths["iterate_magnitude"] = iterate_magnitude(
+        torch, kernels, base + ["--weights", weights, *iterate], spec, tmp,
+        "yolov2", {"input_stage_mma": n_r * n_batches})
 
     # (c) filter iterate: the evals run the input stage at each width
     out, counts, at, secs = _run_cli(
@@ -1503,9 +1578,9 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
         "finetune --iterate l1_filter")
     widths["iterate_l1_filter"] = at
     c_rounds = [int(round(c1 * (1 - f))) for f in ITER_FRACTIONS]
-    expect(counts, at, "finetune --iterate l1_filter",
-           {"input_stage_mma": n_r * n_batches},
-           {"input_stage_mma": {c: n_batches for c in c_rounds}})
+    expect_launches(kernels, counts, at, "finetune --iterate l1_filter",
+                    {"input_stage_mma": n_r * n_batches},
+                    {"input_stage_mma": {c: n_batches for c in c_rounds}})
     slim = load_cfg(os.path.join(tmp, "slim.cfg"))
     check(slim.layers[0].filters == c_rounds[-1],
           f"slim cfg conv1 filters {slim.layers[0].filters}")
@@ -1533,7 +1608,7 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
             out, counts, at, train_s[label] = _run_cli(
                 torch, kernels, train_cli.main, t_base + extra,
                 f"train ({label})")
-            expect(counts, at, f"train ({label})", {}, {})
+            expect_launches(kernels, counts, at, f"train ({label})", {}, {})
     finally:
         torch.backends.cudnn.deterministic = False
     widths["train_resume"] = at
@@ -1808,6 +1883,376 @@ def phase_families(torch, kernels, card, tmp, data):
     return widths, topk
 
 
+# the families-train phase: YOLOv4-VOC trained, pruned and iterated at
+# its cfg's size (416, 20 classes, batch 64 in 8 micro-batches, CIoU), and
+# YOLOv3-tiny-VOC fine-tuned (its evals through the tensor-core input stage)
+V3_TINY_VOC_CFG = "yolov3-tiny-voc.cfg"
+FAMILY_TIMED_STEPS = 3
+FILTER_FRACTION = 0.5
+FLOP_TARGET = 0.5
+TAYLOR_BATCHES, TAYLOR_BATCH = 2, 8
+TAYLOR_F64_BATCH = 2
+FPGM_SCORE_TOL = 1e-5    # card vs CPU, of the largest score of a layer
+TAYLOR_F64_TOL = 1e-6    # float64 card vs CPU, of the largest score
+
+
+def _random_gammas(torch, params, seed):
+    """The BN scales drawn uniform in [0.5, 1.5) from a seeded generator:
+    the init's all-ones gammas would make every bn_gamma rank a tie."""
+    gen = torch.Generator().manual_seed(seed)
+    for p in params.values():
+        if "gamma" in p:
+            p["gamma"] = torch.rand(p["gamma"].shape, generator=gen) + 0.5
+    return params
+
+
+def remat_against_plain(torch, spec, params):
+    """One FAST step at batch 64 and the cfg's subdivisions from the same
+    params and draws, plain twice and with remat, with cuDNN's
+    deterministic algorithms: the loss must be equal, and the params
+    within 1e-4 of each tensor's largest magnitude of the plain run's
+    (the backward's atomic adds, in the channels-last maxpool and the
+    upsample, sum in any order, so two plain steps differ too: their
+    distance is reported beside remat's)."""
+    from modelcompression_tpu_torch.models import params_to
+    from modelcompression_tpu_torch.train import (
+        TrainConfig, TrainState, make_optimizer, make_train_step,
+    )
+    images, targets = _train_batch(torch, BATCH, SEED + 5, "cuda")
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, False, True):
+            config = TrainConfig.from_spec(spec, remat=remat)
+            state = TrainState.create(params_to(params, "cuda"),
+                                      make_optimizer(config),
+                                      torch.Generator().manual_seed(SEED))
+            state, m = make_train_step(spec, config)(state, images, targets)
+            runs.append((float(m["loss"]),
+                         {f"{k}/{n}": v.detach()
+                          for k, p in state["params"].items()
+                          for n, v in p.items()}))
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, p0), (l1, p1), (lr, pr) = runs
+
+    def worst(a, b):
+        return max(_max_rel(a[k], b[k]) for k in b)
+    check(l0 == l1 == lr, f"remat: losses plain {l0}, {l1}, remat {lr}")
+    err = worst(pr, p0)
+    check(err <= STEP_GRAD_TOL, f"remat: params differ from the plain "
+          f"step's by {err} of their max (> {STEP_GRAD_TOL})")
+    return {"loss": l0, "params_max_err_over_max": err,
+            "plain_vs_plain_max_err_over_max": worst(p1, p0),
+            "bit_equal_tensors": sum(torch.equal(pr[k], p0[k]) for k in p0),
+            "tensors": len(p0)}
+
+
+def _score_gap(card, cpu):
+    """Largest |card - CPU| of each layer (or group) over its largest CPU
+    score, and the worst."""
+    import numpy as np
+    rel = {str(i): float(np.abs(np.asarray(card[i], np.float64)
+                                - np.asarray(cpu[i], np.float64)).max()
+                         / max(np.abs(np.asarray(cpu[i])).max(), 1e-30))
+           for i in cpu}
+    return rel, max(rel.values())
+
+
+def _keep_changes(card, cpu):
+    """Convs whose keep-sets differ card vs CPU, with how many filters."""
+    import numpy as np
+    return {str(i): int(len(np.setxor1d(card[i], cpu[i])))
+            for i in cpu if not np.array_equal(card[i], cpu[i])}
+
+
+def structured_card_vs_cpu(torch, spec, params, mode):
+    """The keep-sets of ``prune --mode fpgm --tied group --fraction 0.5``
+    or ``--mode bn_gamma --target-flops 0.5``, built from the same params
+    on the card and on the CPU: the scores (filter, tied-group and CSP)
+    within FPGM_SCORE_TOL of each layer's largest (bn_gamma: equal, they
+    are the gammas), and the keep-sets equal. FPGM: a keep-set change is
+    allowed only where the scores it swapped lie within that tolerance of
+    each other (a tie), and is reported."""
+    import numpy as np
+    from modelcompression_tpu_torch import compress as tc
+    from modelcompression_tpu_torch.models import params_to
+    out, keeps, scores = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        p = params_to(params, dev)
+        t0 = time.perf_counter()
+        sc = {"filter": tc.filter_scores_device(p, spec, mode),
+              "group": tc.tied_group_scores_device(p, spec, mode),
+              "csp": {i: s for i, (_, s) in tc.csp_balanced_scores_device(
+                  p, spec, mode).items()}}
+        if mode == "fpgm":
+            keeps[dev] = tc.uniform_filter_fraction_keep_sets(
+                spec, p, FILTER_FRACTION, criterion=mode, tied="group")
+        else:
+            keeps[dev], sched = tc.flop_targeted_keep_sets(
+                spec, sc["filter"], FLOP_TARGET,
+                csp_scores=tc.csp_balanced_scores_device(p, spec, mode))
+            out["schedule_convs"] = len(sched)
+        out[f"{dev}_s"] = time.perf_counter() - t0
+        scores[dev] = sc
+    tol = FPGM_SCORE_TOL if mode == "fpgm" else 0.0
+    for kind in scores["cpu"]:
+        rel, worst = _score_gap(scores["cuda"][kind], scores["cpu"][kind]) \
+            if scores["cpu"][kind] else ({}, 0.0)
+        check(worst <= tol, f"{mode}: {kind} scores card vs CPU differ by "
+              f"{worst} of the largest (> {tol})")
+        out[f"{kind}_scores_max_err_over_max"] = worst
+    changes = _keep_changes(keeps["cuda"], keeps["cpu"])
+    if changes:
+        check(mode == "fpgm", f"{mode}: keep-sets differ card vs CPU "
+              f"{changes}")
+        # each conv's rank key: its own scores, its tied group's or (CSP
+        # source) its balanced scores
+        key = dict(scores["cpu"]["filter"])
+        key.update(scores["cpu"]["csp"])
+        key.update({i: s for g, s in scores["cpu"]["group"].items()
+                    for i in g})
+        for i in changes:  # each swap must be a tie within the tolerance
+            sc = np.asarray(key[int(i)])
+            swapped = np.setxor1d(keeps["cuda"][int(i)],
+                                  keeps["cpu"][int(i)])
+            check(np.ptp(sc[swapped]) <= 2 * tol * np.abs(sc).max(),
+                  f"{mode}: conv {i} keep-set change is not a tie")
+    out["keep_set_changes"] = changes
+    out["pruned_convs"] = len(keeps["cpu"])
+    return out, keeps["cuda"]
+
+
+def taylor_card_vs_cpu(torch, spec, params, data):
+    """Taylor scores with tied groups (``taylor_scores_with_groups``) on
+    TAYLOR_BATCHES batches of TAYLOR_F64_BATCH fixture images, from the
+    same params on the card and on the CPU: in float64 within
+    TAYLOR_F64_TOL of each layer's (group's) largest score; in fp32
+    (BITMATCH) the card-vs-CPU and fp32-vs-float64 distances reported."""
+    import itertools
+
+    from modelcompression_tpu_torch.compress import taylor_scores_with_groups
+    from modelcompression_tpu_torch.core.precision import BITMATCH, Precision
+    from modelcompression_tpu_torch.data.voc import (
+        load_list_dataset, read_data_cfg,
+    )
+    from modelcompression_tpu_torch.train.loader import BatchLoader
+    f64 = Precision(name="float64", compute_dtype=torch.float64,
+                    param_dtype=torch.float64)
+    samples = load_list_dataset(read_data_cfg(data)["train"])
+    loader = BatchLoader(samples, TAYLOR_F64_BATCH, NET, NET, seed=SEED,
+                         device="cpu")
+    # normalized once, on the CPU, so both devices get the same floats
+    # (step_card_vs_cpu: the card's uint8 / 255 is one ulp off the CPU's in
+    # about half the pixels, which moves gradients at random init)
+    batches = [(images.float() / 255.0, targets) for images, targets in
+               itertools.islice(iter(loader), TAYLOR_BATCHES)]
+    res = {}
+    for label, dev, prec in (("cuda_f64", "cuda", f64),
+                             ("cpu_f64", "cpu", f64),
+                             ("cuda_fp32", "cuda", BITMATCH),
+                             ("cpu_fp32", "cpu", BITMATCH)):
+        p = {k: {n: v.to(dev, prec.param_dtype) for n, v in q.items()}
+             for k, q in params.items()}
+        t0 = time.perf_counter()
+        untied, groups = taylor_scores_with_groups(p, spec, batches,
+                                                   precision=prec)
+        res[label] = ({str(i): s for i, s in untied.items()}
+                      | {str(g): s for g, s in groups.items()},
+                      time.perf_counter() - t0)
+    rel64, worst64 = _score_gap(res["cuda_f64"][0], res["cpu_f64"][0])
+    check(worst64 <= TAYLOR_F64_TOL, f"taylor float64 card vs CPU: "
+          f"{worst64} of the largest score (> {TAYLOR_F64_TOL})")
+    _, worst32 = _score_gap(res["cuda_fp32"][0], res["cpu_fp32"][0])
+    to64 = {d: _score_gap(res[f"{d}_fp32"][0], res["cpu_f64"][0])[1]
+            for d in ("cuda", "cpu")}
+    return {"batches": TAYLOR_BATCHES, "batch": TAYLOR_F64_BATCH,
+            "scored": len(rel64), "f64_max_err_over_max": worst64,
+            "fp32_card_vs_cpu_max_err_over_max": worst32,
+            "fp32_vs_f64_max_err_over_max": to64,
+            "seconds": {k: v[1] for k, v in res.items()}}
+
+
+def _shortcuts_aligned(spec):
+    """Each [shortcut] adds two inputs of one width."""
+    from modelcompression_tpu_torch.models.cfg import (
+        ShortcutLayer, out_channels,
+    )
+    oc = out_channels(spec)
+    return all(oc[i - 1] == oc[l.from_layer]
+               for i, l in enumerate(spec.layers)
+               if isinstance(l, ShortcutLayer))
+
+
+def spec_gflop(spec):
+    from modelcompression_tpu_torch.models import num_conv_flops
+    return num_conv_flops(spec) / 1e9
+
+
+def phase_families_train(torch, kernels, card, tmp, data):
+    """Fine-tune and structured-prune the YOLOv3 / YOLOv4 families (module
+    docstring, phase 10). Returns each path's launches by kernel width and
+    the top-k kernel case at YOLOv4-VOC's per-layer layout."""
+    from modelcompression_tpu_torch.cli import finetune, prune
+    from modelcompression_tpu_torch.compress import tied_conv_groups
+    from modelcompression_tpu_torch.models import (
+        cfg_path, init_params, load_cfg, load_weights, params_to,
+        save_weights,
+    )
+    from modelcompression_tpu_torch.utils.checkpoint import load_checkpoint
+    t_phase = time.perf_counter()
+    widths = {}
+    n_batches = -(-EVAL_IMAGES // BATCH)
+
+    def done(part, **fields):
+        emit({"phase": "families_train", "ok": True, "part": part,
+              "card": card, **fields})
+
+    cfg = cfg_path(FAMILY_CFG)
+    spec = load_cfg(cfg)
+    check({spec.layers[i].iou_loss for i in spec.head_indices()}
+          == {"ciou"}, "yolov4-voc.cfg heads are not CIoU")
+    params = _random_gammas(torch, init_params(spec, seed=SEED), SEED)
+    sub = spec.net.subdivisions
+
+    # (a) the train step alone: timing and memory without and with remat,
+    # a profiler window, card vs CPU at batch 2, remat against plain
+    timing = [train_step_timing(torch, spec, params, sub, remat=remat,
+                                timed=FAMILY_TIMED_STEPS)
+              for remat in (False, True)]
+    done("train_step", timing=timing)
+    done("train_profile", profile=_train_profile(torch, spec, params, sub,
+                                                 steps=1))
+    done("card_vs_cpu", card_vs_cpu=step_card_vs_cpu(
+        torch, spec, params, hold_last_conv=False))
+    done("remat", remat=remat_against_plain(torch, spec, params))
+
+    # (b) finetune YOLOv3-tiny-VOC: its final eval through the tensor-core
+    # input stage at C=16, once a batch
+    v3_cfg = cfg_path(V3_TINY_VOC_CFG)
+    v3 = load_cfg(v3_cfg)
+    v3_weights = os.path.join(tmp, "yolov3-tiny-voc.weights")
+    save_weights(v3_weights, v3, init_params(v3, seed=SEED))
+    log = os.path.join(tmp, "ft_v3.jsonl")
+    _, counts, at, secs = _run_cli(
+        torch, kernels, finetune.main,
+        ["--cfg", v3_cfg, "--weights", v3_weights, "--data", data,
+         "--batch", str(BATCH), "--subdivisions", str(v3.net.subdivisions),
+         "--device", "cuda", "--steps", str(FT_STEPS), "--out",
+         os.path.join(tmp, "ft_v3.weights"), "--log-jsonl", log],
+        "finetune yolov3-tiny-voc")
+    c1 = v3.layers[0].filters
+    expect_launches(kernels, counts, at, "finetune yolov3-tiny-voc",
+                    {"input_stage_mma": n_batches},
+                    {"input_stage_mma": {c1: n_batches}})
+    widths["finetune_yolov3_tiny"] = at
+    losses = [rec["loss"] for rec in _read_jsonl(log)]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"finetune yolov3-tiny-voc: logged losses {losses}")
+    done("finetune_yolov3_tiny", steps=FT_STEPS, seconds=secs,
+         losses=losses, launches=counts)
+
+    # (c) prune YOLOv4-VOC: magnitude (S = 110 convs + padding), then the
+    # structured modes; every written model reloaded and served
+    src = os.path.join(tmp, "yolov4-voc.weights")
+    save_weights(src, spec, params)
+    dev_params = params_to(params, "cuda")
+    r = magnitude_prune_cli(torch, kernels, cfg, spec, src, dev_params,
+                            "magnitude",
+                            os.path.join(tmp, "v4_magnitude.weights"),
+                            "yolov4_voc")
+    s_layer = len(spec.conv_indices()) + 1
+    at = r.pop("launches_by_width")
+    check(all(at[name] == {s_layer: n} for name, n in PRUNE_LAUNCHES.items()),
+          f"yolov4_voc magnitude: launches by S {at}")
+    widths["prune_magnitude_yolov4"] = at
+    done("prune_magnitude", **r)
+    topk = topk_case(torch, _topk_layout(torch, spec, dev_params, True,
+                                         "random"), "random")
+    emit({"phase": "families_train", "ok": True, "kernel": "topk",
+          "card": card, **topk})
+    del dev_params
+    structured = (
+        ("fpgm", ["--tied", "group", "--fraction", str(FILTER_FRACTION)]),
+        ("bn_gamma", ["--target-flops", str(FLOP_TARGET)]),
+        ("taylor", ["--tied", "group", "--fraction", str(FILTER_FRACTION),
+                    "--data", data, "--score-batches", str(TAYLOR_BATCHES),
+                    "--batch", str(TAYLOR_BATCH)]))
+    for mode, extra in structured:
+        out = os.path.join(tmp, f"v4_{mode}.weights")
+        text, counts, at, secs = _run_cli(
+            torch, kernels, prune.main,
+            ["--cfg", cfg, "--weights", src, "--mode", mode, *extra,
+             "--device", "cuda", "--out", out], f"prune --mode {mode}")
+        expect_launches(kernels, counts, at, f"prune --mode {mode}", {}, {})
+        slim = load_cfg(os.path.join(tmp, f"v4_{mode}.cfg"))
+        slim_params, _ = load_weights(out, slim)
+        check(_shortcuts_aligned(slim), f"prune {mode}: shortcut widths")
+        tied = [i for g in tied_conv_groups(spec) for i in g]
+        rr = {"mode": mode, "flags": extra, "cli_s": secs,
+              "conv_gflop_per_img": {"before": spec_gflop(spec),
+                                     "after": spec_gflop(slim)},
+              "tied_convs_pruned": sum(slim.layers[i].filters
+                                       < spec.layers[i].filters
+                                       for i in tied),
+              "served": drive_serving(torch, kernels, slim, slim_params,
+                                      f"prune {mode}", want={})}
+        if mode == "taylor":
+            rr["card_vs_cpu"] = taylor_card_vs_cpu(torch, spec, params, data)
+        else:
+            rr["card_vs_cpu"], keep = structured_card_vs_cpu(
+                torch, spec, params, mode)
+            check(all(slim.layers[i].filters == len(k)
+                      for i, k in keep.items()),
+                  f"prune {mode}: the CLI's widths differ from the keep-sets")
+        if mode == "bn_gamma":
+            m = re.search(r"\(([0-9.]+) of base, target", text)
+            check(m and float(m.group(1)) <= FLOP_TARGET,
+                  f"prune bn_gamma: FLOP allocation line {m}")
+            rr["flop_fraction"] = float(m.group(1))
+        done(f"prune_{mode}", **rr)
+
+    # (e) finetune --iterate on YOLOv4-VOC: magnitude (the top-k kernels at
+    # S = 111 each round) and l1_filter --tied group (a repack each round,
+    # shortcut adds aligned); no input stage in the evals
+    base = ["--cfg", cfg, "--data", data, "--batch", str(BATCH),
+            "--subdivisions", str(sub), "--device", "cuda", "--weights",
+            src, "--steps", str(ITER_STEPS), "--iterate",
+            ",".join(map(str, ITER_FRACTIONS))]
+    r, widths["iterate_magnitude_yolov4"] = iterate_magnitude(
+        torch, kernels, base, spec, tmp, "yolov4", {})
+    done("iterate_magnitude", **r)
+    ck = os.path.join(tmp, "ck_l1_yolov4")
+    _, counts, at, secs = _run_cli(
+        torch, kernels, finetune.main,
+        base + ["--iterate-mode", "l1_filter", "--tied", "group",
+                "--ckpt-dir", ck, "--out",
+                os.path.join(tmp, "v4_iter_l1.weights")],
+        "finetune --iterate l1_filter --tied group")
+    expect_launches(kernels, counts, at, "iterate l1_filter --tied group",
+                    {}, {})
+    rounds = []
+    for ridx, frac in enumerate(ITER_FRACTIONS):
+        rspec, saved, meta = load_checkpoint(os.path.join(
+            ck, f"step_{ridx:08d}"))
+        check(_shortcuts_aligned(rspec), f"iterate round {ridx}: shortcut "
+              "widths differ")
+        groups = tied_conv_groups(spec)
+        widths_g = [{rspec.layers[i].filters for i in g} for g in groups]
+        check(all(len(w) == 1 for w in widths_g), f"iterate round {ridx}: "
+              f"tied widths {widths_g}")
+        rounds.append({"fraction": frac, "map50": meta["metrics"]["map50"],
+                       "gflop_per_img": spec_gflop(rspec),
+                       "tied_group_widths": [w.pop() for w in widths_g]})
+    shutil.rmtree(ck)
+    done("iterate_l1_tied_group", seconds=secs, rounds=rounds,
+         launches=counts)
+    emit({"phase": "families_train", "ok": True, "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return widths, topk
+
+
 TOPK_ENTRIES = (
     ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
     ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
@@ -1817,7 +2262,8 @@ TOPK_ENTRIES = (
 
 
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
-                   ft_widths, fam_widths, fam_topk):
+                   ft_widths, fam_widths, fam_topk, train_widths,
+                   train_topk):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -1849,7 +2295,11 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     forward, fp32) and the top-k kernels at S=64 (the bisect prefilter
     over YOLOv4-VOC's 64 x 10,647 candidates; the radix entry's
     ``library_ms`` is torch.topk of the 128 best per image, the whole
-    selection)."""
+    selection). The families-train phase adds the top-k kernels at
+    YOLOv4-VOC's per-layer layout (S=111: 110 convs and the padding
+    segment, 63,973,472 weights; no single PyTorch call computes the
+    per-layer select), and every entry counts its launches on that
+    phase's paths (``families_train_launches``)."""
     def on(widths, source, width):
         return {path: at[source].get(width, 0)
                 for path, at in widths.items()}
@@ -1880,7 +2330,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "prev_max_abs_err": r["prev_max_abs_err"],
             "eval_launches": on_eval(source, c_out),
             "finetune_launches": on_finetune(source, c_out),
-            "families_launches": on(fam_widths, source, c_out)})
+            "families_launches": on(fam_widths, source, c_out),
+            "families_train_launches": on(train_widths, source, c_out)})
     for dtype, name, path in (
             ("bfloat16", "input_stage_mma[C=16]", "yolov3_tiny"),
             ("float32", "input_stage_f32[C=16]", "yolov3_tiny_fp32")):
@@ -1896,7 +2347,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "prev_ms": r["prev_ms"],
             "prev_max_abs_err": r["prev_max_abs_err"],
-            "families_launches": on(fam_widths, source, 16)})
+            "families_launches": on(fam_widths, source, 16),
+            "families_train_launches": on(train_widths, source, 16)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -1908,7 +2360,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "eval_launches": on_eval(YARDSTICK, 32),
         "finetune_launches": on_finetune(YARDSTICK, 32),
-        "families_launches": on(fam_widths, YARDSTICK, 32)})
+        "families_launches": on(fam_widths, YARDSTICK, 32),
+        "families_train_launches": on(train_widths, YARDSTICK, 32)})
     def topk_entry(r, key, source, body, name, launches, widths, library):
         k = r[key]
         entry = {
@@ -1945,7 +2398,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                 prune_launches[mode][source],
                 {"eval_launches": on_eval(source, s),
                  "finetune_launches": on_finetune(source, s),
-                 "families_launches": on(fam_widths, source, s)},
+                 "families_launches": on(fam_widths, source, s),
+                 "families_train_launches": on(train_widths, source, s)},
                 None if s == 24 else
                 "torch.kthvalue: the k-th |w| of the one real segment"))
     s = fam_topk["S"]
@@ -1953,9 +2407,16 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         entries.append(topk_entry(
             fam_topk, key, source, body, f"{source}[S={s},bisect]",
             fam_widths["yolov4_voc_bisect"][source].get(s, 0),
-            {"families_launches": on(fam_widths, source, s)},
+            {"families_launches": on(fam_widths, source, s),
+             "families_train_launches": on(train_widths, source, s)},
             "torch.topk of the 128 best scores per image: the whole "
             "selection"))
+    s = train_topk["S"]
+    for key, source, body in TOPK_ENTRIES:
+        entries.append(topk_entry(
+            train_topk, key, source, body, f"{source}[S={s},yolov4]",
+            train_widths["prune_magnitude_yolov4"][source].get(s, 0),
+            {"families_train_launches": on(train_widths, source, s)}, None))
     return entries
 
 
@@ -1998,9 +2459,12 @@ def main() -> int:
                                            weights)
             fam_widths, fam_topk = phase_families(torch, KERNELS, card, tmp,
                                                   data)
+            train_widths, train_topk = phase_families_train(
+                torch, KERNELS, card, tmp, data)
         emit({"kernels": kernel_entries(cases, launches, topk,
                                         prune_launches, eval_widths,
-                                        ft_widths, fam_widths, fam_topk)})
+                                        ft_widths, fam_widths, fam_topk,
+                                        train_widths, train_topk)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

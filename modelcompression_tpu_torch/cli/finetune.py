@@ -3,17 +3,21 @@ post-prune fine-tuning on --device (default cuda; a missing CUDA device is
 an error). With ``--preserve-sparsity`` the zero pattern of the loaded
 (pruned) weights becomes the fine-tune mask, so pruned weights stay
 exactly zero through training. ``--iterate 0.25,0.5,0.75`` drives the
-iterative prune -> fine-tune -> eval loop: ``l1_filter`` repacks each
-round (and writes the slimmed cfg), ``magnitude`` / ``global`` recompute
-the masks each round through the hand-written top-k kernels on CUDA.
-Each run ends with an eval (FAST, batch --batch) of the written model.
+iterative prune -> fine-tune -> eval loop: the structured modes
+``l1_filter``, ``bn_gamma``, ``fpgm`` and ``taylor`` (scores on
+--taylor-batches batches a round) repack each round (and write the
+slimmed cfg), with ``--tied group`` pruning the shortcut-tied groups of
+residual networks too; ``magnitude`` / ``global`` recompute the masks each
+round through the hand-written top-k kernels on CUDA. Every bundled cfg
+trains: [region] (YOLOv2) and [yolo] (YOLOv3 / YOLOv4, the multi-head
+loss). Each run ends with an eval (FAST, batch --batch) of the written
+model.
 
 The command lines of the JAX CLI run unchanged: its validations come
 first, with its messages and exit code 2. Not ported yet, each then
 rejected with exit code 2 naming its ROADMAP item: --gmp, --qat,
 --save-qmodel, --pack and --distill (Queue 1 item 6); --iterate-mode
-bn_gamma, fpgm, taylor and --tied group (item 5), lamp (item 6); --dp /
---tp above 1 (item 7).
+lamp (item 6); --dp / --tp above 1 (item 7).
 
 Example:
   python -m modelcompression_tpu_torch.cli.finetune --cfg slim.cfg \\
@@ -130,7 +134,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tied", default="protect",
                    choices=("protect", "group"),
                    help="residual-graph policy for the structured "
-                        "--iterate modes ('group' is not ported yet)")
+                        "--iterate modes (same knob as prune --tied): "
+                        "'protect' (default) keeps shortcut-tied convs; "
+                        "'group' prunes each tied group with ONE shared "
+                        "keep-set ranked by group-summed scores")
+    p.add_argument("--taylor-batches", type=int, default=8,
+                   help="--iterate-mode taylor: training batches per round "
+                        "the gate-gradient filter scores average over")
     p.add_argument("--mask-backend", default=DEFAULT_MASK_BACKEND,
                    choices=MASK_BACKENDS,
                    help="magnitude/global mask implementation for "
@@ -214,8 +224,7 @@ def _not_ported(args) -> str | None:
             ("--distill", args.distill, 6),
             ("--dp", args.dp > 1, 7), ("--tp", args.tp > 1, 7),
             (f"--iterate-mode {mode}", mode in NOT_PORTED_MODES,
-             NOT_PORTED_MODES.get(mode)),
-            ("--tied group", args.tied == "group", 5)):
+             NOT_PORTED_MODES.get(mode))):
         if on:
             return (f"{flag} is not ported to the PyTorch package yet "
                     f"(ROADMAP Queue 1 item {item})")
@@ -283,7 +292,8 @@ def main(argv=None) -> int:
             mode=args.iterate_mode,
             rng=torch.Generator().manual_seed(args.seed), logger=logger,
             ckpt_dir=args.ckpt_dir, resume=args.resume, initial_seen=seen,
-            mask_backend=args.mask_backend, tied=args.tied)
+            mask_backend=args.mask_backend,
+            taylor_batches=args.taylor_batches, tied=args.tied)
         if not rounds:
             print("nothing to do: all rounds already checkpointed")
             return 0

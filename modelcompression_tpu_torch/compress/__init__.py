@@ -2,27 +2,50 @@ from modelcompression_tpu_torch.compress.backend import (
     DEFAULT_MASK_BACKEND, MASK_BACKENDS, magnitude_mask_fn,
 )
 from modelcompression_tpu_torch.compress.criteria import (
-    apply_masks, csp_balanced_keep_sets, global_threshold,
-    keep_sets_from_scores, l1_filter_keep_sets,
-    l1_filter_keep_sets_scheduled, l1_filter_scores, magnitude_mask_layer,
+    FILTER_CRITERIA, apply_masks, bn_gamma_scores_device,
+    csp_balanced_keep_sets, csp_balanced_scores_device,
+    csp_constrainable_indices, filter_scores_device, fpgm_filter_scores,
+    fpgm_scores_device, global_threshold, keep_sets_from_scores,
+    l1_filter_keep, l1_filter_keep_sets, l1_filter_keep_sets_scheduled,
+    l1_filter_scores, l1_filter_scores_device, magnitude_mask_layer,
     magnitude_masks_global, magnitude_masks_perlayer, mask_sparsity,
+    tied_group_keep_sets, tied_group_scores_device,
+)
+from modelcompression_tpu_torch.compress.flops import (
+    SCORE_NORMS, conv_flops_by_layer, flop_targeted_keep_sets,
+    total_conv_flops,
 )
 from modelcompression_tpu_torch.compress.graph import (
-    channel_source_convs, protected_conv_indices, prunable_conv_indices,
-    tied_conv_groups,
+    channel_source_convs, head_producer_convs, protected_conv_indices,
+    prunable_conv_indices, tied_conv_groups,
 )
 from modelcompression_tpu_torch.compress.repack import (
     channel_masks_from_keep, propagate_keep_sets, repack,
     uniform_filter_fraction_keep_sets,
 )
+from modelcompression_tpu_torch.compress.taylor import (
+    taylor_filter_keep_sets, taylor_filter_scores_device,
+    taylor_gate_indices, taylor_scores_all, taylor_scores_with_groups,
+)
 
 __all__ = ["DEFAULT_MASK_BACKEND", "MASK_BACKENDS", "magnitude_mask_fn",
-           "apply_masks", "csp_balanced_keep_sets", "global_threshold",
-           "keep_sets_from_scores", "l1_filter_keep_sets",
+           "FILTER_CRITERIA", "apply_masks", "bn_gamma_scores_device",
+           "csp_balanced_keep_sets", "csp_balanced_scores_device",
+           "csp_constrainable_indices", "filter_scores_device",
+           "fpgm_filter_scores", "fpgm_scores_device", "global_threshold",
+           "keep_sets_from_scores", "l1_filter_keep", "l1_filter_keep_sets",
            "l1_filter_keep_sets_scheduled", "l1_filter_scores",
-           "magnitude_mask_layer", "magnitude_masks_global",
-           "magnitude_masks_perlayer", "mask_sparsity",
-           "channel_source_convs", "protected_conv_indices",
-           "prunable_conv_indices", "tied_conv_groups",
+           "l1_filter_scores_device", "magnitude_mask_layer",
+           "magnitude_masks_global", "magnitude_masks_perlayer",
+           "mask_sparsity", "tied_group_keep_sets",
+           "tied_group_scores_device",
+           "SCORE_NORMS", "conv_flops_by_layer", "flop_targeted_keep_sets",
+           "total_conv_flops",
+           "channel_source_convs", "head_producer_convs",
+           "protected_conv_indices", "prunable_conv_indices",
+           "tied_conv_groups",
            "channel_masks_from_keep", "propagate_keep_sets", "repack",
-           "uniform_filter_fraction_keep_sets"]
+           "uniform_filter_fraction_keep_sets",
+           "taylor_filter_keep_sets", "taylor_filter_scores_device",
+           "taylor_gate_indices", "taylor_scores_all",
+           "taylor_scores_with_groups"]

@@ -1,6 +1,9 @@
 """Pruning criteria (port of ``modelcompression_tpu/compress/
-criteria.py``): per-layer and global magnitude masks, and L1 filter
-ranking with ``criterion='l1'``, ``tied='protect'``.
+criteria.py``): per-layer and global magnitude masks, and structured filter
+scores and keep-sets under the criteria ``l1`` (Li et al. 2017),
+``bn_gamma`` (Liu et al. 2017 network slimming) and ``fpgm`` (He et al.
+2019 geometric median), with split-balanced CSP keep-sets and shortcut-tied
+group keep-sets.
 
 Masks and keep-sets are rank-based: the floor(fraction*n) lowest entries
 are pruned, ties broken by index (lowest pruned first), so results are
@@ -8,7 +11,8 @@ exact and deterministic. The magnitude masks here are the stable-argsort
 definition of the rule, the reference that ``ops/cuda_topk.py`` is held
 against. Kernels here are OIHW, so a filter is ``w[o]``; magnitude ranks
 run over the JAX package's HWIO flat order (``ops/topk_mask.hwio_flat``),
-which is what decides ties.
+which is what decides ties. Filter scores are computed on the params'
+device and read back once per call.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from modelcompression_tpu_torch.compress.graph import (
     csp_split_constraints, grouped_route_protected_convs,
-    head_producer_convs, protected_conv_indices, tied_conv_groups,
+    grouped_route_source_convs, head_producer_convs, protected_conv_indices,
+    tied_conv_groups,
 )
 from modelcompression_tpu_torch.models.cfg import ConvLayer, NetworkSpec
 from modelcompression_tpu_torch.models.darknet import Params, conv_key
@@ -92,11 +97,7 @@ def apply_masks(params: Params, masks: Dict[str, torch.Tensor]) -> Params:
     return out
 
 
-def _check_criterion(criterion: str) -> None:
-    if criterion != "l1":
-        raise NotImplementedError(
-            f"filter criterion {criterion!r} is not ported yet — only 'l1' "
-            "(ROADMAP Queue 1 item 5: bn_gamma, fpgm)")
+FILTER_CRITERIA = ("l1", "bn_gamma", "fpgm")
 
 
 def l1_filter_scores(w_oihw: torch.Tensor) -> torch.Tensor:
@@ -105,14 +106,100 @@ def l1_filter_scores(w_oihw: torch.Tensor) -> torch.Tensor:
     return w_oihw.float().abs().sum(dim=(1, 2, 3))
 
 
+def _to_host(scores: Dict[int, torch.Tensor]) -> Dict[int, np.ndarray]:
+    """One copy to the host for a whole score map."""
+    if not scores:
+        return {}
+    keys = list(scores)
+    flat = torch.cat([scores[i].detach().reshape(-1) for i in keys]).cpu() \
+        .numpy()
+    sizes = np.cumsum([0] + [scores[i].numel() for i in keys])
+    return {i: flat[sizes[n]:sizes[n + 1]] for n, i in enumerate(keys)}
+
+
+def _scored_convs(spec: NetworkSpec, skip: Sequence[int]):
+    protected = set(skip) | protected_conv_indices(spec)
+    return [i for i in spec.conv_indices() if i not in protected]
+
+
 def l1_filter_scores_device(params: Params, spec: NetworkSpec,
                             skip: Sequence[int] = ()
                             ) -> Dict[int, np.ndarray]:
     """Filter scores of every prunable conv (head producers, shortcut-tied
     and grouped-route convs, and ``skip`` are protected), as numpy."""
-    protected = set(skip) | protected_conv_indices(spec)
-    return {i: l1_filter_scores(params[conv_key(i)]["w"]).cpu().numpy()
-            for i in spec.conv_indices() if i not in protected}
+    return _to_host({i: l1_filter_scores(params[conv_key(i)]["w"])
+                     for i in _scored_convs(spec, skip)})
+
+
+def bn_gamma_scores_device(params: Params, spec: NetworkSpec,
+                           skip: Sequence[int] = ()
+                           ) -> Dict[int, np.ndarray]:
+    """Network-slimming filter scores (Liu et al. 2017): |gamma| of each
+    conv's BN scale, the importance ``TrainConfig.bn_l1`` trains toward
+    zero. Convs without BN fall back to their L1 filter score divided by
+    its largest value, so mixed cfgs still get a full keep-set map.
+    Protection as ``l1_filter_scores_device``."""
+    out = {}
+    for i in _scored_convs(spec, skip):
+        p = params[conv_key(i)]
+        if spec.layers[i].batch_normalize:
+            out[i] = p["gamma"].float().abs()
+        else:
+            l1 = l1_filter_scores(p["w"])
+            out[i] = l1 / torch.clamp_min(l1.max(), 1e-12)
+    return _to_host(out)
+
+
+def fpgm_filter_scores(w_oihw: torch.Tensor) -> torch.Tensor:
+    """FPGM filter score (He et al. 2019, 'Filter Pruning via Geometric
+    Median'): score_j = sum_i ||F_j - F_i||_2, the summed Euclidean
+    distance from filter j to every other filter of the layer. Filters
+    with the smallest sum sit nearest the geometric median and are pruned
+    first. Returns (O,) fp32.
+
+    The distances come from one Gram product, ||a||^2 + ||b||^2 - 2ab,
+    which cancels for near-identical filters (exactly what FPGM ranks): the
+    product runs in fp32 with TF32 off for this call, whatever the process
+    settings (the JAX package runs it at Precision.HIGHEST). A filter's
+    distance to itself is set to 0: the Gram form leaves the square root of
+    its rounding there, up to ~sqrt(D * 2^-23) * ||F_j||, which the JAX
+    package keeps in its sums."""
+    x = w_oihw.float().reshape(w_oihw.shape[0], -1)  # (O, D)
+    sq = torch.sum(x * x, dim=1)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gram = torch.matmul(x, x.T)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
+    d2.fill_diagonal_(0.0)
+    return torch.sum(torch.sqrt(torch.clamp_min(d2, 0.0)), dim=1)
+
+
+def fpgm_scores_device(params: Params, spec: NetworkSpec,
+                       skip: Sequence[int] = ()
+                       ) -> Dict[int, np.ndarray]:
+    """All prunable convs' FPGM distance-sum scores, read back once.
+    Protection as ``l1_filter_scores_device``."""
+    return _to_host({i: fpgm_filter_scores(params[conv_key(i)]["w"])
+                     for i in _scored_convs(spec, skip)})
+
+
+def filter_scores_device(params: Params, spec: NetworkSpec,
+                         criterion: str = "l1",
+                         skip: Sequence[int] = ()
+                         ) -> Dict[int, np.ndarray]:
+    """Structured filter scores under ``criterion``: ``l1``, ``bn_gamma``
+    or ``fpgm``."""
+    if criterion == "l1":
+        return l1_filter_scores_device(params, spec, skip=skip)
+    if criterion == "bn_gamma":
+        return bn_gamma_scores_device(params, spec, skip=skip)
+    if criterion == "fpgm":
+        return fpgm_scores_device(params, spec, skip=skip)
+    raise ValueError(
+        f"unknown filter criterion {criterion!r} (one of {FILTER_CRITERIA})")
 
 
 def _keep_from_scores(scores: np.ndarray, fraction: float) -> np.ndarray:
@@ -144,13 +231,44 @@ def keep_sets_from_scores(scores: Dict[int, np.ndarray],
             for i, s in scores.items()}
 
 
+def l1_filter_keep(w_oihw: torch.Tensor, fraction: float) -> np.ndarray:
+    """Keep-set of one conv: drop the floor(fraction*O) lowest-L1
+    filters."""
+    return _keep_from_scores(l1_filter_scores(w_oihw).cpu().numpy(),
+                             fraction)
+
+
 def l1_filter_keep_sets(params: Params, spec: NetworkSpec, fraction: float,
                         skip: Sequence[int] = (),
                         criterion: str = "l1") -> Dict[int, np.ndarray]:
-    """Keep-sets for all prunable convs at one drop fraction."""
-    _check_criterion(criterion)
-    scores = l1_filter_scores_device(params, spec, skip=skip)
+    """Keep-sets for all prunable convs at one drop fraction, ranked by
+    ``criterion`` (``l1`` | ``bn_gamma`` | ``fpgm``)."""
+    scores = filter_scores_device(params, spec, criterion=criterion,
+                                  skip=skip)
     return {i: _keep_from_scores(s, fraction) for i, s in scores.items()}
+
+
+def _criterion_scores(params: Params, spec: NetworkSpec, idxs,
+                      criterion: str) -> Dict[int, np.ndarray]:
+    """Float64 per-filter scores for an explicit conv-index list (no
+    protection filtering) under a data-free criterion: the scoring pass
+    behind the tied-group and CSP keep-sets, read back once. ``bn_gamma``
+    takes |gamma| where BN exists, else the L1 score over its largest."""
+    if criterion not in FILTER_CRITERIA:
+        raise ValueError(
+            f"unknown filter criterion {criterion!r} "
+            f"(one of {FILTER_CRITERIA})")
+    score = fpgm_filter_scores if criterion == "fpgm" else l1_filter_scores
+    out = {i: s.astype(np.float64) for i, s in _to_host(
+        {i: score(params[conv_key(i)]["w"]) for i in idxs}).items()}
+    if criterion == "bn_gamma":
+        for i in out:
+            if spec.layers[i].batch_normalize:
+                out[i] = np.abs(params[conv_key(i)]["gamma"].detach().cpu()
+                                .numpy().astype(np.float64))
+            else:
+                out[i] = out[i] / max(float(out[i].max()), 1e-12)
+    return out
 
 
 def l1_filter_keep_sets_scheduled(params: Params, spec: NetworkSpec,
@@ -163,7 +281,6 @@ def l1_filter_keep_sets_scheduled(params: Params, spec: NetworkSpec,
     conv layer index to its drop fraction; unlisted prunable convs use
     ``default``. Balance-constrainable CSP grouped-route source convs take
     their fraction per split block (``csp_balanced_keep_from_scores``)."""
-    _check_criterion(criterion)
     for i in fractions:
         # a bad index is a ValueError like every other malformed schedule
         # (a negative one would alias from the end)
@@ -172,9 +289,11 @@ def l1_filter_keep_sets_scheduled(params: Params, spec: NetworkSpec,
                 f"conv index {i} out of range [0, {len(spec.layers) - 1}]")
         if not isinstance(spec.layers[i], ConvLayer):
             raise ValueError(f"layer {i} is not a conv layer")
-    scores = l1_filter_scores_device(params, spec, skip=skip)
-    csp = csp_constrainable_indices(spec, skip)
-    unknown = set(fractions) - set(scores) - set(csp)
+    scores = filter_scores_device(params, spec, criterion=criterion,
+                                  skip=skip)
+    csp_scores = csp_balanced_scores_device(params, spec,
+                                            criterion=criterion, skip=skip)
+    unknown = set(fractions) - set(scores) - set(csp_scores)
     if unknown:
         raise ValueError(
             f"fractions given for non-prunable conv indices {sorted(unknown)}"
@@ -182,9 +301,9 @@ def l1_filter_keep_sets_scheduled(params: Params, spec: NetworkSpec,
             "grouped-route convs are protected — compress/graph.py)")
     out = {i: _keep_from_scores(s, fractions.get(i, default))
            for i, s in scores.items()}
-    out.update({i: csp_balanced_keep_from_scores(
-                    _csp_scores(params, i), parts, fractions.get(i, default))
-                for i, parts in csp.items()})
+    out.update({i: csp_balanced_keep_from_scores(s, parts,
+                                                 fractions.get(i, default))
+                for i, (parts, s) in csp_scores.items()})
     return out
 
 
@@ -200,10 +319,23 @@ def csp_constrainable_indices(spec: NetworkSpec,
     return {i: p for i, p in constraints.items() if i not in protected}
 
 
+def csp_balanced_scores_device(params: Params, spec: NetworkSpec,
+                               criterion: str = "l1",
+                               skip: Sequence[int] = ()
+                               ) -> Dict[int, tuple]:
+    """``{conv_idx: (n_parts, (O,) float64 scores)}`` for the
+    balance-constrainable CSP source convs: the FLOP-budget allocator's
+    ``csp_scores`` input."""
+    constraints = csp_constrainable_indices(spec, skip)
+    scores = _criterion_scores(params, spec, sorted(constraints), criterion)
+    return {i: (constraints[i], scores[i]) for i in constraints}
+
+
 def csp_balanced_keep_from_scores(scores: np.ndarray, parts: int,
                                   fraction: float) -> np.ndarray:
-    """Split-BALANCED keep-set: rank within each of ``parts`` contiguous
-    blocks and drop ``fraction`` per block."""
+    """Split-balanced keep-set: rank within each of ``parts`` contiguous
+    blocks and drop ``fraction`` per block, so every block loses the same
+    count and the repacked slice boundary stays between blocks."""
     block = len(scores) // parts
     if block * parts != len(scores):
         raise ValueError(f"{len(scores)} filters not divisible by {parts} "
@@ -218,15 +350,50 @@ def csp_balanced_keep_sets(params: Params, spec: NetworkSpec,
                            criterion: str = "l1") -> Dict[int, np.ndarray]:
     """Split-balanced keep-sets of the CSP grouped-route source convs
     (empty for graphs without grouped routes, e.g. YOLOv2)."""
-    _check_criterion(criterion)
-    constraints = csp_constrainable_indices(spec, skip)
-    return {i: csp_balanced_keep_from_scores(_csp_scores(params, i), parts,
-                                             fraction)
-            for i, parts in constraints.items()}
+    return {i: csp_balanced_keep_from_scores(s, parts, fraction)
+            for i, (parts, s) in csp_balanced_scores_device(
+                params, spec, criterion=criterion, skip=skip).items()}
 
 
-def _csp_scores(params: Params, i: int) -> np.ndarray:
-    """L1 scores of a CSP source conv, float64 as the JAX package ranks
-    them."""
-    return l1_filter_scores(params[conv_key(i)]["w"]).cpu().numpy() \
-        .astype(np.float64)
+def tied_group_scores_device(params: Params, spec: NetworkSpec,
+                             criterion: str = "l1",
+                             skip: Sequence[int] = ()
+                             ) -> Dict[tuple, np.ndarray]:
+    """Group-summed per-filter scores of every fully unprotected
+    shortcut-tied group: ``{tuple(sorted member conv idxs): (O,)
+    float64}``. A channel is cheap to drop only if it is unimportant in
+    every member feeding the [shortcut] adds. Groups holding a
+    head-producing, grouped-route source or ``skip`` conv stay
+    protected."""
+    protected = (head_producer_convs(spec)
+                 | grouped_route_source_convs(spec) | set(skip))
+    groups = [sorted(g) for g in tied_conv_groups(spec)
+              if not (g & protected)]
+    sc = _criterion_scores(params, spec, [i for g in groups for i in g],
+                           criterion)
+    out: Dict[tuple, np.ndarray] = {}
+    for g in groups:
+        widths = {spec.layers[i].filters for i in g}
+        if len(widths) != 1:
+            raise ValueError(
+                f"tied group {g} mixes filter counts {widths}: the cfg's "
+                "channel validation should have rejected this network")
+        out[tuple(g)] = np.sum([sc[i] for i in g], axis=0)
+    return out
+
+
+def tied_group_keep_sets(params: Params, spec: NetworkSpec,
+                         fraction: float, skip: Sequence[int] = (),
+                         criterion: str = "l1") -> Dict[int, np.ndarray]:
+    """One shared keep-set per shortcut-tied group, ranked by the
+    group-summed scores (Li et al. 2017 §4.2's aggressive option for
+    residual graphs): the identity paths are pruned too, identically
+    across each group, so every [shortcut] add stays channel-aligned
+    (``compress/repack.py`` checks it)."""
+    out: Dict[int, np.ndarray] = {}
+    for g, group_score in tied_group_scores_device(
+            params, spec, criterion=criterion, skip=skip).items():
+        keep = _keep_from_scores(group_score, fraction)
+        for i in g:
+            out[i] = keep
+    return out

@@ -150,19 +150,24 @@ def uniform_filter_fraction_keep_sets(spec: NetworkSpec, params: Params,
                                       tied: str = "protect"
                                       ) -> Dict[int, np.ndarray]:
     """Filter keep-sets at one drop fraction for all prunable convs
-    (head-producing convs always protected — compress/graph.py). This
-    slice ports ``criterion='l1'`` with ``tied='protect'``."""
+    (head-producing convs always protected — compress/graph.py), ranked by
+    ``criterion``: ``l1``, ``bn_gamma`` or ``fpgm``. CSP grouped-route
+    source convs prune split-balanced.
+
+    ``tied`` is the residual-graph policy (Li et al. 2017 §4.2):
+    ``protect`` leaves shortcut-tied convs unpruned; ``group`` prunes each
+    tied group with one shared keep-set ranked by group-summed scores
+    (``criteria.tied_group_keep_sets``)."""
     from modelcompression_tpu_torch.compress.criteria import (
-        csp_balanced_keep_sets, l1_filter_keep_sets,
+        csp_balanced_keep_sets, l1_filter_keep_sets, tied_group_keep_sets,
     )
     if tied not in ("protect", "group"):
         raise ValueError(f"tied must be 'protect' or 'group', got {tied!r}")
-    if tied == "group":
-        raise NotImplementedError(
-            "tied='group' (tied_group_keep_sets) is not ported yet — "
-            "ROADMAP Queue 1 item 5")
     sets = dict(l1_filter_keep_sets(params, spec, fraction, skip=skip,
                                     criterion=criterion))
     sets.update(csp_balanced_keep_sets(params, spec, fraction, skip=skip,
                                        criterion=criterion))
+    if tied == "group":
+        sets.update(tied_group_keep_sets(params, spec, fraction, skip=skip,
+                                         criterion=criterion))
     return {i: np.asarray(k) for i, k in sets.items()}

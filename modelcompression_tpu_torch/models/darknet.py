@@ -111,7 +111,10 @@ def conv_bn_act(x: torch.Tensor, p: Dict[str, torch.Tensor],
         else:
             mu = p["mean"].to(y.dtype)
             var = p["var"].to(y.dtype)
-        inv = torch.rsqrt(var.float() + BN_EPS).to(y.dtype)
+        # the rsqrt at least in fp32: bf16 widens, float64 stays float64
+        inv = torch.rsqrt(var.to(torch.promote_types(var.dtype,
+                                                     torch.float32))
+                          + BN_EPS).to(y.dtype)
         y = (y - mu[None, :, None, None]) \
             * _per_channel(p["gamma"].to(y.dtype) * inv, y.dtype) \
             + _per_channel(p["beta"], y.dtype)

@@ -9,13 +9,14 @@ until the target sparsity.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from modelcompression_tpu_torch.compress import (
     DEFAULT_MASK_BACKEND, channel_masks_from_keep, magnitude_mask_fn,
-    repack, uniform_filter_fraction_keep_sets,
+    repack, taylor_filter_keep_sets, uniform_filter_fraction_keep_sets,
 )
 from modelcompression_tpu_torch.models.cfg import NetworkSpec
 from modelcompression_tpu_torch.models.darknet import Params, params_to
@@ -28,7 +29,7 @@ from modelcompression_tpu_torch.utils.profiling import StepTimer
 
 STRUCTURED_MODES = ("l1_filter", "bn_gamma", "fpgm", "taylor")
 # modes of the JAX loop not ported yet, with their ROADMAP Queue 1 item
-NOT_PORTED_MODES = {"bn_gamma": 5, "fpgm": 5, "taylor": 5, "lamp": 6}
+NOT_PORTED_MODES = {"lamp": 6}
 
 
 def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
@@ -109,17 +110,25 @@ def iterative_prune_finetune(
         mesh=None,
         mask_backend: str = DEFAULT_MASK_BACKEND,
         distill=None,
+        taylor_batches: int = 8,
         tied: str = "protect") -> List[IterativeRound]:
     """The reference's iterative loop on the params' device.
 
     ``fractions`` is the cumulative prune schedule (e.g. 0.25, 0.5, 0.75).
-    ``l1_filter`` ranks the filters of the current (already slimmed) model
-    each round, prunes the incremental fraction and physically repacks
-    (``repack_each_round``; else channel masks), then fine-tunes the
-    smaller dense network. ``magnitude`` / ``global`` recompute the weight
-    masks each round through ``compress.magnitude_mask_fn(mode,
-    mask_backend)`` (on CUDA params, the hand-written top-k kernels) and
-    fine-tune with them.
+    The structured modes (``l1_filter`` | ``bn_gamma`` | ``fpgm`` |
+    ``taylor``) rank the filters of the current (already slimmed) model
+    each round, prune the incremental fraction and physically repack
+    (``repack_each_round``; else channel masks), then fine-tune the
+    smaller dense network. ``taylor`` measures its scores on
+    ``taylor_batches`` batches taken from ``loader``'s stream.
+    ``magnitude`` / ``global`` recompute the weight masks each round
+    through ``compress.magnitude_mask_fn(mode, mask_backend)`` (on CUDA
+    params, the hand-written top-k kernels) and fine-tune with them.
+
+    ``tied`` is the residual-graph policy of the structured modes:
+    ``protect`` leaves shortcut-tied convs unpruned; ``group`` prunes each
+    tied group with one shared keep-set ranked by group-summed scores
+    (taylor: group-summed gate gradients).
 
     ``rng`` (a ``torch.Generator``) seeds one generator per round, drawn
     before the resume skip, so a resumed run trains round i with the draws
@@ -128,8 +137,8 @@ def iterative_prune_finetune(
     latest round.
 
     Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-    item: modes bn_gamma, fpgm, taylor (Queue 1 item 5) and lamp (item 6),
-    ``tied='group'`` (item 5), ``mesh`` (item 7) and ``distill`` (item 6).
+    item: mode lamp (Queue 1 item 6), ``mesh`` (item 7) and ``distill``
+    (item 6).
     """
     if tied not in ("protect", "group"):
         raise ValueError(f"tied must be 'protect' or 'group', got {tied!r}")
@@ -143,10 +152,6 @@ def iterative_prune_finetune(
         raise NotImplementedError(
             f"iterative mode {mode!r} is not ported to the PyTorch package "
             f"yet (ROADMAP Queue 1 item {NOT_PORTED_MODES[mode]})")
-    if tied == "group":
-        raise NotImplementedError(
-            "tied='group' is not ported to the PyTorch package yet "
-            "(ROADMAP Queue 1 item 5)")
     if mesh is not None:
         raise NotImplementedError(
             "iterative_prune_finetune(mesh=...) is not ported to the "
@@ -187,11 +192,23 @@ def iterative_prune_finetune(
         if ridx < start_round:
             continue
         with torch.no_grad():
-            if mode == "l1_filter":
+            if mode in STRUCTURED_MODES:
                 # incremental fraction relative to the remaining filters
                 inc = 1.0 - (1.0 - frac) / (1.0 - prev_frac)
-                keep_sets = uniform_filter_fraction_keep_sets(
-                    spec, params, inc, tied=tied)
+                if mode == "taylor":
+                    # scores of the current (slimmed, fine-tuned) model on
+                    # training batches off the shared loader stream
+                    keep_sets = taylor_filter_keep_sets(
+                        params, spec,
+                        itertools.islice(iter(loader), taylor_batches), inc,
+                        seen=seen_running, precision=config.precision,
+                        tied=tied)
+                else:
+                    keep_sets = uniform_filter_fraction_keep_sets(
+                        spec, params, inc,
+                        criterion={"bn_gamma": "bn_gamma",
+                                   "fpgm": "fpgm"}.get(mode, "l1"),
+                        tied=tied)
                 if repack_each_round:
                     spec, params = repack(spec, params, keep_sets)
                     channel_masks = {}

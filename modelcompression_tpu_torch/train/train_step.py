@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from modelcompression_tpu_torch.core.precision import FAST, Precision
 from modelcompression_tpu_torch.data.preprocess import (
@@ -60,8 +61,11 @@ class TrainConfig:
     batch: S strided micro-batches, gradients summed and scaled by 1/S into
     one update, BN statistics per micro-batch (Darknet's semantics).
 
-    ``qat``, ``gmp`` and ``remat`` are not ported yet and raise
-    ``NotImplementedError`` naming their ROADMAP item when set."""
+    ``remat`` recomputes each trainable conv block in the backward
+    (``torch.utils.checkpoint``): about one more forward of work for the
+    activation memory of one block. ``qat`` and ``gmp`` are not ported yet
+    and raise ``NotImplementedError`` naming their ROADMAP item when
+    set."""
 
     learning_rate: float = 1e-3
     momentum: float = 0.9
@@ -107,9 +111,6 @@ class TrainConfig:
         if self.gmp is not None:
             raise _not_ported("TrainConfig.gmp (gradual magnitude "
                               "pruning)", 6)
-        if self.remat:
-            raise _not_ported("TrainConfig.remat (rematerialized conv "
-                              "blocks)", 4)
 
     @classmethod
     def from_spec(cls, spec: NetworkSpec, **overrides) -> "TrainConfig":
@@ -306,10 +307,12 @@ def _conv_block_train(y: torch.Tensor, p: Dict[str, torch.Tensor],
 def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                    precision: Precision,
                    channel_masks: Dict[int, torch.Tensor],
-                   freeze: frozenset = frozenset()):
+                   freeze: frozenset = frozenset(), remat: bool = False):
     """Training forward on NHWC ``x`` with batch statistics; returns the
     NHWC fp32 raw map and the per-conv batch (mean, var). Frozen convs run
-    inference BN on detached params, so no backward reaches them."""
+    inference BN on detached params, so no backward reaches them. With
+    ``remat`` each trainable conv block keeps only its input for the
+    backward and runs again there."""
     outputs = []
     heads = []
     batch_stats: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -322,7 +325,12 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                 y = conv_bn_act(y, {n: v.detach() for n, v in p.items()},
                                 l, precision)
             else:
-                y, stats = _conv_block_train(y, p, l, precision)
+                if remat:
+                    y, stats = torch.utils.checkpoint.checkpoint(
+                        _conv_block_train, y, p, l, precision,
+                        use_reentrant=False)
+                else:
+                    y, stats = _conv_block_train(y, p, l, precision)
                 if stats is not None:
                     batch_stats[key] = stats
             if i in channel_masks:
@@ -386,7 +394,8 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
                           if k in weight_masks else p)
                       for k, p in params.items()}
         raw, batch_stats = _forward_train(params, x, spec, config.precision,
-                                          channel_masks, freeze=freeze_keys)
+                                          channel_masks, freeze=freeze_keys,
+                                          remat=config.remat)
         metrics = detection_loss(raw, targets, spec, seen)
         md = metrics.as_dict()
         loss = metrics.loss

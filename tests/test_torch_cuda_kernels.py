@@ -448,6 +448,78 @@ def test_magnitude_masks_cuda_match_reference(cuda_device, mode):
 
 
 @pytest.mark.cuda
+def test_topk_kernels_at_yolov4_voc_layout_match_plain(cuda_device):
+    """YOLOv4-VOC's per-layer prune layout (110 convs, 63,973,472 weights,
+    S = 111 with the padding segment): the radix select past its 32 shared
+    histograms a block, the tie count and the apply at the chunk
+    ``prune_flat`` sizes to the input, each equal to its plain version on
+    the card; the whole mask equal to the reference rule, with 5 / 0 / 1 /
+    1 launches at this S."""
+    from modelcompression_tpu_torch.compress import criteria
+    from modelcompression_tpu_torch.models import (
+        init_params, params_to, yolov4_voc,
+    )
+    spec = yolov4_voc()
+    params = params_to(init_params(spec, seed=0), cuda_device)
+    keys, cat, sizes, seg, n_zero, S = ct._prune_layout(params, spec, 0.75,
+                                                        True, ())
+    assert len(keys) == 110 and sum(sizes) == 63_973_472 and S == 111
+    bits = ttm.abs_bits(cat)
+    k = (n_zero - 1).clamp_min(0)
+    _assert_radix_matches_plain(bits, seg, k, S)
+    kth, n_below = ct.radix_select_plain(bits, seg, k, S)
+    tau = torch.where(n_zero > 0, kth, 0)
+    chunk = ct.grid_chunk(bits.numel(), bits.device)
+    per_chunk = ct.tie_counts_cuda(bits, seg, tau, S, chunk)
+    assert torch.equal(per_chunk,
+                       ct.tie_counts_plain(bits, seg, tau, S, chunk))
+    pc = per_chunk.long()
+    args = (bits, seg, tau, n_zero - torch.where(n_zero > 0, n_below, 0),
+            torch.cumsum(pc.sum(0), 0) - pc.sum(0),
+            torch.cumsum(pc.sum(1), 0) - pc.sum(1), chunk)
+    ones = torch.ones_like(cat)
+    got = ct.apply_threshold_cuda(ones, *args)
+    assert torch.equal(got.view(torch.int32),
+                       ct.apply_threshold_plain(ones, *args)
+                       .view(torch.int32))
+    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
+               ct.apply_threshold_cuda)
+    before = [kn.LAUNCHES_AT[S] for kn in kernels]
+    masks = ct.magnitude_masks_perlayer(params, spec, 0.75)
+    torch.cuda.synchronize()
+    assert [kn.LAUNCHES_AT[S] - b
+            for kn, b in zip(kernels, before)] == [5, 0, 1, 1]
+    want = criteria.magnitude_masks_perlayer(params, spec, 0.75)
+    for key, m in want.items():
+        assert torch.equal(masks[key], m), key
+        assert int((~m).sum()) == int(0.75 * m.numel()), key
+
+
+@pytest.mark.cuda
+def test_fpgm_scores_keep_fp32_under_global_tf32(cuda_device):
+    """FPGM's Gram product runs with TF32 off inside the call even when
+    the process allows TF32 for matmuls, and restores the setting: the
+    scores of a YOLOv4-VOC-sized layer (1024 filters of 512 x 3 x 3) with
+    near-identical pairs stay within 1e-5 of the largest float64 score."""
+    from modelcompression_tpu_torch.compress import fpgm_filter_scores
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn((1024, 512, 3, 3), generator=gen,
+                    device=cuda_device) * 0.02
+    w[1::2] = w[0::2] + 1e-4 * torch.randn(
+        (512, 512, 3, 3), generator=gen, device=cuda_device)
+    x = w.double().reshape(1024, -1)
+    want = torch.cdist(x, x).sum(1)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fpgm_filter_scores(w)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
 def test_topk_kernels_reject_bad_inputs(cuda_device):
     w, bits, seg, n_zero, S = _topk_case("S24", cuda_device, False)
     with pytest.raises(ValueError, match="int32"):

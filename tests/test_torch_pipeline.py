@@ -296,14 +296,16 @@ def test_eval_config_new_fields_default_as_jax():
 
 
 def test_unported_criteria_raise():
+    """Every criterion and tied policy of the JAX package is ported; one
+    outside them raises ValueError, as in the JAX package."""
     _, tspec = _specs()
     params = tdn.init_params(tspec)
-    with pytest.raises(NotImplementedError, match="bn_gamma"):
+    with pytest.raises(ValueError, match="unknown filter criterion"):
         trepack.uniform_filter_fraction_keep_sets(tspec, params, 0.5,
-                                                  criterion="bn_gamma")
-    with pytest.raises(NotImplementedError, match="group"):
+                                                  criterion="lamp")
+    with pytest.raises(ValueError, match="tied must be"):
         trepack.uniform_filter_fraction_keep_sets(tspec, params, 0.5,
-                                                  tied="group")
+                                                  tied="both")
 
 
 def test_fuse_input_stage_defaults_on():

@@ -15,10 +15,13 @@ import torch
 
 from modelcompression_tpu.models.cfg import RegionLayer as JaxRegionLayer
 from modelcompression_tpu.train.region_loss import region_loss as jax_loss
-from modelcompression_tpu_torch.data.fixtures import tiny_region_cfg
+from modelcompression_tpu_torch.data.fixtures import (
+    tiny_region_cfg, tiny_yolo3_cfg,
+)
 from modelcompression_tpu_torch.models import parse_cfg
-from modelcompression_tpu_torch.models.cfg import RegionLayer, YoloLayer
+from modelcompression_tpu_torch.models.cfg import RegionLayer
 from modelcompression_tpu_torch.train import detection_loss, region_loss
+from modelcompression_tpu_torch.train.yolo_loss import yolo_loss
 from modelcompression_tpu_torch.train.region_loss import PRIOR_SEEN_CUTOFF
 
 A, C, H, W, B, M = 3, 4, 5, 6, 2, 6
@@ -133,6 +136,10 @@ def test_detection_loss_dispatch():
     b = region_loss(raw, t, spec.region, 0)
     assert all(torch.equal(x, y) for x, y in zip(
         dataclasses.astuple(a), dataclasses.astuple(b)))
-    spec.layers[-1] = YoloLayer()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        detection_loss((raw,), t, spec, 0)
+    # [yolo] specs go to the multi-head loss over the tuple of raw maps
+    v3 = parse_cfg(tiny_yolo3_cfg(num_classes=3))
+    raws = [torch.zeros((1, g, g, 2 * 8)) for g in (8, 16)]
+    a = detection_loss(raws, t, v3, 0)
+    b = yolo_loss(raws, t, v3)
+    assert all(torch.equal(x, y) for x, y in zip(
+        dataclasses.astuple(a), dataclasses.astuple(b)))

@@ -291,16 +291,20 @@ def test_iterative_l1_filter_repacks_as_jax(fixture):
 
 
 @pytest.mark.parametrize("kw, exc, item", [
-    (dict(mode="bn_gamma"), NotImplementedError, 5),
-    (dict(mode="fpgm"), NotImplementedError, 5),
-    (dict(mode="taylor"), NotImplementedError, 5),
-    (dict(mode="lamp"), NotImplementedError, 6),
-    (dict(tied="group"), NotImplementedError, 5),
-    (dict(mesh=object()), NotImplementedError, 7),
-    (dict(distill=object()), NotImplementedError, 6),
-    (dict(tied="both"), ValueError, None),
-    (dict(mode="magnitude", tied="group"), ValueError, None),
-    (dict(mode="nope"), ValueError, None),
+    # ids kept from when kw0-kw2 and kw4 were the modes and tied policy
+    # ported since
+    pytest.param(dict(mode="lamp"), NotImplementedError, 6,
+                 id="kw3-NotImplementedError-6"),
+    pytest.param(dict(mesh=object()), NotImplementedError, 7,
+                 id="kw5-NotImplementedError-7"),
+    pytest.param(dict(distill=object()), NotImplementedError, 6,
+                 id="kw6-NotImplementedError-6"),
+    pytest.param(dict(tied="both"), ValueError, None,
+                 id="kw7-ValueError-None"),
+    pytest.param(dict(mode="magnitude", tied="group"), ValueError, None,
+                 id="kw8-ValueError-None"),
+    pytest.param(dict(mode="nope"), ValueError, None,
+                 id="kw9-ValueError-None"),
 ])
 def test_iterative_rejections(fixture, kw, exc, item):
     _, tcfg = _cfgs(fixture)
@@ -383,10 +387,7 @@ NOT_PORTED = {
     "gmp": (["--gmp", "0.5"], 6), "qat": (["--qat"], 6),
     "distill": (["--distill", "t.weights"], 6), "dp": (["--dp", "2"], 7),
     "tp": (["--tp", "2"], 7),
-    "bn_gamma": (["--iterate", "0.5", "--iterate-mode", "bn_gamma"], 5),
-    "taylor": (["--iterate", "0.5", "--iterate-mode", "taylor"], 5),
     "lamp": (["--iterate", "0.5", "--iterate-mode", "lamp"], 6),
-    "tied_group": (["--iterate", "0.5", "--tied", "group"], 5),
 }
 
 

@@ -281,8 +281,7 @@ def test_lr_schedule_matches_jax(policy):
 
 
 def test_not_ported_options_name_their_item():
-    for kw, item in ((dict(qat=object()), 6), (dict(gmp=object()), 6),
-                     (dict(remat=True), 4)):
+    for kw, item in ((dict(qat=object()), 6), (dict(gmp=object()), 6)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tts.TrainConfig(**kw)
     spec = parse_cfg(tiny_region_cfg(num_classes=3, width=SIZE, height=SIZE))
