@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, magnitude-prune, evaluation,
-fine-tune, YOLOv3 / YOLOv4 serving and YOLOv3 / YOLOv4 fine-tune and
-structured-prune paths on one NVIDIA GPU and check them.
+fine-tune, YOLOv3 / YOLOv4 serving, YOLOv3 / YOLOv4 fine-tune and
+structured-prune, and int8 (PTQ and QAT) paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -150,12 +151,55 @@ Phases, each printing JSON lines on stdout:
             within 1e-5 of a layer's largest; a change only where the
             swapped scores tie within it, reported), Taylor scores on 2
             batches of 2 card vs CPU within 1e-6 of the largest in float64,
-            the fp32 distances reported. (e) finetune --iterate 0.5,0.75
+            the fp32 distances and the keep-set changes at the 0.5 cut (fp32
+            and float64) reported. (e) finetune --iterate 0.5,0.75
             on YOLOv4-VOC: --iterate-mode magnitude (10 / 0 / 2 / 2 at
             S=111, each round's masks and zeros checked, mask ms against
             train seconds) and --iterate-mode l1_filter --tied group (each
             round's checkpoint: shortcut widths aligned, each tied group
-            one width).
+            one width). Every card-vs-CPU train step (phases 8 and 10) also
+            holds its last conv's fp32 gradient on the card no farther
+            from the CPU's float64 step than the CPU's own, within 1e-4 of
+            its max |g|, and reports both distances.
+11. int8     (a) PTQ of full-width YOLOv2-VOC 416 (phase 6's weights)
+            calibrated on the first 64 fixture images (8 chunks of 8):
+            absmax (no kernel launch), then the 0.999 quantile through the
+            radix select (2 selects of 5 launches a chunk at S=33: the 32
+            layers' outputs and the input, one segment each), its
+            thresholds equal to the plain version's on one chunk, the
+            select timed. The all-int8 forward at batch 2 from one fp32
+            canvas, card vs CPU: each int8 conv's int32 sums on the card
+            bit-equal to the plain version's for the same input; every
+            layer run again on the CPU on the card's own input to it (an
+            int8 conv's codes at most one step apart, the share reported;
+            maxpool, route, reorg and upsample equal; float maps within
+            1e-5 of their largest); the two forwards end to end: every int8
+            activation at most one step apart, each raw map within what
+            its producer's input codes apart allow (|d| (*) |w_q| x
+            in_scale x s_w, plus 1e-5 of its largest). The int8
+            canvas of the device letterbox bit-equal
+            to the bf16 canvas quantized, and the forward from either equal.
+            (b) Serving at batch 64 as phase 4 with the int8 forward: the
+            unpruned model all-int8, the 75%-pruned repacked one with the
+            convs of min(Cin, Cout) >= 64 int8: no kernel launch, the int8
+            conv's card route once per int8 conv, ms, img/s and peak memory
+            beside phase 4's bf16 steps, a profiler window and the int8
+            conv's share of device time. (c) eval --int8 --save-qmodel and
+            eval --qmodel on the fixture (3 batches of 64; summaries equal,
+            throughput aside), detect --qmodel --dir on 8 fixture images,
+            the serve daemon with --qmodel as phase 5 (23 int8 convs a
+            batch). (d) YOLOv4-VOC 416 all-int8 (16 calibration images):
+            card vs CPU as in (a), every layer (shortcuts, SPP, upsamples,
+            routes) held on the card's own input; end to end held for the
+            card forward with mish taken on the CPU, the witness that
+            mish's ulp (the devices' tanh and softplus) is what makes the
+            card's own forward drift, which is reported (a code moved one
+            step moves the next conv's sums by up to 127 weight steps);
+            served at batch 64 as in (b). (e) finetune --qat --save-qmodel on YOLOv2-VOC (batch 64,
+            subdivisions 8, FAST, 3 steps): finite losses, 3 tensor-core
+            input-stage launches in the float eval, the exported artifact's
+            mAP from eval --qmodel equal to the one finetune printed; the
+            QAT train step's steady ms beside the plain step's, in turns.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -261,6 +305,13 @@ def reset_counts(kernels) -> None:
     for _, wrapper in kernels:
         wrapper.LAUNCHES = 0
         wrapper.LAUNCHES_AT.clear()
+
+
+def int8_counter():
+    """The int8 conv's card route, whose ``LAUNCHES`` / ``LAUNCHES_AT``
+    count its cuBLASLt GEMMs (not an entry of ``ops.KERNELS``)."""
+    from modelcompression_tpu_torch.ops.int8_conv import int8_conv_cuda
+    return int8_conv_cuda
 
 
 def read_counts(kernels) -> dict:
@@ -783,27 +834,30 @@ def drive_serving(torch, kernels, spec, params, label, want=None,
 
 def phase_main(torch, kernels, card):
     """Serve both models; returns each model's launch counts on the
-    serving path and on the fp32 (BITMATCH) card-vs-CPU forward."""
-    launches = {}
+    serving path and on the fp32 (BITMATCH) card-vs-CPU forward, and each
+    model's phase line."""
+    launches, lines = {}, {}
     for label, spec, params in _models(torch):
         r = drive_serving(torch, kernels, spec, params, label)
         r["cpu_reference"] = _agrees_with_cpu(torch, kernels, spec, params)
         launches[label] = r["launches"]
         launches[f"{label}_fp32"] = r["cpu_reference"]["launches"]
+        lines[label] = r
         emit({"phase": "main", "ok": True, "model": label, "card": card,
               **r})
-    return launches
+    return launches, lines
 
 
 def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
                  classes=20, extra=(), want=None, want_cfg=None,
-                 label="yolov2_voc", phase="server"):
+                 label="yolov2_voc", phase="server", int8_convs=None):
     """The serve CLI's server (``build_server``) on the card at batch 64
     with the deployment preset (``extra`` adds flags): /healthz, 8 canvases
     submitted and 2 frames posted to /detect as PNG, /stats. Each kernel of
     the serving path must launch, or with ``want`` (launches per batch)
     exactly those counts for every batch served; ``want_cfg`` holds the
-    resolved EvalConfig's fields. Returns the launches by width."""
+    resolved EvalConfig's fields; with ``int8_convs`` the int8 conv's card
+    route runs that many times a batch. Returns the launches by width."""
     import urllib.request
 
     import cv2
@@ -830,6 +884,8 @@ def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
         rng = np.random.default_rng(SEED)
         n_req, n_post = 8, 2
         reset_counts(kernels)
+        int8 = int8_counter()
+        int8.LAUNCHES = 0
         items = [state.submit(rng.integers(0, 256, (NET, NET, 3), np.uint8),
                               float(SRC_W), float(SRC_H))
                  for _ in range(n_req)]
@@ -873,9 +929,16 @@ def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
         for name in (FP32_INPUT_STAGE, YARDSTICK):
             check(counts[name] == 0, f"server: the fp32 input stage {name} "
                   f"launched {counts[name]} times")
+        int8_launches = int8.LAUNCHES
+        if int8_convs is not None:
+            check(int8_launches == stats["batches"] * int8_convs,
+                  f"server {label}: {int8_launches} int8 convs over "
+                  f"{stats['batches']} batches, expected {int8_convs} a "
+                  f"batch")
         emit({"phase": phase, "ok": True, "card": card, "server": label,
               "requests": n_req, "posted": n_post, "stats": stats,
               "launches": counts, "launches_by_width": at,
+              "int8_conv_launches": int8_launches,
               "detections_first": len(items[0].result),
               "detections_posted": posted})
         return at
@@ -1248,20 +1311,21 @@ def _train_batch(torch, b, seed, device, net=NET):
 
 
 def train_step_timing(torch, spec, params, subdivisions, net=NET,
-                      remat=False, timed=TIMED_STEPS):
+                      remat=False, timed=TIMED_STEPS, qat=None):
     """The FAST train step (the cfg's augment: jitter and flip) at batch
     64 on a fixed device batch at ``net`` x ``net`` (416, or a multi-scale
     size), with or without ``remat``: steady ms per step from CUDA events
     over ``timed`` steps after two warm-up steps, the host's time to
     enqueue them, peak device memory, and the share of the bf16 peak
     counting 3 x the conv FLOPs per image (forward, and the backward's two
-    products)."""
+    products). ``qat``: a QAT plan (``compress.qat.QATSpec``) the step
+    trains with."""
     from modelcompression_tpu_torch.models import num_conv_flops, params_to
     from modelcompression_tpu_torch.train import (
         TrainConfig, TrainState, make_optimizer, make_train_step,
     )
     config = TrainConfig.from_spec(spec, subdivisions=subdivisions,
-                                   remat=remat)
+                                   remat=remat, qat=qat)
     state = TrainState.create(params_to(params, "cuda"),
                               make_optimizer(config),
                               torch.Generator().manual_seed(SEED))
@@ -1287,7 +1351,8 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
     # the conv FLOPs scale with the pixels
     gflop_img = 3 * num_conv_flops(spec) * (net / NET) ** 2 / 1e9
     return {"net": net, "subdivisions": subdivisions, "batch": BATCH,
-            "remat": remat, "timed_steps": timed, "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
+            "remat": remat, "qat": qat is not None, "timed_steps": timed,
+            "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
             "host_enqueue_ms_per_step": enqueue_ms,
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1335,8 +1400,11 @@ def step_card_vs_cpu(torch, spec, params, net=NET, hold_last_conv=True):
     fp64 convs on the card), where the cancellation costs nothing the
     tolerance sees: the loss within 1e-5 relative and every gradient
     tensor within 1e-4 of its largest magnitude. ``hold_last_conv=False``
-    reports the BITMATCH last conv's distance without holding it (deep
-    networks carry the batch-stat BN noise into its input)."""
+    reports the BITMATCH last conv's card-vs-CPU distance without holding
+    it (deep networks carry the batch-stat BN noise into its input). Either
+    way the last conv's fp32 gradient on each device is measured against
+    the CPU's float64 step, and the card's must be no farther from it than
+    the CPU's, within STEP_GRAD_TOL of its max |g|."""
     import statistics
 
     from modelcompression_tpu_torch.core.precision import BITMATCH, Precision
@@ -1398,11 +1466,16 @@ def step_card_vs_cpu(torch, spec, params, net=NET, hold_last_conv=True):
           f"{card_cpu64[worst64]} of its max |g| (> {STEP_GRAD_TOL})")
     ref = res["cpu_f64"]["grads"]
     to_f64 = {d: err(res[d]["grads"], ref) for d in ("cuda", "cpu")}
+    last_f64 = {d: e[last] for d, e in to_f64.items()}
+    check(last_f64["cuda"] <= last_f64["cpu"] + STEP_GRAD_TOL,
+          f"BITMATCH step at {net}: {last} is {last_f64['cuda']} of its max "
+          f"|g| from float64 on the card, {last_f64['cpu']} on the CPU")
     top = sorted(card_cpu, key=card_cpu.get, reverse=True)[:3]
     return {"net": net, "loss_cpu": cpu["loss"], "loss_card": card["loss"],
             "loss_rel": rel32, "loss_f64_cpu": res["cpu_f64"]["loss"],
             "loss_f64_card": res["cuda_f64"]["loss"], "loss_f64_rel": rel64,
             "last_conv_grad_err_over_max_g": card_cpu[last],
+            "last_conv_fp32_vs_f64": last_f64,
             "f64_grad_worst": {worst64: card_cpu64[worst64]},
             "f64_grad_median": statistics.median(card_cpu64.values()),
             "grad_card_vs_cpu_worst": {k: card_cpu[k] for k in top},
@@ -2029,10 +2102,18 @@ def taylor_card_vs_cpu(torch, spec, params, data):
     TAYLOR_BATCHES batches of TAYLOR_F64_BATCH fixture images, from the
     same params on the card and on the CPU: in float64 within
     TAYLOR_F64_TOL of each layer's (group's) largest score; in fp32
-    (BITMATCH) the card-vs-CPU and fp32-vs-float64 distances reported."""
+    (BITMATCH) the card-vs-CPU and fp32-vs-float64 distances reported, and
+    the keep-sets at the CLI's 0.5 cut (each untied conv and each tied
+    group ranked on its own scores, as ``taylor_filter_keep_sets(...,
+    tied='group')``) compared card vs CPU: the filters that change, per
+    conv or group, reported in fp32 and in float64."""
     import itertools
 
+    import numpy as np
     from modelcompression_tpu_torch.compress import taylor_scores_with_groups
+    from modelcompression_tpu_torch.compress.criteria import (
+        _keep_from_scores,
+    )
     from modelcompression_tpu_torch.core.precision import BITMATCH, Precision
     from modelcompression_tpu_torch.data.voc import (
         load_list_dataset, read_data_cfg,
@@ -2067,10 +2148,22 @@ def taylor_card_vs_cpu(torch, spec, params, data):
     _, worst32 = _score_gap(res["cuda_fp32"][0], res["cpu_fp32"][0])
     to64 = {d: _score_gap(res[f"{d}_fp32"][0], res["cpu_f64"][0])[1]
             for d in ("cuda", "cpu")}
+    keeps = {label: {key: _keep_from_scores(np.asarray(sc),
+                                            FILTER_FRACTION)
+                     for key, sc in scores.items()}
+             for label, (scores, _) in res.items()}
+    changes = {prec: _keep_changes(keeps[f"cuda_{prec}"],
+                                   keeps[f"cpu_{prec}"])
+               for prec in ("fp32", "f64")}
     return {"batches": TAYLOR_BATCHES, "batch": TAYLOR_F64_BATCH,
             "scored": len(rel64), "f64_max_err_over_max": worst64,
             "fp32_card_vs_cpu_max_err_over_max": worst32,
             "fp32_vs_f64_max_err_over_max": to64,
+            "keep_fraction": FILTER_FRACTION,
+            "keep_set_changes": changes,
+            "filters_changed": {prec: sum(c.values())
+                                for prec, c in changes.items()},
+            "filters_kept": sum(len(k) for k in keeps["cpu_fp32"].values()),
             "seconds": {k: v[1] for k, v in res.items()}}
 
 
@@ -2253,6 +2346,627 @@ def phase_families_train(torch, kernels, card, tmp, data):
     return widths, topk
 
 
+INT8_CALIB_IMAGES = 64
+CALIB_QUANTILE = 0.999
+INT8_AUTO_MIN_CHANNELS = 64
+INT8_RAW_TOL = 1e-5      # card vs CPU raw maps, of the largest magnitude
+V4_CALIB_IMAGES = 16
+DETECT_QMODEL_IMAGES = 8
+
+
+@contextlib.contextmanager
+def recording_int8_convs(records):
+    """Every int8 conv ``compress.quantize.forward_quantized`` runs inside,
+    appended to ``records`` as (x_q, w_q, stride, padding, int32 sums)."""
+    from modelcompression_tpu_torch.compress import quantize as tq
+    real = tq.int8_conv
+
+    def record(x_q, w_q, stride, padding):
+        y = real(x_q, w_q, stride, padding)
+        records.append((x_q, w_q, stride, padding, y))
+        return y
+
+    tq.int8_conv = record
+    try:
+        yield
+    finally:
+        tq.int8_conv = real
+
+
+def _frames(torch, n, seed):
+    import numpy as np
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (n, SRC_H, SRC_W, 3), np.uint8))
+
+
+@contextlib.contextmanager
+def mish_on_cpu(torch):
+    """``compress.quantize``'s activations with mish taken on the CPU for a
+    card tensor (the devices' tanh and softplus differ by an ulp), every
+    other activation as it is: the witness that this ulp alone makes the
+    card's all-int8 YOLOv4 forward drift from the CPU's."""
+    from modelcompression_tpu_torch.compress import quantize as tq
+    real = tq._activate
+
+    def activate(t, kind):
+        if kind == "mish" and t.is_cuda:
+            return real(t.cpu(), kind).to(t.device)
+        return real(t, kind)
+
+    tq._activate = activate
+    try:
+        yield
+    finally:
+        tq._activate = real
+
+
+def _quantized_trace(spec, q, x):
+    """``forward_quantized`` on the float NHWC canvas ``x``, one layer at a
+    time through ``compress.quantize.quantized_layer``: every layer's
+    output and scale, and the heads' raw maps."""
+    from modelcompression_tpu_torch.compress.quantize import (
+        head_map, quantized_layer,
+    )
+    from modelcompression_tpu_torch.models.cfg import YoloLayer
+    outputs, scales, heads = [], [], []
+    y, s = x.permute(0, 3, 1, 2), None
+    for i, layer in enumerate(spec.layers):
+        y, s = quantized_layer(q, spec, i, y, s, outputs, scales)
+        if isinstance(layer, YoloLayer):
+            heads.append(head_map(y, s))
+        outputs.append(y)
+        scales.append(s)
+    return outputs, scales, heads or [head_map(y, s)]
+
+
+def int8_layer_hold(torch, spec, q_cpu, x, outputs, scales, label):
+    """Every layer of the card's int8 forward run again on the CPU on the
+    card's own input to it (and the card's earlier outputs, for routes and
+    shortcuts). An int8 conv's codes at most one step apart (its int32 sums
+    are exact on both devices, so only the fp32 epilogue and the activation
+    can move a code); a layer that only moves codes (maxpool, route, reorg,
+    upsample) equal; a float map (shortcut, a route mixing grids, a head
+    producer's raw map) within INT8_RAW_TOL of its largest; the scales
+    equal. Returns the codes differing per int8 conv and the largest float
+    error."""
+    from modelcompression_tpu_torch.compress.quantize import quantized_layer
+    from modelcompression_tpu_torch.models.cfg import ConvLayer
+    outs = [o.cpu() for o in outputs]
+    scs = [None if s is None else s.cpu() for s in scales]
+    y, s = x.cpu().permute(0, 3, 1, 2), None
+    per_conv, codes, float_rel = [], 0, 0.0
+    for i, layer in enumerate(spec.layers):
+        got, got_s = quantized_layer(q_cpu, spec, i, y, s, outs[:i], scs[:i])
+        want, want_s = outs[i], scs[i]
+        kind = f"{label}: layer {i} ({type(layer).__name__}) on the card's " \
+            f"input, card vs CPU"
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{kind}: {got.dtype} {tuple(got.shape)} against "
+              f"{want.dtype} {tuple(want.shape)}")
+        check((got_s is None) == (want_s is None)
+              and (want_s is None or torch.equal(got_s, want_s)),
+              f"{kind}: scales {got_s} and {want_s}")
+        if want_s is None:
+            rel = _max_rel(want.float(), got.float())
+            check(rel <= INT8_RAW_TOL, f"{kind}: {rel} of its largest "
+                  f"(> {INT8_RAW_TOL})")
+            float_rel = max(float_rel, rel)
+        else:
+            d = (want.int() - got.int()).abs()
+            steps = int(d.max())
+            if isinstance(layer, ConvLayer):
+                check(steps <= 1, f"{kind}: {steps} steps apart")
+                per_conv.append(int((d > 0).sum()))
+                codes += d.numel()
+            else:
+                check(steps == 0, f"{kind}: moves codes {steps} steps")
+        y, s = want, want_s
+    return {"layers_held": len(spec.layers),
+            "conv_codes_differing": sum(per_conv), "conv_codes": codes,
+            "conv_codes_differing_share": sum(per_conv) / max(codes, 1),
+            "conv_codes_differing_by_conv": per_conv,
+            "float_max_err_over_max": float_rel}
+
+
+def int8_end_to_end(torch, spec, q_cpu, int8_ids, recs, raw, ref, label,
+                    hold):
+    """The int8 forwards ``recs[label]`` / ``raw[label]`` against
+    ``recs[ref]`` / ``raw[ref]`` (the CPU's) from the same canvas: every
+    int8 conv's input codes, and each head's raw map. With ``hold``: codes
+    at most one step apart, and each raw map within its head producer's
+    bound: a one-step change of an input code moves an output by that
+    tap's |w_q| grid steps, so |d| (*) |w_q| x in_scale x s_w (d the
+    producer's input codes apart; 0 where none differ) plus INT8_RAW_TOL of
+    the largest magnitude for the fp32 epilogue."""
+    from modelcompression_tpu_torch.models import conv_key
+    from modelcompression_tpu_torch.ops.int8_conv import int8_conv_plain
+    steps, per_conv = 0, []
+    for (a, *_), (b, *_) in zip(recs[label], recs[ref]):
+        d = (a.cpu().int() - b.int()).abs()
+        steps = max(steps, int(d.max()))
+        per_conv.append(int((d > 0).sum()))
+    n_diff = sum(per_conv)
+    n_all = sum(r[0].numel() for r in recs[ref])
+    rels, excess = [], []
+    for h, got, want in zip(spec.head_indices(), raw[label], raw[ref]):
+        rels.append(_max_rel(got, want))
+        i = h - 1  # the head's producer conv, int8 in an all-int8 pytree
+        k = int8_ids.index(i)
+        x_a, x_b = recs[label][k][0].cpu(), recs[ref][k][0]
+        p = q_cpu[conv_key(i)]
+        d = (x_a.int() - x_b.int()).abs().clamp(max=127).to(torch.int8)
+        moved = int8_conv_plain(d, p["w_q"].abs(), spec.layers[i].stride,
+                                spec.layers[i].padding).double()
+        allowed = moved * (p["in_scale"].double() * p["s_w"].double()) \
+            + INT8_RAW_TOL * want.abs().max().double()
+        over = (got.double() - want.double()).abs() / allowed
+        excess.append(over.nan_to_num(nan=0.0, posinf=math.inf).max().item())
+    if hold:
+        check(steps <= 1, f"{label}: int8 activations against the CPU "
+              f"{steps} steps apart")
+        check(max(excess) <= 1, f"{label}: raw maps against the CPU "
+              f"{rels} of their largest, {excess} of the bound a code "
+              f"step allows")
+    return {"codes_max_steps": steps, "codes_differing": n_diff,
+            "codes": n_all, "codes_differing_share": n_diff / n_all,
+            "first_differing_conv": next(
+                (i for i, n in zip(int8_ids, per_conv) if n), None),
+            "codes_differing_by_conv": per_conv,
+            "raw_max_err_over_max_by_head": rels,
+            "raw_err_over_bound_by_head": excess, "held": hold}
+
+
+def int8_card_vs_cpu(torch, spec, qparams, label):
+    """The all-int8 forward at batch 2 from one float canvas (two
+    letterboxed frames, fp32), card against CPU, each int8 conv recorded.
+
+    * Every int8 conv: the card's int32 sums bit-equal to the plain
+      version's on the card for the same int8 input.
+    * Every layer (``int8_layer_hold``): the card's forward traced one
+      layer at a time (its heads equal to ``forward_quantized``'s) and
+      each layer run on the CPU on the card's own input, so the
+      shortcuts, SPP, upsamples and routes are held on the card too.
+    * End to end (``int8_end_to_end``) against the CPU's forward: held for
+      the card's own forward where the net has no mish; with mish (whose
+      ulp moves a code, and a moved code moves the next conv's sums by up
+      to 127 weight steps) held for the card's forward with mish taken on
+      the CPU (``mish_on_cpu``), and the card's own drift reported."""
+    from modelcompression_tpu_torch.compress import forward_quantized
+    from modelcompression_tpu_torch.data.preprocess import letterbox_device
+    from modelcompression_tpu_torch.models import conv_key, params_to
+    from modelcompression_tpu_torch.ops.int8_conv import int8_conv_plain
+    x = letterbox_device(_frames(torch, 2, SEED + 3), NET, NET)
+    q = {dev: params_to(qparams, dev) for dev in ("cuda", "cpu")}
+    int8_ids = [i for i in spec.conv_indices()
+                if "w_q" in qparams[conv_key(i)]]
+    mish = any(getattr(layer, "activation", None) == "mish"
+               for layer in spec.layers)
+    runs = {"cuda": ("cuda", contextlib.nullcontext()),
+            "cpu": ("cpu", contextlib.nullcontext())}
+    if mish:
+        runs["cuda_mish_on_cpu"] = ("cuda", mish_on_cpu(torch))
+    int8 = int8_counter()
+    recs, raw = {}, {}
+    for name, (dev, ctx) in runs.items():
+        recs[name] = []
+        int8.LAUNCHES = 0
+        with torch.inference_mode(), ctx, recording_int8_convs(recs[name]):
+            y = forward_quantized(q[dev], x.to(dev), spec)
+        raw[name] = [t.float().cpu() for t in
+                     (y if isinstance(y, tuple) else (y,))]
+        if name == "cuda":
+            torch.cuda.synchronize()
+            card_launches = int8.LAUNCHES
+    check(card_launches == len(recs["cuda"]) == len(recs["cpu"])
+          == len(int8_ids), f"{label}: {card_launches} card int8 convs, "
+          f"{len(recs['cuda'])} recorded, {len(int8_ids)} int8 convs in "
+          f"the pytree")
+    with torch.inference_mode():
+        for i, (x_q, w_q, st, pad, y32) in zip(int8_ids, recs["cuda"]):
+            check(torch.equal(int8_conv_plain(x_q, w_q, st, pad), y32),
+                  f"{label}: int8 conv {i}: the card route's int32 sums "
+                  f"differ from the plain version's")
+        outputs, scales, heads = _quantized_trace(spec, q["cuda"], x.cuda())
+        check(all(torch.equal(a.float().cpu(), b)
+                  for a, b in zip(heads, raw["cuda"])),
+              f"{label}: the layer-by-layer trace differs from "
+              f"forward_quantized on the card")
+        layers = int8_layer_hold(torch, spec, q["cpu"], x, outputs, scales,
+                                 label)
+        del outputs, scales, heads
+        held = "cuda_mish_on_cpu" if mish else "cuda"
+        ends = {name: int8_end_to_end(torch, spec, q["cpu"], int8_ids, recs,
+                                      raw, "cpu", name, hold=name == held)
+                for name in runs if name != "cpu"}
+    return {"int8_convs": len(int8_ids),
+            "int32_sums_bit_equal": len(recs["cuda"]),
+            "layer_by_layer": layers, "forward": ends["cuda"],
+            "forward_mish_on_cpu": ends.get("cuda_mish_on_cpu"),
+            "end_to_end_held": held}
+
+
+def quantile_select_case(torch, folded, spec, chunk):
+    """The quantile route on one calibration chunk: every layer's |a| and
+    the input's as one segment each, the two order statistics of
+    ``jnp.quantile``'s interpolation found by the radix-select kernel and
+    by its plain version on the same card tensors (equal), the thresholds
+    equal either way; the select timed (CUDA events) beside its plain
+    version, and its bound (bits and segment ids read once)."""
+    import numpy as np
+    from modelcompression_tpu_torch.compress import quantize as tq
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    with torch.inference_mode():
+        x = torch.as_tensor(chunk, device="cuda")
+        tensors = tq._calibration_outputs(folded, x, spec) + [x]
+        bits, seg = tq._abs_bits_segments(tensors)
+        sizes = [t.numel() for t in tensors]
+        low, high, lw, hw = tq._quantile_positions(sizes, CALIB_QUANTILE)
+        S = len(tensors)
+        vals, err = {}, 0
+        for name, k in (("low", low), ("high", high)):
+            kk = torch.from_numpy(k).cuda()
+            card = ct.radix_select_cuda(bits, seg, kk, S)
+            plain = ct.radix_select_plain(bits, seg, kk, S)
+            for a, b in zip(card, plain):
+                check(torch.equal(a, b), f"quantile select ({name}): the "
+                      f"radix kernel differs from its plain version")
+                err = max(err, int((a - b).abs().max()))
+            vals[name] = card[0].to(torch.int32).view(torch.float32).cpu() \
+                .numpy()
+        lo, hi = vals["low"], vals["high"]
+        want = (hi.astype(np.float64) * hw.astype(np.float64)
+                + (lo * lw).astype(np.float64)).astype(np.float32)
+        got = tq.abs_quantiles(tensors, CALIB_QUANTILE)
+        check(np.array_equal(got, want), "quantile thresholds differ from "
+              "the plain computation's")
+        kk = torch.from_numpy(low).cuda()
+        ms = time_ms(torch, lambda: ct.radix_select_cuda(bits, seg, kk, S),
+                     iters=10)
+        plain_ms = time_ms(torch, lambda: ct.radix_select_plain(
+            bits, seg, kk, S), iters=3, warmup=1)
+        pass_ms = radix_pass_ms(torch, bits, seg, kk, S)
+    n = bits.numel()
+    # one select call: bits and segment ids read once (8 B an element);
+    # each of its four histogram passes reads them again
+    b = bound(8 * n, 0, PEAK_OPS_PER_S["float32"])
+    return {"S": S, "n": n, "max_abs_err": float(err), "ms": ms,
+            "plain_ms": plain_ms, "pass_ms": pass_ms,
+            "pass_bound_ms": b["bound_ms"],
+            "four_pass_bound_ms": 4 * b["bound_ms"],
+            "thresholds_equal_plain": True, **b}
+
+
+def drive_int8_serving(torch, kernels, spec, qparams, label):
+    """The serving step of phase 4 (batch 64, 384x512 frames, device
+    letterbox, the deployment NMS) with ``forward_fn=forward_quantized`` on
+    an int8 pytree: one step with every count at 0 (no hand-written kernel
+    launches: the int8 forward has no fused input stage; the int8 conv's
+    card route once per int8 conv), outputs finite in the stated shapes,
+    then ms per batch from CUDA events, peak memory, a profiler window and
+    the int8 conv's share of device time (its GEMM alone, and with the
+    im2col and padding copies)."""
+    from modelcompression_tpu_torch.cli._profiling import profile_window
+    from modelcompression_tpu_torch.compress import forward_quantized
+    from modelcompression_tpu_torch.core.precision import FAST
+    from modelcompression_tpu_torch.evaluation import (
+        EvalConfig, make_eval_step,
+    )
+    from modelcompression_tpu_torch.models import num_conv_flops, params_to
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    images = torch.randint(0, 256, (BATCH, SRC_H, SRC_W, 3),
+                           generator=gen, device="cuda", dtype=torch.uint8)
+    img_w = torch.full((BATCH,), float(SRC_W), device="cuda")
+    img_h = torch.full((BATCH,), float(SRC_H), device="cuda")
+    cfg = EvalConfig(conf_thresh=0.01, max_detections=32, nms_prefilter=128,
+                     precision=FAST, device="cuda",
+                     forward_fn=forward_quantized)
+    q = params_to(qparams, "cuda")
+    step = make_eval_step(spec, cfg, src_hw=(SRC_H, SRC_W))
+    n_int8 = sum("w_q" in p for p in q.values())
+    int8 = int8_counter()
+    reset_counts(kernels)
+    int8.LAUNCHES = 0
+    int8.LAUNCHES_AT.clear()
+    outs = step(q, images, img_w, img_h)
+    torch.cuda.synchronize()
+    counts, at = read_counts(kernels), read_widths(kernels)
+    check(not any(counts.values()), f"{label}: kernel launches {counts} on "
+          "the int8 serving path")
+    check(int8.LAUNCHES == n_int8, f"{label}: {int8.LAUNCHES} int8 convs "
+          f"on the card, {n_int8} in the pytree")
+    c, k = spec.classes, cfg.max_detections
+    shapes = [(BATCH, c, k, 4), (BATCH, c, k), (BATCH, c, k), (BATCH, c),
+              (BATCH,)]
+    check([tuple(o.shape) for o in outs] == shapes,
+          f"{label}: output shapes {[tuple(o.shape) for o in outs]}")
+    check(all(torch.isfinite(o.float()).all().item() for o in outs[:2]),
+          f"{label}: non-finite outputs")
+    n_valid = int(outs[2].sum().item())
+    by_width = dict(int8.LAUNCHES_AT)
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: step(q, images, img_w, img_h), iters=10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof, _ = profile_window(lambda: step(q, images, img_w, img_h), steps=2)
+    return {"model": label, "int8_convs": n_int8,
+            "float_convs": len(spec.conv_indices()) - n_int8,
+            "ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
+            "peak_gib": peak, "conv_gflop_per_img": num_conv_flops(spec) / 1e9,
+            "launches": counts, "launches_by_width": at,
+            "int8_conv_launches": n_int8,
+            "int8_conv_launches_by_cout": by_width,
+            "valid_detections": n_valid, "profile": prof,
+            "int8_conv_device": int8_conv_share(
+                torch, lambda: step(q, images, img_w, img_h))}
+
+
+def int8_conv_share(torch, fn, steps=2):
+    """A profiler window over ``steps`` calls with every int8 conv inside a
+    ``record_function`` range: the device time of the int8 GEMMs
+    (``aten::_int_mm``) and of the whole conv (GEMM, im2col and padding),
+    each over the device time of all kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from modelcompression_tpu_torch.compress import quantize as tq
+    real = tq.int8_conv
+
+    def annotated(*a):
+        with record_function("int8_conv"):
+            return real(*a)
+
+    tq.int8_conv = annotated
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        tq.int8_conv = real
+    rows = prof.key_averages()
+    busy = sum(e.device_time_total for e in rows
+               if e.device_type == DeviceType.CUDA and e.key != "int8_conv")
+
+    def cpu_row(key):
+        return max((e.device_time_total for e in rows if e.key == key
+                    and e.device_type == DeviceType.CPU), default=0.0)
+
+    conv, gemm = cpu_row("int8_conv"), cpu_row("aten::_int_mm")
+    return {"busy_ms_per_step": busy / steps / 1e3,
+            "int8_conv_ms_per_step": conv / steps / 1e3,
+            "int8_gemm_ms_per_step": gemm / steps / 1e3,
+            "int8_conv_share": conv / busy if busy else 0.0,
+            "int8_gemm_share": gemm / busy if busy else 0.0}
+
+
+def _summary_lines(out):
+    """An eval summary without its throughput figures."""
+    return [re.sub(r"\s*\[.*img/s.*\]", "", ln) for ln in out.splitlines()
+            if not ln.startswith(("throughput", "wrote"))]
+
+
+def phase_int8(torch, kernels, card, tmp, data, weights, bf16):
+    """Phase 11 (module docstring): PTQ of YOLOv2-VOC, int8 serving of the
+    unpruned and the pruned model beside phase 4's bf16 steps (``bf16``:
+    their phase lines), the int8 CLIs, YOLOv4-VOC all-int8, and the QAT
+    fine-tune. Returns each path's launches by width."""
+    from modelcompression_tpu_torch.cli import detect
+    from modelcompression_tpu_torch.cli import eval as eval_cli
+    from modelcompression_tpu_torch.cli import finetune
+    from modelcompression_tpu_torch.cli.common import prep_calibration
+    from modelcompression_tpu_torch.compress import (
+        collect_act_absmax, forward_quantized, int8_layers_auto,
+        qat_spec_from_batches, quantize_from_batches, quantize_network,
+        repack, uniform_filter_fraction_keep_sets,
+    )
+    from modelcompression_tpu_torch.data import (
+        load_list_dataset, read_data_cfg,
+    )
+    from modelcompression_tpu_torch.data.preprocess import (
+        letterbox_device, quantize_canvas,
+    )
+    from modelcompression_tpu_torch.models import (
+        cfg_path, fold_batchnorm, init_params, load_cfg, load_weights,
+        params_to,
+    )
+    import numpy as np
+    cfg = cfg_path("yolov2-voc.cfg")
+    spec = load_cfg(cfg)
+    params, _ = load_weights(weights, spec)  # phase 6's, from seed 0
+    samples = load_list_dataset(read_data_cfg(data)["valid"])
+    widths = {}
+    int8 = int8_counter()
+
+    t_part = [time.perf_counter()]
+
+    def done(part, **kw):
+        now = time.perf_counter()
+        emit({"phase": "int8", "part": part, "ok": True, "card": card,
+              "part_s": now - t_part[0], **kw})
+        t_part[0] = now
+
+    # (a) PTQ of YOLOv2-VOC 416 at full width
+    _, chunks, n_cal = prep_calibration(spec, samples, INT8_CALIB_IMAGES,
+                                        "all")
+    folded = params_to(fold_batchnorm(params, spec), "cuda")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    absmax, in_max = collect_act_absmax(folded, spec, chunks)
+    torch.cuda.synchronize()
+    absmax_s = time.perf_counter() - t0
+    q_all = quantize_network(folded, spec, absmax, in_max)
+    check(not any(read_counts(kernels).values()),
+          "absmax calibration launched a kernel")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    qmax, q_in = collect_act_absmax(folded, spec, chunks,
+                                    quantile=CALIB_QUANTILE)
+    torch.cuda.synchronize()
+    quantile_s = time.perf_counter() - t0
+    counts, at = read_counts(kernels), read_widths(kernels)
+    widths["quantile_calibration"] = at
+    S = len(spec.layers) + 1
+    expect_launches(kernels, counts, at, "quantile calibration",
+                    {"topk_radix_select": 2 * SELECT_LAUNCHES * len(chunks)},
+                    {"topk_radix_select":
+                     {S: 2 * SELECT_LAUNCHES * len(chunks)}})
+    check(np.all(qmax > 0) and np.all(qmax <= absmax * (1 + 1e-6))
+          and 0 < q_in <= in_max * (1 + 1e-6),
+          "quantile thresholds not in (0, absmax]")
+    select = quantile_select_case(torch, folded, spec, chunks[0])
+    select["launches"] = counts["topk_radix_select"]
+    cvc = int8_card_vs_cpu(torch, spec, q_all, "yolov2_voc")
+    # the int8-input canvas on the card: bit-equal to the float canvas
+    # followed by the forward's quantize, and the forward alike
+    frames = _frames(torch, 2, SEED + 4).cuda()
+    qs = q_all["__net__"]["input_scale"].cuda()
+    q_dev = params_to(q_all, "cuda")
+    with torch.inference_mode():
+        xf = letterbox_device(frames, NET, NET, dtype=torch.bfloat16)
+        x8 = letterbox_device(frames, NET, NET, dtype=torch.bfloat16,
+                              quant_scale=qs)
+        check(x8.dtype == torch.int8
+              and torch.equal(x8, quantize_canvas(xf, qs)),
+              "the int8 canvas differs from the quantized float canvas")
+        check(torch.equal(forward_quantized(q_dev, x8, spec),
+                          forward_quantized(q_dev, xf, spec)),
+              "the int8-input forward differs from the float canvas's")
+    done("ptq_yolov2", calibration_images=n_cal, chunks=len(chunks),
+         absmax_calibration_s=absmax_s, quantile=CALIB_QUANTILE,
+         quantile_calibration_s=quantile_s,
+         quantile_over_absmax=[float(a) for a in qmax / np.maximum(
+             absmax, 1e-30)],
+         quantile_select=select, card_vs_cpu=cvc,
+         int8_canvas_bit_equal=True)
+
+    # (b) serving at batch 64: unpruned all-int8, 75%-pruned hybrid
+    keep = uniform_filter_fraction_keep_sets(spec, params, PRUNE_FRACTION)
+    pspec, pparams = repack(spec, params, keep)
+    sel = int8_layers_auto(pspec, min_channels=INT8_AUTO_MIN_CHANNELS)
+    # the same canvases: calibration depends on the net size only
+    q_pruned = quantize_from_batches(
+        params_to(fold_batchnorm(pparams, pspec), "cuda"), pspec, chunks,
+        int8_layers=sel)
+    for label, s_, q_ in (("unpruned_int8", spec, q_all),
+                          ("pruned_int8", pspec, q_pruned)):
+        r = drive_int8_serving(torch, kernels, s_, q_, label)
+        base = "unpruned" if label == "unpruned_int8" else "pruned75"
+        r["bf16_phase4"] = {k: bf16[base][k] for k in
+                            ("ms_per_batch", "img_per_s", "peak_gib")}
+        r["int8_over_bf16_ms"] = r["ms_per_batch"] / \
+            bf16[base]["ms_per_batch"]
+        widths[label] = r["launches_by_width"]
+        done("serving", int8_layers="all" if label == "unpruned_int8"
+             else f"auto:{INT8_AUTO_MIN_CHANNELS} {sel}", **r)
+
+    # (c) the CLIs: eval --int8 --save-qmodel, eval --qmodel, detect
+    # --qmodel --dir, the serve daemon with --qmodel
+    qpath = os.path.join(tmp, "yolov2-voc-int8.npz")
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    n_int8 = len(spec.conv_indices())
+    base = ["--cfg", cfg, "--data", data, "--batch", str(BATCH),
+            "--device", "cuda"]
+    int8.LAUNCHES = 0
+    out_i, counts, at, secs_i = _run_cli(
+        torch, kernels, eval_cli.main,
+        base + ["--weights", weights, "--int8", "--save-qmodel", qpath],
+        "eval --int8 --save-qmodel")
+    widths["eval_int8"] = at
+    expect_launches(kernels, counts, at, "eval --int8", {}, {})
+    check(int8.LAUNCHES == n_batches * n_int8,
+          f"eval --int8: {int8.LAUNCHES} int8 convs")
+    int8.LAUNCHES = 0
+    out_q, counts, at, secs_q = _run_cli(
+        torch, kernels, eval_cli.main, base + ["--qmodel", qpath],
+        "eval --qmodel")
+    widths["eval_qmodel"] = at
+    expect_launches(kernels, counts, at, "eval --qmodel", {}, {})
+    check(int8.LAUNCHES == n_batches * n_int8,
+          f"eval --qmodel: {int8.LAUNCHES} int8 convs")
+    check(_summary_lines(out_q) == _summary_lines(out_i),
+          "eval --qmodel's summary differs from eval --int8's")
+    listed = read_data_cfg(data)
+    with open(listed["valid"]) as f:
+        paths = f.read().split()
+    det_dir = os.path.join(tmp, "detect_in")
+    os.makedirs(det_dir, exist_ok=True)
+    for p in paths[:DETECT_QMODEL_IMAGES]:
+        shutil.copy(p, det_dir)
+    out_d, counts, at, secs_d = _run_cli(
+        torch, kernels, detect.main,
+        ["--cfg", cfg, "--qmodel", qpath, "--dir", det_dir, "--out-dir",
+         os.path.join(tmp, "detect_out"), "--batch", str(DETECT_QMODEL_IMAGES),
+         "--device", "cuda", "--deployment"], "detect --qmodel --dir")
+    widths["detect_qmodel"] = at
+    expect_launches(kernels, counts, at, "detect --qmodel", {}, {})
+    widths["server_qmodel"] = phase_server(
+        torch, kernels, card, extra=["--qmodel", qpath], want={},
+        label="yolov2_voc_int8", phase="int8_server", int8_convs=n_int8)
+    done("clis", eval_int8_s=secs_i, eval_qmodel_s=secs_q,
+         detect_s=secs_d, map50=_map_line(out_i)[0],
+         summaries_equal=True, artifact_bytes=os.path.getsize(qpath),
+         weights_bytes=os.path.getsize(weights))
+
+    # (d) YOLOv4-VOC 416 all-int8: card vs CPU per head, served at 64
+    v4 = load_cfg(cfg_path(FAMILY_CFG))
+    v4_params = init_params(v4, seed=SEED)
+    _, v4_chunks, _ = prep_calibration(v4, samples, V4_CALIB_IMAGES, "all")
+    t0 = time.perf_counter()
+    q_v4 = quantize_from_batches(
+        params_to(fold_batchnorm(v4_params, v4), "cuda"), v4, v4_chunks)
+    torch.cuda.synchronize()
+    v4_cal_s = time.perf_counter() - t0
+    v4_cvc = int8_card_vs_cpu(torch, v4, q_v4, "yolov4_voc")
+    r = drive_int8_serving(torch, kernels, v4, q_v4, "yolov4_voc_int8")
+    widths["yolov4_voc_int8"] = r["launches_by_width"]
+    done("yolov4_voc", calibration_s=v4_cal_s, card_vs_cpu=v4_cvc,
+         served=r)
+
+    # (e) finetune --qat --save-qmodel on YOLOv2-VOC, the cfg's batch and
+    # subdivisions, FAST
+    qat_q = os.path.join(tmp, "qat.npz")
+    log = os.path.join(tmp, "qat.jsonl")
+    int8.LAUNCHES = 0
+    out_f, counts, at, secs_f = _run_cli(
+        torch, kernels, finetune.main,
+        ["--cfg", cfg, "--data", data, "--batch", str(BATCH),
+         "--subdivisions", str(spec.net.subdivisions), "--device", "cuda",
+         "--weights", weights, "--steps", str(FT_STEPS), "--qat",
+         "--save-qmodel", qat_q, "--out", os.path.join(tmp, "qat.weights"),
+         "--log-jsonl", log], "finetune --qat --save-qmodel")
+    widths["finetune_qat"] = at
+    c1 = spec.layers[0].filters
+    expect_launches(kernels, counts, at, "finetune --qat",
+                    {"input_stage_mma": n_batches},
+                    {"input_stage_mma": {c1: n_batches}})
+    check(int8.LAUNCHES == n_batches * n_int8,
+          f"finetune --qat: {int8.LAUNCHES} int8 convs in the int8 eval")
+    losses = [rec["loss"] for rec in _read_jsonl(log)]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"finetune --qat: logged losses {losses}")
+    int8_part = out_f.split("int8 deployment (QAT grids):")
+    check(len(int8_part) == 2, "finetune --qat printed no int8 summary")
+    ft_map = _map_line(int8_part[1])[0]
+    out_e, _, _, _ = _run_cli(torch, kernels, eval_cli.main,
+                              base + ["--qmodel", qat_q],
+                              "eval --qmodel (QAT export)")
+    check(_map_line(out_e)[0] == ft_map, f"eval --qmodel of the QAT export: "
+          f"mAP {_map_line(out_e)[0]}, finetune printed {ft_map}")
+    plan = qat_spec_from_batches(params_to(params, "cuda"), spec,
+                                 chunks[:1])
+    sub = spec.net.subdivisions
+    timing = [train_step_timing(torch, spec, params, sub, qat=qat, timed=3)
+              for qat in (None, plan, plan, None)]
+    done("qat", finetune_s=secs_f, losses=losses, float_map50=_map_line(
+        int8_part[0])[0], int8_map50=ft_map, qmodel_map_equal=True,
+        step_ms={"plain": [timing[0]["step_ms"], timing[3]["step_ms"]],
+                 "qat": [timing[1]["step_ms"], timing[2]["step_ms"]]},
+        peak_gib={"plain": timing[0]["max_memory_allocated_gib"],
+                  "qat": timing[1]["max_memory_allocated_gib"]})
+    return widths, select
+
+
 TOPK_ENTRIES = (
     ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
     ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
@@ -2263,7 +2977,7 @@ TOPK_ENTRIES = (
 
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                    ft_widths, fam_widths, fam_topk, train_widths,
-                   train_topk):
+                   train_topk, int8_widths, quantile_select):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -2299,7 +3013,13 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     YOLOv4-VOC's per-layer layout (S=111: 110 convs and the padding
     segment, 63,973,472 weights; no single PyTorch call computes the
     per-layer select), and every entry counts its launches on that
-    phase's paths (``families_train_launches``)."""
+    phase's paths (``families_train_launches``). The int8 phase adds the
+    radix select at the quantile calibration's layout (one segment per
+    YOLOv2-VOC layer output and one for the input, S=33, over one chunk of
+    8 images; ``launches`` is the calibration's, two selects per chunk),
+    and every entry counts its launches on the int8 phase's paths
+    (``int8_launches``: the tensor-core input stage in the QAT
+    fine-tune's float eval, nothing on the int8 serving paths)."""
     def on(widths, source, width):
         return {path: at[source].get(width, 0)
                 for path, at in widths.items()}
@@ -2331,7 +3051,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "eval_launches": on_eval(source, c_out),
             "finetune_launches": on_finetune(source, c_out),
             "families_launches": on(fam_widths, source, c_out),
-            "families_train_launches": on(train_widths, source, c_out)})
+            "families_train_launches": on(train_widths, source, c_out),
+            "int8_launches": on(int8_widths, source, c_out)})
     for dtype, name, path in (
             ("bfloat16", "input_stage_mma[C=16]", "yolov3_tiny"),
             ("float32", "input_stage_f32[C=16]", "yolov3_tiny_fp32")):
@@ -2348,7 +3069,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "prev_ms": r["prev_ms"],
             "prev_max_abs_err": r["prev_max_abs_err"],
             "families_launches": on(fam_widths, source, 16),
-            "families_train_launches": on(train_widths, source, 16)})
+            "families_train_launches": on(train_widths, source, 16),
+            "int8_launches": on(int8_widths, source, 16)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -2361,7 +3083,9 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "eval_launches": on_eval(YARDSTICK, 32),
         "finetune_launches": on_finetune(YARDSTICK, 32),
         "families_launches": on(fam_widths, YARDSTICK, 32),
-        "families_train_launches": on(train_widths, YARDSTICK, 32)})
+        "families_train_launches": on(train_widths, YARDSTICK, 32),
+        "int8_launches": on(int8_widths, YARDSTICK, 32)})
+
     def topk_entry(r, key, source, body, name, launches, widths, library):
         k = r[key]
         entry = {
@@ -2399,7 +3123,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                 {"eval_launches": on_eval(source, s),
                  "finetune_launches": on_finetune(source, s),
                  "families_launches": on(fam_widths, source, s),
-                 "families_train_launches": on(train_widths, source, s)},
+                 "families_train_launches": on(train_widths, source, s),
+                 "int8_launches": on(int8_widths, source, s)},
                 None if s == 24 else
                 "torch.kthvalue: the k-th |w| of the one real segment"))
     s = fam_topk["S"]
@@ -2408,7 +3133,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             fam_topk, key, source, body, f"{source}[S={s},bisect]",
             fam_widths["yolov4_voc_bisect"][source].get(s, 0),
             {"families_launches": on(fam_widths, source, s),
-             "families_train_launches": on(train_widths, source, s)},
+             "families_train_launches": on(train_widths, source, s),
+             "int8_launches": on(int8_widths, source, s)},
             "torch.topk of the 128 best scores per image: the whole "
             "selection"))
     s = train_topk["S"]
@@ -2416,7 +3142,19 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         entries.append(topk_entry(
             train_topk, key, source, body, f"{source}[S={s},yolov4]",
             train_widths["prune_magnitude_yolov4"][source].get(s, 0),
-            {"families_train_launches": on(train_widths, source, s)}, None))
+            {"families_train_launches": on(train_widths, source, s),
+             "int8_launches": on(int8_widths, source, s)}, None))
+    q = quantile_select
+    entries.append({
+        "name": f"topk_radix_select[S={q['S']},quantile]", "route": "cuda",
+        "source": "modelcompression_tpu_torch/csrc/topk_radix_select.cu",
+        "replaces": "modelcompression_tpu/ops/pallas_topk.py:55",
+        "launches": q["launches"], "max_abs_err": q["max_abs_err"],
+        "ms": q["ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+        "bound_by": q["bound_by"], "library_ms": None,
+        "pass_ms": q["pass_ms"], "pass_bound_ms": q["pass_bound_ms"],
+        "four_pass_bound_ms": q["four_pass_bound_ms"], "elements": q["n"],
+        "int8_launches": on(int8_widths, "topk_radix_select", q["S"])})
     return entries
 
 
@@ -2447,7 +3185,7 @@ def main() -> int:
         phase_build(KERNELS)
         cases = phase_kernels(torch)
         topk = phase_topk_kernels(torch)
-        launches = phase_main(torch, KERNELS, card)
+        launches, main_lines = phase_main(torch, KERNELS, card)
         phase_server(torch, KERNELS, card)
         with tempfile.TemporaryDirectory() as tmp:
             prune_launches, prune_widths, weights = phase_prune(
@@ -2461,10 +3199,13 @@ def main() -> int:
                                                   data)
             train_widths, train_topk = phase_families_train(
                 torch, KERNELS, card, tmp, data)
+            int8_widths, quantile_select = phase_int8(
+                torch, KERNELS, card, tmp, data, weights, main_lines)
         emit({"kernels": kernel_entries(cases, launches, topk,
                                         prune_launches, eval_widths,
                                         ft_widths, fam_widths, fam_topk,
-                                        train_widths, train_topk)})
+                                        train_widths, train_topk,
+                                        int8_widths, quantile_select)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -4,6 +4,7 @@ subset of ``modelcompression_tpu/cli/common.py``."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -232,24 +233,41 @@ def load_model(args, seed: int = 0):
 
 
 def load_serving_model(args):
-    """``(spec, params, quantized)`` from ``--weights`` or random init.
-    ``--qmodel`` / ``--cmodel`` artifacts are not ported yet."""
-    for flag in ("qmodel", "cmodel"):
-        if getattr(args, flag, None):
-            raise ValueError(
-                f"--{flag} is not ported to the PyTorch package yet "
-                "(ROADMAP Queue 1 item 6)")
+    """``(spec, params, quantized)`` from ``--weights`` (or random init) or
+    a ``--qmodel`` int8 artifact (written by either package), whose
+    embedded architecture must match ``--cfg`` (``ValueError``
+    otherwise). ``quantized`` means params is the int8 pytree of
+    ``compress.forward_quantized``, BN-folded when it was saved.
+    ``--cmodel`` artifacts are not ported yet."""
+    if getattr(args, "qmodel", None):
+        from modelcompression_tpu_torch.compress import load_qmodel
+        params, spec = load_qmodel(args.qmodel, spec=load_cfg(
+            args.cfg, strict=getattr(args, "strict_cfg", False)))
+        return spec, params, True
+    if getattr(args, "cmodel", None):
+        raise ValueError("--cmodel is not ported to the PyTorch package "
+                         "yet (ROADMAP Queue 1 item 6e)")
     spec, params, _ = load_model(args)
     return spec, params, False
 
 
+def quantized_eval_config(cfg):
+    """A copy of the EvalConfig ``cfg`` that serves an int8 pytree: its
+    forward is ``compress.forward_quantized`` (its FAST default for any
+    float conv of a hybrid)."""
+    from modelcompression_tpu_torch.compress import forward_quantized
+    return dataclasses.replace(cfg, forward_fn=forward_quantized)
+
+
 def prepare_serving(spec, params, quantized: bool, cfg):
-    """BN-fold the params and move them to ``cfg.device``."""
-    if quantized:
-        raise ValueError("int8 serving artifacts are not ported yet "
-                         "(ROADMAP Queue 1 item 6)")
+    """The serving pytree on ``cfg.device`` and the EvalConfig to serve it
+    with: an int8 pytree as it is, with ``quantized_eval_config(cfg)``;
+    f32 params BN-folded, with ``cfg`` itself."""
     from modelcompression_tpu_torch.core.device import resolve_device
-    return params_to(fold_batchnorm(params, spec), resolve_device(cfg.device))
+    device = resolve_device(cfg.device)
+    if quantized:
+        return params_to(params, device), quantized_eval_config(cfg)
+    return params_to(fold_batchnorm(params, spec), device), cfg
 
 
 def dispatch_padded_batch(step, params, canvases, ws, hs, batch: int):
@@ -296,3 +314,36 @@ def unpack_detections(sel, scores, valid, w, h):
                          "box": [x1, y1, x2, y2]})
     dets.sort(key=lambda d: -d["score"])
     return dets
+
+
+def prep_calibration(spec, samples, n_images: int, selector: str,
+                     letterbox: bool = True, what: str = "int8"):
+    """The eval and finetune CLIs' calibration plumbing: resolve and
+    validate the conv-layer selector before any host work, then prepare
+    the first ``n_images`` images as float [0, 1] NHWC chunks of exactly
+    8 (a tail chunk is filled by cycling its own images: absmax is
+    unchanged by duplicates, a quantile sees at most 7).
+
+    Returns ``(int8_sel, chunks, n_images_used)``; raises ValueError on a
+    malformed selector or indices that are not convs."""
+    from modelcompression_tpu_torch.compress.quantize import (
+        _resolve_int8_set, resolve_int8_layers,
+    )
+    from modelcompression_tpu_torch.evaluation.pipeline import _prep_batch
+    try:
+        int8_sel = resolve_int8_layers(spec, selector)
+    except ValueError as e:
+        raise ValueError(
+            f"bad --{what}-layers selector {selector!r}: {e}") from e
+    _resolve_int8_set(spec, int8_sel)
+    n = max(1, min(n_images, len(samples)))
+    batch, _, _ = _prep_batch(samples[:n], spec.net.height, spec.net.width,
+                              letterbox=letterbox)
+    chunks = []
+    for i in range(0, batch.shape[0], 8):
+        ch = batch[i:i + 8]
+        if ch.shape[0] < 8:
+            reps = -(-8 // ch.shape[0])
+            ch = np.concatenate([ch] * reps, axis=0)[:8]
+        chunks.append(ch.astype(np.float32) / 255.0)
+    return int8_sel, chunks, n

@@ -6,9 +6,11 @@ boxes). [region] (YOLOv2) and [yolo] (YOLOv3 / YOLOv4) cfgs alike, with
 every serving NMS flag.
 
 Runs on --device (default cuda; a missing CUDA device is an error).
-Reading, drawing and writing images and video use cv2. ``--qmodel``,
-``--cmodel`` (ROADMAP Queue 1 item 6) and ``--dp`` (item 7) are not
-ported yet and exit 2.
+Reading, drawing and writing images and video use cv2. ``--qmodel``
+serves an int8 artifact (``eval --int8 --save-qmodel`` or ``finetune
+--qat --save-qmodel``, of either package) through
+``compress.forward_quantized``. ``--cmodel`` (ROADMAP Queue 1 item 6e)
+and ``--dp`` (item 7) are not ported yet and exit 2.
 
 Examples:
   python -m modelcompression_tpu_torch.cli.detect --cfg yolov2-voc.cfg \\
@@ -71,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_serving_nms_args(p)
     p.add_argument("--names", default=None, help=".names file")
     p.add_argument("--qmodel", default=None, metavar="PATH",
-                   help="int8 deployment artifact (not ported yet)")
+                   help="serve a saved int8 deployment artifact "
+                        "(eval --int8 --save-qmodel) instead of --weights")
     p.add_argument("--cmodel", default=None, metavar="PATH",
                    help="weight-sharing artifact (not ported yet)")
     return p
@@ -271,7 +274,7 @@ def main(argv=None) -> int:
     if len(names) != spec.classes:
         names = [f"class{i}" for i in range(spec.classes)]
     cfg = resolve_serving_eval_config(args, spec=spec)
-    folded = prepare_serving(spec, params, quantized, cfg)
+    folded, cfg = prepare_serving(spec, params, quantized, cfg)
     step = make_eval_step(spec, cfg)
 
     if args.dir:

@@ -9,10 +9,16 @@ the tensor-core input-stage kernel; ``--precision bitmatch`` is the fp32
 unfolded forward. ``.png`` images decode without cv2; other formats
 (VOC's JPEG) and images not at the network size need cv2.
 
-Not ported yet, each rejected with exit code 2 naming its ROADMAP item:
---int8, --qmodel, --cluster-bits, --save-qmodel, --save-cmodel, --cmodel
-and --pack (Queue 1 item 6); --dp / --tp above 1 (item 7). Every NMS
-variant of the JAX CLI runs: --exact-nms, --soft-nms (--soft-nms-sigma),
+``--int8`` quantizes the BN-folded model after the JAX CLI's recipe
+(compress/quantize.py): per-tensor activation scales calibrated on the
+first --calib-images images (absmax, or --calib-quantile through the
+radix-select kernel on CUDA), every conv int8 or the --int8-layers subset
+(the rest bf16); on CUDA each int8 conv is cuBLASLt's int8 GEMM.
+``--save-qmodel`` writes the int8 artifact, ``--qmodel`` serves one
+(written by either package). Not ported yet, each rejected with exit code
+2 naming its ROADMAP item: --cluster-bits, --save-cmodel, --cmodel and
+--pack (Queue 1 item 6e); --dp / --tp above 1 (item 7). Every NMS variant
+of the JAX CLI runs: --exact-nms, --soft-nms (--soft-nms-sigma),
 --diou-nms (--diou-beta), --nms-prefilter-impl bisect. [region] (YOLOv2)
 and [yolo] (YOLOv3 / YOLOv4) cfgs evaluate alike.
 
@@ -28,13 +34,17 @@ import sys
 
 from modelcompression_tpu_torch.cli.common import (
     add_data_args, add_model_args, add_parallel_args, load_dataset,
-    load_model,
+    load_serving_model, prep_calibration, prepare_serving,
+)
+from modelcompression_tpu_torch.compress import (
+    quantize_from_batches, save_qmodel,
 )
 from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.core.precision import get_precision
 from modelcompression_tpu_torch.evaluation import (
     EvalConfig, dump_detections, evaluate, evaluate_recall,
 )
+from modelcompression_tpu_torch.models import fold_batchnorm, params_to
 
 _NOT_PORTED = "not ported yet; rejected"
 
@@ -114,17 +124,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-dir", default=None,
                    help="write per-class detection files here")
     p.add_argument("--int8", action="store_true",
-                   help=f"post-training int8 inference ({_NOT_PORTED})")
+                   help="post-training int8 inference "
+                        "(compress/quantize.py): per-channel int8 "
+                        "weights, per-tensor int8 activations calibrated "
+                        "on the first --calib-images eval images. "
+                        "Incompatible with --precision bitmatch")
     p.add_argument("--calib-images", type=int, default=64,
                    help="images used for int8 activation calibration")
     p.add_argument("--calib-quantile", type=float, default=None,
-                   help="int8 calibration quantile (with --int8)")
+                   help="calibrate activation scales at this quantile of "
+                        "|activation| instead of the max (e.g. 0.9999 "
+                        "sheds single-pixel outliers)")
     p.add_argument("--int8-layers", default="all",
-                   help="which convs run int8 (with --int8)")
+                   help="which convs run int8 (hybrid mode): 'all', "
+                        "'auto' (min(Cin,Cout) >= 128), 'auto:K' for "
+                        "another channel threshold, or explicit "
+                        "comma-separated layer indices; the rest run "
+                        "bf16")
     p.add_argument("--save-qmodel", default=None, metavar="PATH",
-                   help=f"save the int8 artifact ({_NOT_PORTED})")
+                   help="with --int8: save the calibrated and quantized "
+                        "model as one standalone artifact (.npz with the "
+                        "arch cfg embedded, the JAX package's format)")
     p.add_argument("--qmodel", default=None, metavar="PATH",
-                   help=f"serve a saved int8 artifact ({_NOT_PORTED})")
+                   help="serve a saved int8 artifact (--save-qmodel) "
+                        "instead of --weights, with no recalibration")
     p.add_argument("--cluster-bits", type=int, default=None,
                    metavar="BITS",
                    help=f"weight sharing ({_NOT_PORTED})")
@@ -184,11 +207,9 @@ def _not_ported(args):
     """The flag a command line needs that is not ported yet, with its
     ROADMAP item, or None."""
     for flag, on, item in (
-            ("--int8", args.int8, 6), ("--qmodel", args.qmodel, 6),
-            ("--cluster-bits", args.cluster_bits is not None, 6),
-            ("--save-qmodel", args.save_qmodel, 6),
-            ("--save-cmodel", args.save_cmodel, 6),
-            ("--cmodel", args.cmodel, 6), ("--pack", args.pack, 6),
+            ("--cluster-bits", args.cluster_bits is not None, "6e"),
+            ("--save-cmodel", args.save_cmodel, "6e"),
+            ("--cmodel", args.cmodel, "6e"), ("--pack", args.pack, "6e"),
             ("--dp", args.dp > 1, 7), ("--tp", args.tp > 1, 7)):
         if on:
             return (f"{flag} is not ported to the PyTorch package yet "
@@ -203,12 +224,20 @@ def main(argv=None) -> int:
         print(f"error: {why}", file=sys.stderr)
         return 2
     resolve_device(args.device)  # no CUDA: raise before reading anything
-    spec, params, _ = load_model(args)
+    try:
+        spec, params, quantized = load_serving_model(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     samples, names = load_dataset(args)
     if not samples:
         print("error: dataset is empty", file=sys.stderr)
         return 2
     precision = get_precision(args.precision)
+    if (args.int8 or args.qmodel) and precision.name == "bitmatch":
+        print("error: --int8/--qmodel is a quantized path; it cannot "
+              "bit-match (--precision bitmatch)", file=sys.stderr)
+        return 2
     cfg = EvalConfig(
         batch_size=args.batch, conf_thresh=args.conf, nms_thresh=args.nms,
         max_detections=args.max_det, use_07_metric=(args.metric == "07"),
@@ -221,6 +250,29 @@ def main(argv=None) -> int:
         soft_nms=args.soft_nms or "", soft_nms_sigma=args.soft_nms_sigma,
         diou_nms=args.diou_nms, diou_beta=args.diou_beta,
         device=args.device)
+    if args.int8:
+        try:
+            int8_sel, chunks, n = prep_calibration(
+                spec, samples, args.calib_images, args.int8_layers,
+                letterbox=not args.no_letterbox, what="int8")
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        n_sel = "all" if int8_sel is None else str(len(int8_sel))
+        print(f"int8: calibrating activation scales on {n} images "
+              f"({n_sel} convs quantized)...", file=sys.stderr)
+        folded = params_to(fold_batchnorm(params, spec),
+                           resolve_device(args.device))
+        params = quantize_from_batches(
+            folded, spec, chunks, quantile=args.calib_quantile,
+            int8_layers=int8_sel)
+        quantized = True
+        if args.save_qmodel:
+            save_qmodel(args.save_qmodel, params, spec)
+            print(f"wrote int8 deployment artifact to {args.save_qmodel}",
+                  file=sys.stderr)
+    if quantized:
+        params, cfg = prepare_serving(spec, params, True, cfg)
     if args.recall:
         if args.dump_dir or args.map_coco:
             print("error: --recall is an objectness-only audit — it "

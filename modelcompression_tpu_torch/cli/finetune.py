@@ -13,11 +13,18 @@ trains: [region] (YOLOv2) and [yolo] (YOLOv3 / YOLOv4, the multi-head
 loss). Each run ends with an eval (FAST, batch --batch) of the written
 model.
 
+``--qat`` fine-tunes with the deployed int8 grids simulated (fake-quant
+with the straight-through estimator, compress/qat.py): the activation
+grids are calibrated on the first --qat-calib-images training images
+(absmax, or --qat-quantile), the --qat-layers convs train int8. After the
+float model's eval comes the exported int8 model's, and --save-qmodel
+writes that int8 artifact.
+
 The command lines of the JAX CLI run unchanged: its validations come
 first, with its messages and exit code 2. Not ported yet, each then
-rejected with exit code 2 naming its ROADMAP item: --gmp, --qat,
---save-qmodel, --pack and --distill (Queue 1 item 6); --iterate-mode
-lamp (item 6); --dp / --tp above 1 (item 7).
+rejected with exit code 2 naming its ROADMAP item: --gmp and --distill
+(Queue 1 item 6), --pack (item 6e); --iterate-mode lamp (item 6); --dp /
+--tp above 1 (item 7).
 
 Example:
   python -m modelcompression_tpu_torch.cli.finetune --cfg slim.cfg \\
@@ -36,11 +43,12 @@ import torch
 
 from modelcompression_tpu_torch.cli.common import (
     add_data_args, add_model_args, add_parallel_args, load_dataset,
-    load_model, load_train_dataset, resolve_batch_subdivisions,
-    resolve_mask_backend,
+    load_model, load_train_dataset, prep_calibration,
+    quantized_eval_config, resolve_batch_subdivisions, resolve_mask_backend,
 )
 from modelcompression_tpu_torch.compress import (
-    DEFAULT_MASK_BACKEND, MASK_BACKENDS,
+    DEFAULT_MASK_BACKEND, MASK_BACKENDS, qat_spec_from_batches,
+    quantize_qat, save_qmodel,
 )
 from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.evaluation import EvalConfig, evaluate
@@ -116,15 +124,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distill-weight", type=float, default=1.0)
     p.add_argument("--distill-temp", type=float, default=1.0)
     p.add_argument("--qat", action="store_true",
-                   help="quantization-aware fine-tune (not ported yet)")
-    p.add_argument("--qat-layers", default="all")
-    p.add_argument("--qat-calib-images", type=int, default=8)
-    p.add_argument("--qat-quantile", type=float, default=None)
+                   help="quantization-aware fine-tune: train with the "
+                        "deployed int8 grids simulated in the forward "
+                        "(straight-through fake-quant; compress/qat.py), "
+                        "then report the exported int8 model's mAP next "
+                        "to the f32 one")
+    p.add_argument("--qat-layers", default="all",
+                   help="which convs train+deploy int8 under --qat: "
+                        "'all', 'auto[:K]' (min(Cin,Cout) >= K, default "
+                        "128), or explicit comma-separated layer indices")
+    p.add_argument("--qat-calib-images", type=int, default=8,
+                   help="images used to calibrate the static activation "
+                        "grids before QAT training")
+    p.add_argument("--qat-quantile", type=float, default=None,
+                   help="calibrate activation grids at this quantile of "
+                        "|activation| instead of the max")
     p.add_argument("--save-qmodel", default=None, metavar="PATH",
-                   help="with --qat: the int8 artifact (not ported yet)")
+                   help="with --qat: also export the trained int8 "
+                        "deployment artifact (serve with eval/detect "
+                        "--qmodel)")
     p.add_argument("--pack", nargs="?", const="huffman", default=None,
                    choices=("huffman", "fixed"), metavar="METHOD",
-                   help="with --save-qmodel (not ported yet)")
+                   help="with --save-qmodel: entropy-code the int8 "
+                        "weights (not ported yet)")
     p.add_argument("--iterate", default=None,
                    help="comma list of cumulative prune fractions for the "
                         "iterative loop, e.g. 0.25,0.5,0.75")
@@ -219,8 +241,7 @@ def _not_ported(args) -> str | None:
     with its ROADMAP item, or None."""
     mode = args.iterate_mode if args.iterate else None
     for flag, on, item in (
-            ("--gmp", args.gmp is not None, 6), ("--qat", args.qat, 6),
-            ("--save-qmodel", args.save_qmodel, 6), ("--pack", args.pack, 6),
+            ("--gmp", args.gmp is not None, 6), ("--pack", args.pack, "6e"),
             ("--distill", args.distill, 6),
             ("--dp", args.dp > 1, 7), ("--tp", args.tp > 1, 7),
             (f"--iterate-mode {mode}", mode in NOT_PORTED_MODES,
@@ -256,6 +277,22 @@ def main(argv=None) -> int:
         print(f"error: {why}", file=sys.stderr)
         return 2
     batch, subdiv = resolve_batch_subdivisions(args, spec)
+    dev_params = params_to(params, device)
+    qat_spec = None
+    if args.qat:
+        try:
+            int8_sel, chunks, n = prep_calibration(
+                spec, samples, args.qat_calib_images, args.qat_layers,
+                what="qat")
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        n_sel = "all" if int8_sel is None else str(len(int8_sel))
+        print(f"qat: calibrating activation grids on {n} images "
+              f"({n_sel} convs int8)...", file=sys.stderr)
+        qat_spec = qat_spec_from_batches(dev_params, spec, chunks,
+                                         int8_layers=int8_sel,
+                                         quantile=args.qat_quantile)
 
     overrides = {}
     if args.ema is not None:
@@ -268,7 +305,8 @@ def main(argv=None) -> int:
     config = TrainConfig.from_spec(spec, max_boxes=args.max_boxes,
                                    augment_mosaic=mosaic,
                                    augment_hsv=args.hsv,
-                                   subdivisions=subdiv, bn_l1=args.bn_l1,
+                                   subdivisions=subdiv, qat=qat_spec,
+                                   bn_l1=args.bn_l1,
                                    freeze_prefix=args.freeze, **overrides)
     loader = BatchLoader(samples, batch_size=batch,
                          net_h=spec.net.height, net_w=spec.net.width,
@@ -276,7 +314,6 @@ def main(argv=None) -> int:
                          device=device)
     logger = MetricsLogger(jsonl_path=args.log_jsonl)
     eval_cfg = EvalConfig(batch_size=batch, device=args.device)
-    dev_params = params_to(params, device)
 
     if args.iterate:
         fractions = [float(x) for x in args.iterate.split(",") if x]
@@ -342,6 +379,19 @@ def main(argv=None) -> int:
              if args.ema is not None else ""))
     res = evaluate(out_params, spec, eval_samples, eval_names, eval_cfg)
     print(res.summary())
+    if qat_spec is not None:
+        # the deployed int8 model's accuracy, on the grids training
+        # rehearsed
+        qparams = quantize_qat(out_params, spec, qat_spec)
+        qres = evaluate(qparams, spec, eval_samples, eval_names,
+                        quantized_eval_config(EvalConfig(
+                            batch_size=batch, device=args.device)))
+        print("int8 deployment (QAT grids):")
+        print(qres.summary())
+        if args.save_qmodel:
+            save_qmodel(args.save_qmodel, qparams, spec)
+            print(f"wrote int8 deployment artifact to {args.save_qmodel} "
+                  f"(serve with eval/detect --qmodel)")
     return 0
 
 

@@ -6,12 +6,13 @@ Requests are decoded and letterboxed on host threads, then gathered into
 fixed-size device batches by a single dispatch thread, so the card sees
 only batch-``B`` runs of one step. Runs on ``--device cuda`` (default) or
 ``--device cpu``; a missing CUDA device is an error. Serves any bundled
-family ([region] YOLOv2, [yolo] YOLOv3 / YOLOv4) from f32 ``.weights``, or
-a random model from seed 0 when ``--weights`` is omitted, with every
-serving NMS flag of the JAX CLI (``--diou-nms`` / ``--diou-beta`` default
-to the cfg's ``nms_kind=diounms`` / ``beta_nms``).
-``--qmodel``, ``--cmodel`` and ``--dp`` are not ported yet and are
-rejected.
+family ([region] YOLOv2, [yolo] YOLOv3 / YOLOv4) from f32 ``.weights``,
+an int8 ``--qmodel`` artifact (of either package; served through
+``compress.forward_quantized``), or a random model from seed 0 when
+neither is given, with every serving NMS flag of the JAX CLI
+(``--diou-nms`` / ``--diou-beta`` default to the cfg's
+``nms_kind=diounms`` / ``beta_nms``). ``--cmodel`` and ``--dp`` are not
+ported yet and are rejected.
 
 Endpoints:
   POST /detect     image file bytes (jpeg/png/bmp) -> JSON detections in
@@ -75,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_serving_nms_args(p)
     p.add_argument("--names", default=None, help=".names file")
     p.add_argument("--qmodel", default=None, metavar="PATH",
-                   help="int8 deployment artifact (not ported yet)")
+                   help="serve a saved int8 deployment artifact "
+                        "(eval --int8 --save-qmodel) instead of --weights")
     p.add_argument("--cmodel", default=None, metavar="PATH",
                    help="weight-sharing artifact (not ported yet)")
     p.add_argument("--timeout-s", type=float, default=60.0,
@@ -393,7 +395,7 @@ def build_server(args) -> "tuple[ThreadingHTTPServer, ServeState]":
     if len(names) != spec.classes:
         names = [f"class{i}" for i in range(spec.classes)]
     cfg = resolve_serving_eval_config(args, spec=spec)
-    folded = prepare_serving(spec, params, quantized, cfg)
+    folded, cfg = prepare_serving(spec, params, quantized, cfg)
     step = make_eval_step(spec, cfg)
     state = ServeState(spec, folded, step, names, args)
     state.cfg = cfg
@@ -417,10 +419,14 @@ def build_server(args) -> "tuple[ThreadingHTTPServer, ServeState]":
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if sum(map(bool, (args.weights, args.qmodel, args.cmodel))) > 1:
+        print("error: at most one of --weights, --qmodel or --cmodel may "
+              "be given", file=sys.stderr)
+        return 2
     if args.batch < 1:
         print("error: --batch must be >= 1", file=sys.stderr)
         return 2
-    if not args.weights:
+    if not (args.weights or args.qmodel or args.cmodel):
         print("note: no --weights given; serving a random model (seed 0)",
               file=sys.stderr)
     try:

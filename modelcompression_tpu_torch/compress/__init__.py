@@ -19,6 +19,14 @@ from modelcompression_tpu_torch.compress.graph import (
     channel_source_convs, head_producer_convs, protected_conv_indices,
     prunable_conv_indices, tied_conv_groups,
 )
+from modelcompression_tpu_torch.compress.qat import (
+    QATSpec, fake_quant, fake_quant_weight, qat_spec_from_batches,
+    quantize_qat,
+)
+from modelcompression_tpu_torch.compress.quantize import (
+    collect_act_absmax, forward_quantized, int8_layers_auto, load_qmodel,
+    quantize_from_batches, quantize_network, save_qmodel,
+)
 from modelcompression_tpu_torch.compress.repack import (
     channel_masks_from_keep, propagate_keep_sets, repack,
     uniform_filter_fraction_keep_sets,
@@ -44,6 +52,11 @@ __all__ = ["DEFAULT_MASK_BACKEND", "MASK_BACKENDS", "magnitude_mask_fn",
            "channel_source_convs", "head_producer_convs",
            "protected_conv_indices", "prunable_conv_indices",
            "tied_conv_groups",
+           "collect_act_absmax", "forward_quantized", "int8_layers_auto",
+           "load_qmodel", "quantize_from_batches", "quantize_network",
+           "save_qmodel",
+           "QATSpec", "fake_quant", "fake_quant_weight",
+           "qat_spec_from_batches", "quantize_qat",
            "channel_masks_from_keep", "propagate_keep_sets", "repack",
            "uniform_filter_fraction_keep_sets",
            "taylor_filter_keep_sets", "taylor_filter_scores_device",

@@ -4,6 +4,8 @@
   tensor's device, the resize as two interpolation matmuls.
 * ``stretch_resize_device`` — plain stretch resize to the net size.
 * ``normalize`` — uint8 -> float /255 (Darknet's only normalization).
+* ``quantize_canvas`` — a [0, 1] canvas on the int8 network-input grid;
+  the two device resizes emit it with ``quant_scale``.
 * ``letterbox_host`` — cv2 letterbox for variable-size images, producing
   the same uint8 canvas. An image already at the size it is resized to
   is copied without cv2 (``cv2.resize`` to the same size returns the
@@ -86,14 +88,29 @@ def _to_float(images: torch.Tensor, dtype) -> torch.Tensor:
     return images.to(dtype)
 
 
+def quantize_canvas(x: torch.Tensor, quant_scale) -> torch.Tensor:
+    """[0, 1] float canvas -> int8 on the network-input grid
+    (``quant_scale``: the calibrated input step, a float or a 0-dim
+    tensor). The rounding runs in fp32, exactly as
+    ``compress/quantize.forward_quantized`` quantizes its input, so an
+    int8 canvas is bit-equal to the float canvas followed by the
+    forward's own quantize."""
+    s = torch.as_tensor(quant_scale, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x.to(torch.float32) / s),
+                       -127, 127).to(torch.int8)
+
+
 def letterbox_device(images: torch.Tensor, net_h: int, net_w: int,
-                     dtype=torch.float32) -> torch.Tensor:
+                     dtype=torch.float32, quant_scale=None) -> torch.Tensor:
     """Aspect-preserving resize + center pad on the images' device.
 
     images: (B, H, W, 3) uint8 (scaled /255) or float. ``dtype`` is the
     compute and output dtype: fp32 is the bit-faithful default, the FAST
-    eval pipeline passes bf16. Returns a contiguous (B, net_h, net_w, 3)
-    canvas in [0, 1]."""
+    eval pipeline passes bf16. With ``quant_scale`` the resized canvas is
+    quantized (``quantize_canvas``) and the gray padding goes on the int8
+    grid, quantized from its fp32 value as the JAX package does. Returns
+    a contiguous (B, net_h, net_w, 3) canvas in [0, 1], or int8 with
+    ``quant_scale``."""
     b, h, w, c = images.shape
     r = min(net_w / w, net_h / h)
     new_w, new_h = int(round(w * r)), int(round(h * r))
@@ -101,19 +118,31 @@ def letterbox_device(images: torch.Tensor, net_h: int, net_w: int,
                               new_h, new_w)
     pad_top = (net_h - new_h) // 2
     pad_left = (net_w - new_w) // 2
-    t = F.pad(t, (pad_left, net_w - new_w - pad_left,
-                  pad_top, net_h - new_h - pad_top),
-              value=GRAY / 255.0)  # same canvas value as letterbox_host
-    return t.permute(0, 2, 3, 1).contiguous()
+    if quant_scale is None:
+        t = F.pad(t, (pad_left, net_w - new_w - pad_left,
+                      pad_top, net_h - new_h - pad_top),
+                  value=GRAY / 255.0)  # same canvas value as letterbox_host
+        return t.permute(0, 2, 3, 1).contiguous()
+    # the int8 gray from a device tensor: no host read of the scale
+    gray = quantize_canvas(torch.tensor(GRAY / 255.0, dtype=torch.float32,
+                                        device=t.device), quant_scale)
+    out = torch.empty((b, net_h, net_w, c), dtype=torch.int8,
+                      device=t.device)
+    out.copy_(gray)
+    out[:, pad_top:pad_top + new_h, pad_left:pad_left + new_w] = \
+        quantize_canvas(t, quant_scale).permute(0, 2, 3, 1)
+    return out
 
 
 def stretch_resize_device(images: torch.Tensor, net_h: int, net_w: int,
-                          dtype=torch.float32) -> torch.Tensor:
-    """Plain stretch resize to the net size; ``dtype`` as in
-    ``letterbox_device``. Returns a contiguous NHWC canvas."""
+                          dtype=torch.float32,
+                          quant_scale=None) -> torch.Tensor:
+    """Plain stretch resize to the net size; ``dtype`` and ``quant_scale``
+    as in ``letterbox_device``. Returns a contiguous NHWC canvas."""
     t = _bilinear_resize_nchw(_to_float(images, dtype).permute(0, 3, 1, 2),
                               net_h, net_w)
-    return t.permute(0, 2, 3, 1).contiguous()
+    t = t.permute(0, 2, 3, 1).contiguous()
+    return t if quant_scale is None else quantize_canvas(t, quant_scale)
 
 
 def resize_host(image: np.ndarray, new_w: int, new_h: int) -> np.ndarray:

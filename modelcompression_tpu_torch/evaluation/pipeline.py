@@ -34,7 +34,8 @@ import torch
 from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.core.precision import FAST, Precision
 from modelcompression_tpu_torch.data.preprocess import (
-    letterbox_device, letterbox_host, resize_host, stretch_resize_device,
+    letterbox_device, letterbox_host, quantize_canvas, resize_host,
+    stretch_resize_device,
 )
 from modelcompression_tpu_torch.data.streaming import (
     prefetch_to_device, to_device,
@@ -56,12 +57,6 @@ from modelcompression_tpu_torch.models.darknet import (
 )
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"EvalConfig.{option} is not ported to the PyTorch package yet "
-        f"(ROADMAP: {item})")
-
-
 @dataclasses.dataclass
 class EvalConfig:
     """Evaluation and serving-step configuration; field names follow the
@@ -76,9 +71,11 @@ class EvalConfig:
     applies when ``fold_bn`` and ``input_stage_match(spec)`` hold.
 
     Values the JAX package rejects raise what it raises, in its order
-    (``ValueError``). The int8 path's ``forward_fn`` and ``int8_input``
-    are not ported yet and raise ``NotImplementedError`` naming the
-    ROADMAP item after that. The NMS variants (``exact_nms``,
+    (``ValueError``). ``forward_fn(params, x, spec)`` replaces the
+    network forward (the int8 path, ``compress.forward_quantized``, with
+    its quantized pytree as the params, which ``evaluate`` then never
+    BN-folds); ``int8_input`` quantizes the canvas on the pytree's
+    ``__net__/input_scale`` grid before it. The NMS variants (``exact_nms``,
     ``soft_nms`` with ``soft_nms_sigma``, ``diou_nms`` with
     ``diou_beta``, ``nms_prefilter_impl='bisect'``,
     ``exact_nms_prefilter=False``) are those of ``nms.py``.
@@ -159,20 +156,17 @@ class EvalConfig:
                 "int8_input requires a forward_fn that accepts an int8 "
                 "canvas (compress.forward_quantized): the standard float "
                 "forward has no input grid to land on")
-        # then the valid options this port does not have yet
-        if self.forward_fn is not None or self.int8_input:
-            raise _not_ported("forward_fn/int8_input",
-                              "Queue 1 item 6, int8 inference")
 
 
 def _network(spec: NetworkSpec, config: EvalConfig,
              src_hw: Optional[Tuple[int, int]]):
     """The part every step shares: fn(params, images) -> raw map on the
     params' device, with the device check, the input (letterbox on the
-    device or normalize) and the forward (fused input stage where
-    ``config.fuse_input_stage``, ``fold_bn`` and ``input_stage_match``
-    hold). Raises at build time when the device is CUDA and CUDA is
-    absent."""
+    device or normalize; quantized on the pytree's input grid under
+    ``int8_input``) and the forward (``config.forward_fn`` when set, else
+    the fused input stage where ``config.fuse_input_stage``, ``fold_bn``
+    and ``input_stage_match`` hold). Raises at build time when the device
+    is CUDA and CUDA is absent."""
     spec.head_indices()  # validate: every spec has [region] or [yolo] heads
     device = resolve_device(config.device)
     # BITMATCH steps run with TF32 off for cuDNN convs and cuBLAS matmuls
@@ -196,15 +190,23 @@ def _network(spec: NetworkSpec, config: EvalConfig,
             raise ValueError(f"params live on {p_dev}, the step runs on "
                              f"{device}")
         images = torch.as_tensor(images, device=p_dev)
+        # the int8 canvas lands on the pytree's own input grid, so a
+        # recalibration changes producer and consumer together
+        qs = params["__net__"]["input_scale"] if config.int8_input \
+            else None
         if src_hw is not None:
             if tuple(images.shape[1:3]) != tuple(src_hw):
                 raise ValueError(f"step built for {src_hw} sources, "
                                  f"got {tuple(images.shape[1:3])}")
             resize = (letterbox_device if config.letterbox
                       else stretch_resize_device)
-            x = resize(images, net_h, net_w, dtype=rs_dtype)
+            x = resize(images, net_h, net_w, dtype=rs_dtype, quant_scale=qs)
         else:
             x = images.to(rs_dtype) / 255.0
+            if qs is not None:
+                x = quantize_canvas(x, qs)
+        if config.forward_fn is not None:
+            return config.forward_fn(params, x, spec)
         if config.fold_bn:
             return forward_folded(params, x, spec, config.precision,
                                   fuse_input_stage=fuse)
@@ -328,16 +330,18 @@ def evaluate(params: Params, spec: NetworkSpec, samples: Sequence[Sample],
     """Full dataset eval -> mAP + per-class AP + throughput.
 
     ``params`` (unfolded, on any device) are BN-folded when
-    ``config.fold_bn`` and moved to ``config.device``. All boxes (GT and
-    detections) are kept in source-image pixel coordinates. ``mesh``
-    (data-parallel eval) is not ported yet."""
+    ``config.fold_bn`` and no ``forward_fn`` is set (a custom forward owns
+    its params' layout: the int8 pytree is folded and quantized already),
+    and moved to ``config.device``. All boxes (GT and detections) are
+    kept in source-image pixel coordinates. ``mesh`` (data-parallel eval)
+    is not ported yet."""
     config = config or EvalConfig()
     if mesh is not None:
         raise NotImplementedError(
             "evaluate(mesh=...) data-parallel eval is not ported to the "
             "PyTorch package yet (ROADMAP Queue 1 item 7)")
     device = resolve_device(config.device)
-    if config.fold_bn:
+    if config.fold_bn and config.forward_fn is None:
         params = fold_batchnorm(params, spec)
     params = params_to(params, device)
     step = make_eval_step(spec, config)

@@ -134,7 +134,7 @@ def evaluate_recall(params: Params, spec: NetworkSpec,
     ``params`` as for ``evaluate``."""
     config = config or EvalConfig()
     device = resolve_device(config.device)
-    if config.fold_bn:
+    if config.fold_bn and config.forward_fn is None:
         params = fold_batchnorm(params, spec)
     params = params_to(params, device)
     step = make_recall_step(spec, config)

@@ -135,7 +135,13 @@ def route_part(t: torch.Tensor, layer: RouteLayer) -> torch.Tensor:
 def maxpool(x: torch.Tensor, layer: MaxPoolLayer) -> torch.Tensor:
     """Darknet maxpool on NCHW: out = (in + pad_total - size)//stride + 1,
     window origin offset by -pad_total//2, out-of-bounds reads -inf (so a
-    size-2/stride-1 pool pads one row/column at the bottom/right)."""
+    size-2/stride-1 pool pads one row/column at the bottom/right).
+
+    An integer tensor (the int8 activations of
+    ``compress/quantize.forward_quantized``) pads with its dtype's minimum,
+    as the JAX package does, and pools exactly in a float dtype that holds
+    its values (int8: fp16 on the card; fp32 otherwise); it comes back in
+    its own dtype."""
     k, s = layer.size, layer.stride
     h, w = x.shape[2], x.shape[3]
     pad_total = layer.pad_total
@@ -144,10 +150,18 @@ def maxpool(x: torch.Tensor, layer: MaxPoolLayer) -> torch.Tensor:
     out_w = (w + pad_total - k) // s + 1
     pad_h_end = max(0, (out_h - 1) * s + k - h - pad_begin)
     pad_w_end = max(0, (out_w - 1) * s + k - w - pad_begin)
+    dtype = x.dtype
+    if dtype.is_floating_point:
+        pad_value = -math.inf
+    else:
+        pad_value = torch.iinfo(dtype).min
+        # fp16 holds every 8-bit integer exactly
+        x = x.to(torch.float16 if x.is_cuda and x.element_size() == 1
+                 else torch.float32)
     if pad_begin or pad_h_end or pad_w_end:
         x = F.pad(x, (pad_begin, pad_w_end, pad_begin, pad_h_end),
-                  value=-math.inf)
-    return F.max_pool2d(x, kernel_size=k, stride=s)
+                  value=pad_value)
+    return F.max_pool2d(x, kernel_size=k, stride=s).to(dtype)
 
 
 def reorg(x: torch.Tensor, stride: int = 2) -> torch.Tensor:

@@ -63,9 +63,11 @@ class TrainConfig:
 
     ``remat`` recomputes each trainable conv block in the backward
     (``torch.utils.checkpoint``): about one more forward of work for the
-    activation memory of one block. ``qat`` and ``gmp`` are not ported yet
-    and raise ``NotImplementedError`` naming their ROADMAP item when
-    set."""
+    activation memory of one block. ``qat`` (a ``compress.qat.QATSpec``)
+    trains the selected convs with the deployed int8 grids simulated:
+    fake-quant of each conv's input, weight and output. ``gmp`` is not
+    ported yet and raises ``NotImplementedError`` naming its ROADMAP item
+    when set."""
 
     learning_rate: float = 1e-3
     momentum: float = 0.9
@@ -105,9 +107,6 @@ class TrainConfig:
     freeze_prefix: int = 0
 
     def __post_init__(self):
-        if self.qat is not None:
-            raise _not_ported("TrainConfig.qat (quantization-aware "
-                              "fine-tune)", 6)
         if self.gmp is not None:
             raise _not_ported("TrainConfig.gmp (gradual magnitude "
                               "pruning)", 6)
@@ -307,12 +306,21 @@ def _conv_block_train(y: torch.Tensor, p: Dict[str, torch.Tensor],
 def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                    precision: Precision,
                    channel_masks: Dict[int, torch.Tensor],
-                   freeze: frozenset = frozenset(), remat: bool = False):
+                   freeze: frozenset = frozenset(), remat: bool = False,
+                   qat=None):
     """Training forward on NHWC ``x`` with batch statistics; returns the
     NHWC fp32 raw map and the per-conv batch (mean, var). Frozen convs run
     inference BN on detached params, so no backward reaches them. With
     ``remat`` each trainable conv block keeps only its input for the
-    backward and runs again there."""
+    backward and runs again there. With ``qat`` (``compress.qat.QATSpec``)
+    each selected conv takes its input fake-quanted on ``in_scale``, its
+    weight per output channel, and fake-quants its post-activation output
+    on ``out_scale`` (after the channel mask), the boundary placement of
+    ``compress/quantize.forward_quantized``."""
+    if qat is not None:
+        from modelcompression_tpu_torch.compress.qat import (
+            fake_quant, fake_quant_weight,
+        )
     outputs = []
     heads = []
     batch_stats: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -321,6 +329,11 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
         if isinstance(l, ConvLayer):
             key = conv_key(i)
             p = params[key]
+            q_out = None
+            if qat is not None and i in qat.int8:
+                p = dict(p, w=fake_quant_weight(p["w"]))
+                y = fake_quant(y, qat.in_scale[i])
+                q_out = qat.out_scale.get(i)
             if key in freeze:
                 y = conv_bn_act(y, {n: v.detach() for n, v in p.items()},
                                 l, precision)
@@ -335,6 +348,8 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                     batch_stats[key] = stats
             if i in channel_masks:
                 y = y * _per_channel(channel_masks[i], y.dtype)
+            if q_out is not None:
+                y = fake_quant(y, q_out)
         elif isinstance(l, MaxPoolLayer):
             y = maxpool(y, l)
         elif isinstance(l, RouteLayer):
@@ -395,7 +410,7 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
                       for k, p in params.items()}
         raw, batch_stats = _forward_train(params, x, spec, config.precision,
                                           channel_masks, freeze=freeze_keys,
-                                          remat=config.remat)
+                                          remat=config.remat, qat=config.qat)
         metrics = detection_loss(raw, targets, spec, seen)
         md = metrics.as_dict()
         loss = metrics.loss

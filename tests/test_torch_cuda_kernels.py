@@ -745,3 +745,30 @@ def test_nms_variants_card_equals_cpu(cuda_device, variant):
                                          scores.to(cuda_device))]
     assert torch.equal(got[2], want[2]) and torch.equal(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, hw, c, k, n, stride", [
+    (4, 34, 3, 3, 32, 1),    # conv1: 27 taps padded to 32
+    (2, 13, 1024, 1, 125, 1),  # YOLOv2's head: width padded to 128
+    (2, 20, 64, 3, 128, 2),  # a stride-2 3x3
+    (1, 3, 8, 3, 8, 1),      # 9 rows: padded to 17
+])
+def test_int8_conv_card_route_equals_plain(cuda_device, b, hw, c, k, n,
+                                           stride):
+    """The int8 conv's card route (cuBLASLt's int8 GEMM over the im2col)
+    against its plain version (an exact float64 conv) on the card: the
+    int32 sums equal, one launch counted at the output width."""
+    from modelcompression_tpu_torch.ops import int8_conv as ti8
+    g = torch.Generator().manual_seed(b * 1000 + n)
+    x = torch.randint(-127, 128, (b, hw, hw, c), dtype=torch.int8,
+                      generator=g).to(cuda_device)
+    w = torch.randint(-127, 128, (k, k, c, n), dtype=torch.int8,
+                      generator=g).to(cuda_device)
+    n0, at0 = ti8.int8_conv_cuda.LAUNCHES, ti8.int8_conv_cuda.LAUNCHES_AT[n]
+    got = ti8.int8_conv(x, w, stride, k // 2)
+    torch.cuda.synchronize()
+    assert ti8.int8_conv_cuda.LAUNCHES == n0 + 1
+    assert ti8.int8_conv_cuda.LAUNCHES_AT[n] == at0 + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ti8.int8_conv_plain(x, w, stride, k // 2))

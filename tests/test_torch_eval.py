@@ -476,14 +476,12 @@ def test_eval_cli_recall_equals_jax(cli_model, capsys):
 
 
 NOT_PORTED = {
-    "int8": (["--int8"], 6),
-    "qmodel": (["--qmodel", "q.npz"], 6),  # in place of --weights
-    "cmodel": (["--cmodel", "c.npz"], 6),
-    "cluster_bits": (["--cluster-bits", "4"], 6),
-    "save_qmodel": (["--int8", "--save-qmodel", "q.npz"], 6),
-    "save_cmodel": (["--cluster-bits", "4", "--save-cmodel", "c.npz"], 6),
+    "cmodel": (["--cmodel", "c.npz"], "6e"),  # in place of --weights
+    "cluster_bits": (["--cluster-bits", "4"], "6e"),
+    "save_cmodel": (["--cluster-bits", "4", "--save-cmodel", "c.npz"],
+                    "6e"),
     "pack": (["--cluster-bits", "4", "--save-cmodel", "c.npz", "--pack"],
-             6),
+             "6e"),
     "dp": (["--dp", "2"], 7),
     "tp": (["--tp", "2"], 7),
 }
@@ -494,7 +492,7 @@ def test_eval_cli_not_ported_flags_exit_2_naming_their_item(cli_model,
                                                             capsys, case):
     cfg, weights, data = cli_model
     extra, item = NOT_PORTED[case]
-    source = [] if case in ("qmodel", "cmodel") else ["--weights", weights]
+    source = [] if case == "cmodel" else ["--weights", weights]
     assert teval_cli.main(["--cfg", cfg, *source, "--data", data,
                            "--device", "cpu", *extra]) == 2
     err = capsys.readouterr().err

@@ -232,13 +232,51 @@ def test_eval_step_nms_variants_match_jax(kw):
 
 
 @pytest.mark.parametrize("kw, match", [
-    # int8_input alone is invalid (ValueError, as in JAX)
     ({"int8_input": True, "forward_fn": lambda p, x, s: x}, "int8"),
     ({"forward_fn": lambda p, x, s: x}, "forward_fn"),
 ])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tpipe.EvalConfig(device="cpu", **kw)
+    """The int8 path's options, rejected before they were ported: the
+    step hands ``forward_fn`` the canvas (int8 on the pytree's input grid
+    under ``int8_input``) and its params unfolded, and equals the JAX
+    package's step with the same custom forward (here the folded fp32
+    forward of the dequantized canvas) on the same frames."""
+    int8 = match == "int8"
+    jspec, tspec = _specs()
+    npp = random_np_params(jspec, seed=35)
+    scale = np.float32(1.0 / 127.0)
+    jf = jdn.fold_batchnorm(jax.tree.map(jnp.asarray, npp), jspec)
+    tf = tdn.fold_batchnorm(params_from_jax(npp), tspec)
+    jf["__net__"] = {"input_scale": jnp.asarray(scale)}
+    tf["__net__"] = {"input_scale": torch.tensor(scale)}
+    seen = []
+
+    def t_fwd(p, x, s):
+        seen.append(x.dtype)
+        x = x.float() * p["__net__"]["input_scale"] if int8 else x
+        return tdn.forward_folded(p, x, s, BITMATCH)
+
+    def j_fwd(p, x, s):
+        x = x.astype(jnp.float32) * p["__net__"]["input_scale"] \
+            if int8 else x
+        return jdn.forward_folded(p, x, s, J_BITMATCH)
+
+    jc = jpipe.EvalConfig(precision=J_BITMATCH, forward_fn=j_fwd,
+                          int8_input=int8, conf_thresh=0.05,
+                          max_detections=16)
+    tc = tpipe.EvalConfig(precision=BITMATCH, device="cpu", forward_fn=t_fwd,
+                          int8_input=int8, conf_thresh=0.05,
+                          max_detections=16)
+    rng = np.random.default_rng(22)
+    imgs = rng.integers(0, 256, (3, 48, 80, 3), np.uint8)
+    ws = np.array([80.0, 80.0, 64.0], np.float32)
+    hs = np.array([48.0, 48.0, 64.0], np.float32)
+    want = [np.asarray(a) for a in jpipe.make_eval_step(jspec, jc, (48, 80))(
+        jf, jnp.asarray(imgs), jnp.asarray(ws), jnp.asarray(hs))]
+    got = [t.numpy() for t in tpipe.make_eval_step(tspec, tc, (48, 80))(
+        tf, imgs, ws, hs)]
+    assert seen == [torch.int8 if int8 else torch.float32]
+    _assert_step_equal(got, want)
 
 
 def _fwd(p, x, s):
@@ -263,10 +301,9 @@ ACCEPTED = "accepted"
     ({"exact_nms": True}, ACCEPTED),
     ({"diou_nms": True, "diou_beta": 0.6}, ACCEPTED),
     ({"nms_prefilter_impl": "bisect", "nms_prefilter": 64}, ACCEPTED),
-    # valid in the JAX package, not ported: NotImplementedError naming the
-    # ROADMAP item
-    ({"forward_fn": _fwd}, "Queue 1 item 6"),
-    ({"forward_fn": _fwd, "int8_input": True}, "Queue 1 item 6"),
+    # the int8 path's custom forward and int8 canvas (ported since)
+    ({"forward_fn": _fwd}, ACCEPTED),
+    ({"forward_fn": _fwd, "int8_input": True}, ACCEPTED),
 ])
 def test_eval_config_validates_as_jax(kw, unported):
     """Invalid options raise what the JAX package raises (it checks them

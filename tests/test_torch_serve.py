@@ -154,9 +154,9 @@ def test_deployment_preset_resolution():
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--qmodel", "q.npz"], "qmodel"),
-    (["--cmodel", "c.npz"], "cmodel"),
-    (["--dp", "2"], "dp"),
+    # ids kept from when --qmodel was the first case (ported since)
+    pytest.param(["--cmodel", "c.npz"], "cmodel", id="extra1-cmodel"),
+    pytest.param(["--dp", "2"], "dp", id="extra2-dp"),
 ])
 def test_not_ported_options_are_rejected(tmp_path, capsys, extra, match):
     _, cfg_path, wpath = _write_model(tmp_path)
@@ -270,3 +270,52 @@ def test_serve_yolo_family_with_nms_variants(tmp_path, extra):
     finally:
         state.stop.set()
         httpd.server_close()
+
+
+def test_qmodel_serves_the_int8_forward(tmp_path):
+    """--qmodel serves an int8 artifact through forward_quantized: the
+    dispatcher's detections equal the int8 step's on the same canvas;
+    --qmodel with --weights is refused."""
+    from modelcompression_tpu_torch.compress import (
+        forward_quantized, quantize_from_batches, save_qmodel,
+    )
+    from modelcompression_tpu_torch.evaluation import (
+        EvalConfig, make_eval_step,
+    )
+    from modelcompression_tpu_torch.models import fold_batchnorm
+    spec, cfg_path, wpath = _write_model(tmp_path, seed=4)
+    rng = np.random.default_rng(4)
+    q = quantize_from_batches(
+        fold_batchnorm(init_params(spec, seed=4), spec), spec,
+        [rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)])
+    qpath = str(tmp_path / "q.npz")
+    save_qmodel(qpath, q, spec)
+    base = ["--cfg", cfg_path, "--port", "0", "--device", "cpu",
+            "--batch", "2", "--max-wait-ms", "30", "--conf", "0.05"]
+    assert serve.main(base + ["--qmodel", qpath, "--weights", wpath]) == 2
+    httpd, state = serve.build_server(
+        serve.build_parser().parse_args(base + ["--qmodel", qpath]))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        assert state.cfg.forward_fn is forward_quantized
+        canvas = rng.integers(0, 256, (64, 64, 3), np.uint8)
+        item = state.submit(canvas, 100.0, 80.0)
+        assert item.event.wait(60) and item.error is None
+        step = make_eval_step(spec, EvalConfig(
+            conf_thresh=0.05, max_detections=50, device="cpu",
+            forward_fn=forward_quantized))
+        sel, sc, valid, _, _ = step(q, np.stack([canvas] * 2),
+                                    [100.0, 100.0], [80.0, 80.0])
+        direct = sorted((ci, float(sc[0, ci, k]))
+                        for ci in range(sel.shape[1])
+                        for k in np.nonzero(valid[0, ci].numpy())[0])
+        assert sorted((d["class_id"], d["score"])
+                      for d in item.result) == direct
+        status, _, body = _get(httpd.server_address[1], "/healthz")
+        assert status == 200 and json.loads(body)["ok"]
+    finally:
+        state.stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)

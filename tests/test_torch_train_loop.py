@@ -384,7 +384,8 @@ def test_finetune_usage_errors_worded_as_jax(fixture, capsys, case):
 
 
 NOT_PORTED = {
-    "gmp": (["--gmp", "0.5"], 6), "qat": (["--qat"], 6),
+    "gmp": (["--gmp", "0.5"], 6),
+    "pack": (["--qat", "--save-qmodel", "q.npz", "--pack"], "6e"),
     "distill": (["--distill", "t.weights"], 6), "dp": (["--dp", "2"], 7),
     "tp": (["--tp", "2"], 7),
     "lamp": (["--iterate", "0.5", "--iterate-mode", "lamp"], 6),
@@ -397,6 +398,87 @@ def test_finetune_not_ported_exit_2_naming_item(fixture, capsys, case):
     assert ft_cli.main(_ft(fixture, *extra)) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
+
+
+_MAP_LINE = "mAP@50 (11-point): "
+
+
+def _map_lines(out):
+    return [float(l.split(_MAP_LINE)[1].split()[0])
+            for l in out.splitlines() if l.startswith(_MAP_LINE)]
+
+
+def test_finetune_qat_save_qmodel_matches_jax(fixture, tmp_path, capsys):
+    """finetune --qat --save-qmodel on both CLIs (FAST, 2 steps): the
+    float model's and the exported int8 model's mAP within the FAST
+    tolerance (10% relative, or equal at 0); the port's artifact, served
+    by its eval --qmodel, prints the int8 summary finetune printed (the
+    throughput lines excepted), and the JAX package loads it."""
+    from modelcompression_tpu.compress import load_qmodel as j_load_qmodel
+    from modelcompression_tpu_torch.cli import eval as teval_cli
+    runs = {}
+    for name, main, dev in (("jax", jft_cli.main, ()),
+                            ("torch", ft_cli.main, ("--device", "cpu"))):
+        q = str(tmp_path / f"{name}.npz")
+        argv = ["--cfg", fixture["cfg"], "--weights", fixture["weights"],
+                "--data", fixture["data"], "--steps", "2", "--batch", "2",
+                "--out", str(tmp_path / f"{name}.weights"), "--qat",
+                "--qat-calib-images", "4", "--save-qmodel", q, *dev]
+        assert main(argv) == 0
+        out = capsys.readouterr().out
+        assert "int8 deployment (QAT grids):" in out and os.path.exists(q)
+        runs[name] = out
+    want, got = _map_lines(runs["jax"]), _map_lines(runs["torch"])
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 0.1 * w if w else g == w
+    q = str(tmp_path / "torch.npz")
+    assert teval_cli.main(["--cfg", fixture["cfg"], "--qmodel", q, "--data",
+                           fixture["data"], "--batch", "2",
+                           "--device", "cpu"]) == 0
+    served = capsys.readouterr().out
+    int8_block = runs["torch"].split("int8 deployment (QAT grids):\n")[1]
+
+    def summary(text):
+        return [l.split("  [")[0] for l in text.splitlines()
+                if not l.startswith(("throughput", "wrote"))]
+    assert summary(served) == summary(int8_block)
+    qparams, _ = j_load_qmodel(q, spec=j_parse(fixture["text"]))
+    assert "__net__" in qparams
+
+
+def test_train_clis_resize_band_from_the_width(fixture, monkeypatch):
+    """Both train CLIs compute the [yolo] resize= multi-scale band from
+    the net WIDTH only (the JAX CLI's behaviour, reproduced): a 96x64 net
+    with resize=1.5 trains at 64..160, not the height's 32..96."""
+    from modelcompression_tpu.cli import train as jtrain_cli
+    text = tfx.tiny_yolo3_cfg(num_classes=3, width=96, height=64).replace(
+        "random=0", "random=1\nresize=1.5")
+    cfg = str(fixture["tmp"] / "resize.cfg")
+    with open(cfg, "w") as f:
+        f.write(text)
+    assert parse_cfg(text).layers[parse_cfg(text).head_indices()[0]
+                                  ].resize == 1.5
+    bands = {}
+
+    class Stop(Exception):
+        pass
+
+    def recorder(name):
+        def loader(*a, **kw):
+            bands[name] = kw["multi_scale"]
+            raise Stop
+        return loader
+
+    monkeypatch.setattr(jtrain_cli, "BatchLoader", recorder("jax"))
+    monkeypatch.setattr(train_cli, "BatchLoader", recorder("torch"))
+    for name, main, dev in (("jax", jtrain_cli.main, ()),
+                            ("torch", train_cli.main, ("--device", "cpu"))):
+        with pytest.raises(Stop):
+            main(["--cfg", cfg, "--data", fixture["data"], "--steps", "1",
+                  "--batch", "2", "--checkpoint-dir",
+                  str(fixture["tmp"] / f"band_{name}"), *dev])
+    assert bands["torch"] == bands["jax"] == (64, 160)
 
 
 def test_cli_default_device_is_cuda(fixture, monkeypatch):

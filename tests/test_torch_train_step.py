@@ -194,6 +194,167 @@ def test_steps_match_jax(case):
         assert tres[0]["metrics"]["gamma_l1"] > 0
 
 
+def _grid_qat_setup(seed, int8_layers):
+    """A BN-free net (the JAX package's QAT fixture) whose QAT forward is
+    exact on both sides: weights on per-channel grids of 2^-9 with each
+    channel's largest |w| exactly 127 steps, biases on their conv's
+    output grid, and every activation grid a power of two (the
+    calibrated absmax rounded up to 127 · 2^k). Every fake-quant then
+    lands on its grid with no rounding, and every conv sum is exact, so
+    no rounding tie can fall differently in the two packages' forwards
+    (with BN, or off these grids, the reference's own QAT step moves by
+    a fraction of its gradients under a 2-ulp change of one weight)."""
+    from modelcompression_tpu.compress import qat as jqat
+    from modelcompression_tpu.compress import quantize as jq
+    from modelcompression_tpu_torch.compress import qat as tqat
+    from tests.test_qat import NO_BN_CFG
+    # the head sized for its 2 anchors x (5 + 3 classes), so it trains
+    text = NO_BN_CFG.replace("filters=40", "filters=16")
+    jspec, tspec = jax_parse(text), parse_cfg(text)
+    rng = np.random.default_rng(seed)
+    np_params, step = {}, 2.0 ** -9
+    for i in jspec.conv_indices():
+        l = jspec.layers[i]
+        w = rng.integers(-127, 128, (l.size, l.size, l.in_channels,
+                                     l.filters)).astype(np.float32)
+        w[0, 0, 0, :] = rng.choice([-127.0, 127.0], l.filters)
+        np_params[f"conv{i}"] = {"w": w * np.float32(step),
+                                 "bias": np.zeros(l.filters, np.float32)}
+    calib = [_batch(seed=seed)[0].astype(np.float32) / 255.0]
+    absmax, _ = jq.collect_act_absmax(
+        jax.tree.map(jnp.asarray, np_params), jspec, calib)
+    p2 = 127.0 * 2.0 ** np.ceil(np.log2(np.maximum(absmax, 1e-3) / 127.0))
+    in_max = 127.0 * 2.0 ** -7
+    jplan = jqat.qat_spec_from_absmax(jspec, p2, in_max,
+                                      int8_layers=int8_layers)
+    out_s, in_s = jq._layer_out_scales(jspec, p2, in_max)
+    for i in jspec.conv_indices():  # biases on the conv's output grid
+        grid = in_s if i == 0 else out_s[i - 1]
+        np_params[f"conv{i}"]["bias"] = (rng.integers(
+            -64, 65, jspec.layers[i].filters) * grid * step
+        ).astype(np.float32)
+    return jspec, tspec, np_params, jplan, tqat.QATSpec(**vars(jplan))
+
+
+@pytest.mark.parametrize("case", ["all", "subset_masks_remat"])
+def test_qat_step_matches_jax(case):
+    """One QAT step (fake-quant of the selected convs' inputs, weights
+    and outputs) against the JAX package's, held as the plain step is:
+    metrics, gradients, momentum and params. With a conv subset, weight
+    masks (each channel's largest weight kept, so its grid stays) and
+    remat too. The QAT forward engages: the plain step's loss differs."""
+    remat = case != "all"
+    sel = [0, 4] if remat else None
+    jspec, tspec, np_params, jplan, tplan = _grid_qat_setup(8, sel)
+    base = dict(augment_flip=False, augment_jitter=0.0, remat=remat)
+    jcfg = jts.TrainConfig.from_spec(jspec, precision=JAX_BITMATCH,
+                                     qat=jplan, **base)
+    tcfg = tts.TrainConfig.from_spec(tspec, precision=BITMATCH, qat=tplan,
+                                     **base)
+    jm = tmasks = None
+    if remat:
+        rng = np.random.default_rng(9)
+        jm = {}
+        for k, p in np_params.items():
+            m = rng.uniform(size=p["w"].shape) > 0.5
+            m[0, 0, 0, :] = True
+            jm[k] = m
+        tmasks = {k: torch.from_numpy(np.ascontiguousarray(_oihw(m)))
+                  for k, m in jm.items()}
+        jm = {k: jnp.asarray(m) for k, m in jm.items()}
+    jres = _run_jax(jspec, jcfg, np_params, 1, masks=jm)
+    tres, _ = _run_torch(tspec, tcfg, np_params, 1, masks=tmasks)
+    _compare(tres[0], jres[0], tcfg.decay, np_params)
+    plain = tts.TrainConfig.from_spec(tspec, precision=BITMATCH, **base)
+    p_res, _ = _run_torch(tspec, plain, np_params, 1, masks=tmasks)
+    assert p_res[0]["metrics"]["loss"] != tres[0]["metrics"]["loss"]
+
+
+def test_qat_step_with_bn_matches_jax():
+    """The path ``finetune --qat`` trains: batch-stat BN and calibrated
+    grids that are not powers of two (the JAX package's
+    ``qat_spec_from_batches`` plan, given to both). The calibration batch
+    holds a 255 pixel, as real images do, so the input grid is 1/127 and
+    no input k/255 sits on a rounding tie (on the grid 2/255 every odd k
+    does, and the jitted reference rounds its division by the constant
+    scale otherwise than eager JAX and the port: 1 of the 256 codes).
+    Held:
+
+    * the first conv, from both packages' own functions on the same
+      images: the input and the per-channel weight fake-quants bit-equal;
+      the conv's batch statistics on them as the plain step holds them
+      (1e-4 of their largest); the post-BN-activation output fake-quant at
+      most one code step apart on at most 1e-4 of its codes (the two
+      packages sum the conv in other orders, ~1e-6 relative, and a sum
+      that close to a rounding tie falls either way);
+    * in one QAT step, the running statistics of the first three convs at
+      1e-4 of their largest, as the plain step holds them (they moved at
+      most 3.0e-5 on seeds 1 to 4; without the step's weight fake-quant,
+      2.4e-3 and more), and the loss within 5e-3 relative: each flipped
+      code moves one activation by a grid step (1/127 of its range) and
+      every later fake-quant can flip again from there, so the later
+      convs' statistics drift (up to 1.7e-3 by the fifth) and the loss
+      moved 0.07% to 0.24% on seeds 1 to 4; 5e-3 is twice the largest;
+    * the QAT forward engages: the plain step's loss differs.
+
+    Not held here: the BN case's gradients and updated weights, which
+    flipped codes move by a share of the update itself (the grid case
+    above holds them at the plain step's tolerances)."""
+    from modelcompression_tpu.compress import qat as jqat
+    from modelcompression_tpu_torch.compress import qat as tqat
+    jspec, tspec, np_params, _, _ = _setup(seed=1)
+    calib = _batch(seed=11)[0]
+    calib[0, 0, 0, 0] = 255
+    jplan = jqat.qat_spec_from_batches(
+        jax.tree.map(jnp.asarray, np_params), jspec,
+        [calib.astype(np.float32) / 255.0])
+    tplan = tqat.QATSpec(**vars(jplan))
+    grids = [*jplan.in_scale.values(), *jplan.out_scale.values()]
+    assert all(np.log2(g) % 1 for g in grids)
+
+    x = _batch()[0].astype(np.float32) / 255.0
+    p = jax.tree.map(jnp.asarray, np_params["conv0"])
+    jxq = jqat.fake_quant(jnp.asarray(x), jplan.in_scale[0])
+    jwq = jqat.fake_quant_weight(p["w"])
+    jy, jstats = jts._conv_block_train(jxq, dict(p, w=jwq), jspec.layers[0],
+                                       JAX_BITMATCH)
+    jyq = np.array(jqat.fake_quant(jy, jplan.out_scale[0]))
+    tp = params_from_jax(np_params, tspec)["conv0"]
+    txq = tqat.fake_quant(torch.from_numpy(x).permute(0, 3, 1, 2),
+                          tplan.in_scale[0])
+    twq = tqat.fake_quant_weight(tp["w"])
+    ty, tstats = tts._conv_block_train(
+        txq.contiguous(memory_format=torch.channels_last), dict(tp, w=twq),
+        tspec.layers[0], BITMATCH)
+    tyq = tqat.fake_quant(ty, tplan.out_scale[0]).detach()
+    assert np.array_equal(txq.permute(0, 2, 3, 1).numpy(), np.array(jxq))
+    assert np.array_equal(_np(twq), np.array(jwq))
+    for n in ("mean", "var"):
+        _close_scaled(tstats[n].detach().numpy(), np.array(jstats[n]), 1e-4,
+                      f"batch {n}")
+    steps = np.abs(np.round(tyq.permute(0, 2, 3, 1).numpy()
+                            / tplan.out_scale[0])
+                   - np.round(jyq / jplan.out_scale[0]))
+    assert steps.max() <= 1 and (steps > 0).mean() <= 1e-4
+
+    base = dict(augment_flip=False, augment_jitter=0.0)
+    jcfg = jts.TrainConfig.from_spec(jspec, precision=JAX_BITMATCH,
+                                     qat=jplan, **base)
+    tcfg = tts.TrainConfig.from_spec(tspec, precision=BITMATCH, qat=tplan,
+                                     **base)
+    jres = _run_jax(jspec, jcfg, np_params, 1)
+    tres, _ = _run_torch(tspec, tcfg, np_params, 1)
+    for k in [f"conv{i}" for i in tspec.conv_indices()[:3]]:
+        for n in ("mean", "var"):
+            _close_scaled(tres[0]["params"][k][n], jres[0]["params"][k][n],
+                          1e-4, f"running {k}/{n}")
+    assert tres[0]["metrics"]["loss"] == pytest.approx(
+        jres[0]["metrics"]["loss"], rel=5e-3)
+    plain = tts.TrainConfig.from_spec(tspec, precision=BITMATCH, **base)
+    p_res, _ = _run_torch(tspec, plain, np_params, 1)
+    assert p_res[0]["metrics"]["loss"] != tres[0]["metrics"]["loss"]
+
+
 def test_freeze_prefix_bit_identical_and_matches_jax():
     jspec, tspec, np_params, jcfg, tcfg = _setup(seed=2, freeze_prefix=1)
     jres = _run_jax(jspec, jcfg, np_params, 2)
@@ -281,7 +442,7 @@ def test_lr_schedule_matches_jax(policy):
 
 
 def test_not_ported_options_name_their_item():
-    for kw, item in ((dict(qat=object()), 6), (dict(gmp=object()), 6)):
+    for kw, item in ((dict(gmp=object()), 6),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tts.TrainConfig(**kw)
     spec = parse_cfg(tiny_region_cfg(num_classes=3, width=SIZE, height=SIZE))
