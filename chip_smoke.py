@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving, magnitude-prune, evaluation,
 fine-tune, YOLOv3 / YOLOv4 serving, YOLOv3 / YOLOv4 fine-tune and
-structured-prune, and int8 (PTQ and QAT) paths on one NVIDIA GPU and
-check them.
+structured-prune, int8 (PTQ and QAT), and the other compression axes'
+(GMP, LAMP, distillation, low-rank, weight sharing and packing) paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -200,6 +201,40 @@ Phases, each printing JSON lines on stdout:
             input-stage launches in the float eval, the exported artifact's
             mAP from eval --qmodel equal to the one finetune printed; the
             QAT train step's steady ms beside the plain step's, in turns.
+12. compress on full-width YOLOv2-VOC 416 (phase 6's weights, phase 7's
+            fixture; the cfg's batch 64 and subdivisions 8, FAST): (a)
+            finetune --gmp 0.75 --gmp-begin 0 --gmp-end 2 --gmp-freq 1 for
+            3 steps, per layer and --gmp-global: every due step's fresh
+            masks equal to the same recompute through prune_flat's plain
+            versions on the same weights, each segment's zeros at least
+            floor(f32(s) f32(n)); exactly 15 / 0 / 3 / 3 radix / count /
+            tie / apply launches at S=24 (S=2 global) and 3 input-stage
+            launches in the eval; each recompute's ms, and the step with a
+            recompute every step beside the plain step, in turns. (b)
+            prune --mode lamp --sparsity 0.75 (5 / 0 / 1 / 1 at S=2; the
+            cut through the kernels equal to the stable-argsort rank on
+            the same scores, exactly int(0.75 n) zeros; lamp_masks ms
+            against its plain route, the per-layer allocation), then
+            finetune --iterate 0.5,0.75 --iterate-mode lamp (10 / 0 / 2 /
+            2 at S=2). (c) finetune --distill: phase 6's unpruned weights
+            teach a 75%-L1-pruned, repacked student (--distill-cfg) for 3
+            steps: loss_distill finite and positive, 3 input-stage
+            launches at C=8 in the eval; the teacher against itself 0 on
+            the card; the distilled step beside the plain one, in turns.
+            (d) prune --mode lowrank --energy 0.9 (host seconds, the
+            factored convs; no kernel launch), the factored model served
+            at batch 64 beside phase 4's unfactored img/s; every conv
+            factored at full rank, its fp32 forward within 1e-4 max rel of
+            the original's. (e) eval --cluster-bits 6 --save-cmodel
+            --pack huffman on phase 6's 75%-magnitude-pruned weights (the
+            artifact's bytes against the .weights'), the native codec
+            loaded, its decode ms against _decode_py's on one layer; the
+            artifact's FAST raw maps bit-equal to the reconstructed
+            params' (input stage included); detect --cmodel --dir and the
+            serve daemon with --cmodel (1 input-stage launch a batch);
+            finetune --qat --save-qmodel --pack for 1 step, its packed
+            artifact loaded and served by eval --qmodel with the mAP
+            finetune printed.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -1311,7 +1346,8 @@ def _train_batch(torch, b, seed, device, net=NET):
 
 
 def train_step_timing(torch, spec, params, subdivisions, net=NET,
-                      remat=False, timed=TIMED_STEPS, qat=None):
+                      remat=False, timed=TIMED_STEPS, qat=None, gmp=None,
+                      distill=None):
     """The FAST train step (the cfg's augment: jitter and flip) at batch
     64 on a fixed device batch at ``net`` x ``net`` (416, or a multi-scale
     size), with or without ``remat``: steady ms per step from CUDA events
@@ -1319,17 +1355,22 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
     enqueue them, peak device memory, and the share of the bf16 peak
     counting 3 x the conv FLOPs per image (forward, and the backward's two
     products). ``qat``: a QAT plan (``compress.qat.QATSpec``) the step
-    trains with."""
+    trains with; ``gmp``: a ``compress.GMPSpec`` (the state seeded with
+    its all-keep masks); ``distill``: a ``train.DistillPlan``."""
+    from modelcompression_tpu_torch.compress import gmp_init_masks
     from modelcompression_tpu_torch.models import num_conv_flops, params_to
     from modelcompression_tpu_torch.train import (
         TrainConfig, TrainState, make_optimizer, make_train_step,
     )
     config = TrainConfig.from_spec(spec, subdivisions=subdivisions,
-                                   remat=remat, qat=qat)
-    state = TrainState.create(params_to(params, "cuda"),
-                              make_optimizer(config),
-                              torch.Generator().manual_seed(SEED))
-    step = make_train_step(spec, config)
+                                   remat=remat, qat=qat, gmp=gmp)
+    dev_params = params_to(params, "cuda")
+    state = TrainState.create(
+        dev_params, make_optimizer(config),
+        torch.Generator().manual_seed(SEED),
+        weight_masks=(gmp_init_masks(dev_params, spec, gmp)
+                      if gmp is not None else None))
+    step = make_train_step(spec, config, distill=distill)
     images, targets = _train_batch(torch, BATCH, SEED, "cuda", net)
     losses = [float(step(state, images, targets)[1]["loss"])
               for _ in range(2)]
@@ -1351,7 +1392,8 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
     # the conv FLOPs scale with the pixels
     gflop_img = 3 * num_conv_flops(spec) * (net / NET) ** 2 / 1e9
     return {"net": net, "subdivisions": subdivisions, "batch": BATCH,
-            "remat": remat, "qat": qat is not None, "timed_steps": timed,
+            "remat": remat, "qat": qat is not None, "gmp": gmp is not None,
+            "distill": distill is not None, "timed_steps": timed,
             "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
             "host_enqueue_ms_per_step": enqueue_ms,
             "max_memory_allocated_gib":
@@ -2967,6 +3009,461 @@ def phase_int8(torch, kernels, card, tmp, data, weights, bf16):
     return widths, select
 
 
+# phase 12: the compression axes on YOLOv2-VOC 416
+GMP_FINAL = 0.75
+GMP_STEPS = 3  # steps 0, 1, 2: a recompute at each (begin 0, end 2)
+LAMP_SPARSITY = 0.75
+DISTILL_STEPS = 3
+STUDENT_FRACTION = 0.75
+LOWRANK_ENERGY = 0.9
+FP32_RTOL = 1e-4  # PERF.md section 2: fp32 forwards, max rel
+CLUSTER_BITS = 6
+DECODE_LAYER = "conv2"  # 18,432 codes: the pure-Python decoder's layer
+QAT_PACK_STEPS = 1
+
+
+@contextlib.contextmanager
+def plain_topk():
+    """Inside, ``prune_flat`` runs the plain versions of its three kernels
+    on the same (CUDA) tensors: what a path's kernels are held against.
+    Nothing launches inside."""
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    saved = ct.radix_select, ct.tie_counts, ct.apply_threshold
+    ct.radix_select = ct.radix_select_plain
+    ct.tie_counts = ct.tie_counts_plain
+    ct.apply_threshold = ct.apply_threshold_plain
+    try:
+        yield
+    finally:
+        ct.radix_select, ct.tie_counts, ct.apply_threshold = saved
+
+
+@contextlib.contextmanager
+def gmp_recorder(torch, records):
+    """Inside, every GMP mask recompute (``compress.gmp.gmp_masks``, run by
+    the train step on a due step) is timed (synchronized) and held equal
+    to the same recompute through the kernels' plain versions on the same
+    weights; each due step's updated masks must hold at least floor(f32(s)
+    * f32(n)) zeros a segment (more only in exact-zero ties). ``records``
+    gets one dict per due step."""
+    from modelcompression_tpu_torch.compress import gmp
+    from modelcompression_tpu_torch.train import train_step as ts
+    orig_masks, orig_update = gmp.gmp_masks, ts.gmp_mask_update
+
+    def masks(params, net, sparsity, per_layer=True, skip=()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = orig_masks(params, net, sparsity, per_layer, skip)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with plain_topk():
+            want = orig_masks(params, net, sparsity, per_layer, skip)
+        for k, m in want.items():
+            check(torch.equal(got[k], m), f"gmp at s={float(sparsity)}: "
+                  f"the mask of {k} differs from prune_flat's plain "
+                  "version on the same weights")
+        records.append({"sparsity": float(sparsity), "recompute_ms": ms,
+                        "plain_equal": True})
+        return got
+
+    def update(g, net, trainable, old, step):
+        out = orig_update(g, net, trainable, old, step)
+        if gmp.gmp_due(g, step):
+            keys = list(old)
+            zeros = [int((~out[k]).sum()) for k in keys]
+            want = gmp.gmp_zero_counts([out[k].numel() for k in keys],
+                                       gmp.gmp_sparsity(step, g),
+                                       g.per_layer)
+            got = zeros if g.per_layer else [sum(zeros)]
+            check(all(a >= b for a, b in zip(got, want)),
+                  f"gmp step {step}: zeros {got} below floor(s n) {want}")
+            records[-1].update(step=int(step), zeros=sum(zeros),
+                               floor_zeros=sum(want), exact=got == want)
+        return out
+
+    gmp.gmp_masks, ts.gmp_mask_update = masks, update
+    try:
+        yield
+    finally:
+        gmp.gmp_masks, ts.gmp_mask_update = orig_masks, orig_update
+
+
+def _in_turns(timing):
+    """(a, b, b, a) step timings -> {"plain": [a, a], "with": [b, b]}."""
+    return {"plain": [timing[0]["step_ms"], timing[3]["step_ms"]],
+            "with": [timing[1]["step_ms"], timing[2]["step_ms"]]}
+
+
+def _frames_on_card(torch, n=2):
+    """``n`` random 384x512 frames letterboxed to 416 on the card (fp32
+    NHWC in [0, 1])."""
+    import numpy as np
+    from modelcompression_tpu_torch.data.preprocess import letterbox_device
+    frames = np.random.default_rng(SEED).integers(
+        0, 256, (n, SRC_H, SRC_W, 3), np.uint8)
+    return letterbox_device(torch.as_tensor(frames, device="cuda"), NET, NET)
+
+
+def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
+    """Phase 12 (module docstring): GMP, LAMP, distillation, low-rank,
+    weight sharing and packing on full-width YOLOv2-VOC 416 (phase 6's
+    weights and magnitude-pruned weights, phase 7's fixture; ``bf16``:
+    phase 4's serving lines). Returns each path's launches by width."""
+    import numpy as np
+    from modelcompression_tpu_torch.cli import detect
+    from modelcompression_tpu_torch.cli import eval as eval_cli
+    from modelcompression_tpu_torch.cli import finetune, prune
+    from modelcompression_tpu_torch.compress import (
+        GMPSpec, factor_network, lamp, load_cmodel, load_qmodel,
+    )
+    from modelcompression_tpu_torch.compress import packing
+    from modelcompression_tpu_torch.core.precision import BITMATCH, FAST
+    from modelcompression_tpu_torch.data import read_data_cfg
+    from modelcompression_tpu_torch.models import (
+        cfg_path, fold_batchnorm, forward_folded, load_cfg, load_weights,
+        params_to,
+    )
+    from modelcompression_tpu_torch.native import load_huffcodec
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    from modelcompression_tpu_torch.ops import input_stage_match
+    from modelcompression_tpu_torch.train import (
+        detection_distill_loss, make_distill_plan,
+    )
+    from modelcompression_tpu_torch.train.distill import teacher_forward
+    cfg = cfg_path("yolov2-voc.cfg")
+    spec = load_cfg(cfg)
+    params, _ = load_weights(weights, spec)  # phase 6's, from seed 0
+    dev_params = params_to(params, "cuda")
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    sub = spec.net.subdivisions
+    c1 = spec.layers[0].filters
+    s_layer = len(spec.conv_indices()) + 1  # + the padding segment
+    base = ["--data", data, "--batch", str(BATCH), "--subdivisions",
+            str(sub), "--device", "cuda"]
+    widths = {}
+    t_part = [time.perf_counter()]
+
+    def done(part, **kw):
+        now = time.perf_counter()
+        emit({"phase": "compress", "part": part, "ok": True, "card": card,
+              "part_s": now - t_part[0], **kw})
+        t_part[0] = now
+
+    def out_path(name):
+        return os.path.join(tmp, name)
+
+    # (a) GMP inside the train step, per layer (S=24) and global (S=2)
+    runs = {}
+    for mode, extra, S in (("per_layer", [], s_layer),
+                           ("global", ["--gmp-global"], 2)):
+        records = []
+        log = out_path(f"gmp_{mode}.jsonl")
+        label = f"finetune --gmp ({mode})"
+        with gmp_recorder(torch, records):
+            out, counts, at, secs = _run_cli(
+                torch, kernels, finetune.main,
+                ["--cfg", cfg, *base, "--weights", weights, "--steps",
+                 str(GMP_STEPS), "--gmp", str(GMP_FINAL), "--gmp-begin", "0",
+                 "--gmp-end", str(GMP_STEPS - 1), "--gmp-freq", "1", *extra,
+                 "--out", out_path(f"gmp_{mode}.weights"), "--log-jsonl",
+                 log], label)
+        widths[f"gmp_{mode}"] = at
+        prune_want = {n: GMP_STEPS * k for n, k in PRUNE_LAUNCHES.items()}
+        expect_launches(kernels, counts, at, label,
+                        dict(prune_want, input_stage_mma=n_batches),
+                        dict({n: {S: k} for n, k in prune_want.items()},
+                             input_stage_mma={c1: n_batches}))
+        check(len(records) == GMP_STEPS
+              and all("step" in r for r in records),
+              f"{label}: {len(records)} recomputes recorded")
+        check("gmp: final sparsity" in out, f"{label}: no final line")
+        log_recs = _read_jsonl(log)
+        check(log_recs and all(math.isfinite(r["loss"]) for r in log_recs),
+              f"{label}: losses {[r['loss'] for r in log_recs]}")
+        written, _ = load_weights(out_path(f"gmp_{mode}.weights"), spec)
+        n_w = sum(p["w"].numel() for p in written.values())
+        z_w = sum(int((p["w"] == 0).sum()) for p in written.values())
+        check(z_w >= records[-1]["floor_zeros"],
+              f"{label}: {z_w} zero weights written, below "
+              f"{records[-1]['floor_zeros']}")
+        runs[mode] = {"segments": S, "seconds": secs, "due_steps": records,
+                      "sparsity_metric": log_recs[-1]["sparsity"],
+                      "written_zero_share": z_w / n_w, "launches": counts,
+                      "launches_by_width": at}
+    g_every = GMPSpec(final_sparsity=GMP_FINAL, begin=0, end=10 ** 6,
+                      frequency=1)
+    timing = [train_step_timing(torch, spec, params, sub, gmp=g, timed=3)
+              for g in (None, g_every, g_every, None)]
+    done("gmp", runs=runs, step_ms=_in_turns(timing),
+         step_note="the GMP step recomputes its masks every step (a due "
+                   "step each)")
+
+    # (b) LAMP: the prune CLI, its cut held against the stable-argsort
+    # rank on the card, then the iterate mode
+    label = "prune --mode lamp"
+    lamp_out = out_path("lamp.weights")
+    out, counts, at, secs = _run_cli(
+        torch, kernels, prune.main,
+        ["--cfg", cfg, "--weights", weights, "--mode", "lamp", "--sparsity",
+         str(LAMP_SPARSITY), "--device", "cuda", "--out", lamp_out], label)
+    widths["prune_lamp"] = at
+    expect_launches(kernels, counts, at, label, PRUNE_LAUNCHES,
+                    {n: {2: k} for n, k in PRUNE_LAUNCHES.items()})
+    keys = lamp._keys(spec, ())
+    with torch.no_grad():
+        cat, sizes = lamp._scores_layout(dev_params, keys)
+    n = sum(sizes)
+    n_zero = int(LAMP_SPARSITY * n)
+    seg = ct._seg_ids_for(sizes, cat.numel(), False, 1, cat.device)
+    nz = torch.tensor([n_zero, 0], device="cuda")
+    got = ct.prune_flat(cat, seg, nz, 2, return_mask=True)[:n] != 0
+    check(torch.equal(got, lamp.lamp_cut_plain(cat[:n], n_zero)),
+          "lamp: the cut through the kernels differs from the stable-"
+          "argsort rank on the same scores")
+    check(int((~got).sum()) == n_zero, "lamp: zero count")
+    masks = lamp.lamp_masks(dev_params, spec, LAMP_SPARSITY)
+    written, _ = load_weights(lamp_out, spec)
+    for k, m in masks.items():
+        w = written[k]["w"].to("cuda")
+        check(torch.equal(w[m], dev_params[k]["w"][m]) and not w[~m].any(),
+              f"{label}: the written weights of {k} are not the masked "
+              "params")
+    alloc = lamp.lamp_layer_sparsities(masks)
+    lamp_ms = time_ms(torch, lambda: lamp.lamp_masks(
+        dev_params, spec, LAMP_SPARSITY), iters=3, warmup=1)
+    with plain_topk():
+        lamp_plain_ms = time_ms(torch, lambda: lamp.lamp_masks(
+            dev_params, spec, LAMP_SPARSITY), iters=2, warmup=1)
+    cut_ms = time_ms(torch, lambda: ct.prune_flat(cat, seg, nz, 2,
+                                                  return_mask=True), iters=5)
+    cut_plain_ms = time_ms(torch, lambda: lamp.lamp_cut_plain(
+        cat[:n], n_zero), iters=2, warmup=1)
+    del cat, seg, got
+    label = "finetune --iterate lamp"
+    out, counts, at, secs_it = _run_cli(
+        torch, kernels, finetune.main,
+        ["--cfg", cfg, *base, "--weights", weights, "--steps",
+         str(ITER_STEPS), "--iterate", ",".join(map(str, ITER_FRACTIONS)),
+         "--iterate-mode", "lamp", "--out", out_path("lamp_it.weights")],
+        label)
+    widths["iterate_lamp"] = at
+    n_r = len(ITER_FRACTIONS)
+    prune_want = {n_: n_r * k for n_, k in PRUNE_LAUNCHES.items()}
+    expect_launches(kernels, counts, at, label,
+                    dict(prune_want, input_stage_mma=n_r * n_batches),
+                    dict({n_: {2: k} for n_, k in prune_want.items()},
+                         input_stage_mma={c1: n_r * n_batches}))
+    it_w, _ = load_weights(out_path("lamp_it.weights"), spec)
+    it_zero = sum(int((p["w"] == 0).sum()) for p in it_w.values())
+    check(it_zero >= int(ITER_FRACTIONS[-1] * n),
+          f"{label}: {it_zero} zero weights, below the last round's cut")
+    done("lamp", weights=n, zeros=n_zero, masks_equal_plain=True,
+         cli_s=secs, lamp_masks_ms=lamp_ms, lamp_masks_plain_ms=lamp_plain_ms,
+         cut_ms=cut_ms, cut_plain_ms=cut_plain_ms,
+         allocation={"min": min(alloc.values()), "max": max(alloc.values()),
+                     "by_layer": alloc},
+         iterate={"seconds": secs_it, "zero_weights": it_zero,
+                  "launches": counts})
+
+    # (c) distillation: a 75%-L1-pruned, repacked student from the
+    # unpruned teacher (phase 6's weights)
+    student_w, student_cfg = out_path("student.weights"), \
+        out_path("student.cfg")
+    _run_cli(torch, kernels, prune.main,
+             ["--cfg", cfg, "--weights", weights, "--mode", "l1_filter",
+              "--fraction", str(STUDENT_FRACTION), "--device", "cuda",
+              "--out", student_w, "--out-cfg", student_cfg],
+             "prune --mode l1_filter (the student)")
+    s_spec = load_cfg(student_cfg)
+    s_c1 = s_spec.layers[0].filters
+    log = out_path("distill.jsonl")
+    label = "finetune --distill"
+    out, counts, at, secs = _run_cli(
+        torch, kernels, finetune.main,
+        ["--cfg", student_cfg, *base, "--weights", student_w, "--steps",
+         str(DISTILL_STEPS), "--distill", weights, "--distill-cfg", cfg,
+         "--out", out_path("distilled.weights"), "--log-jsonl", log], label)
+    widths["finetune_distill"] = at
+    expect_launches(kernels, counts, at, label,
+                    {"input_stage_mma": n_batches},
+                    {"input_stage_mma": {s_c1: n_batches}})
+    log_recs = _read_jsonl(log)
+    check(log_recs and all(math.isfinite(r["loss_distill"])
+                           and r["loss_distill"] > 0 for r in log_recs),
+          f"{label}: loss_distill {[r.get('loss_distill') for r in log_recs]}")
+    plan = make_distill_plan(dev_params, spec, spec)
+    x = _frames_on_card(torch, 8)
+    t_raw = teacher_forward(plan, plan.teacher_params, x, FAST)
+    zero = float(detection_distill_loss(t_raw, t_raw, spec))
+    check(zero == 0.0, f"distill loss of the teacher against itself {zero}")
+    s_params, _ = load_weights(student_w, s_spec)
+    plan_s = make_distill_plan(dev_params, spec, s_spec)
+    timing = [train_step_timing(torch, s_spec, s_params, sub, distill=d,
+                                timed=3)
+              for d in (None, plan_s, plan_s, None)]
+    done("distill", student_conv1=s_c1, seconds=secs,
+         loss_distill=[r["loss_distill"] for r in log_recs],
+         loss=[r["loss"] for r in log_recs], self_loss=zero,
+         map50=_map_line(out)[0], step_ms=_in_turns(timing))
+    del plan, plan_s, t_raw
+
+    # (d) low-rank: the prune CLI at energy 0.9, the factored model
+    # served; every conv at full rank, its fp32 forward against the
+    # original's
+    label = "prune --mode lowrank"
+    out, counts, at, secs = _run_cli(
+        torch, kernels, prune.main,
+        ["--cfg", cfg, "--weights", weights, "--mode", "lowrank",
+         "--energy", str(LOWRANK_ENERGY), "--device", "cuda", "--out",
+         out_path("lowrank.weights")], label)
+    expect_launches(kernels, counts, at, label, {}, {})
+    m = re.search(r"lowrank: factored (\d+) convs", out)
+    check(m, f"{label}: no report line")
+    f_spec = load_cfg(out_path("lowrank.cfg"))
+    f_params, _ = load_weights(out_path("lowrank.weights"), f_spec)
+    served = drive_serving(torch, kernels, f_spec, f_params, "lowrank",
+                           want=None if input_stage_match(f_spec) else {})
+    widths["lowrank_served"] = served["launches_by_width"]
+    t0 = time.perf_counter()
+    full_spec, full_params, report = factor_network(
+        params, spec, energy=1.0, max_cost=1e9)
+    full_s = time.perf_counter() - t0
+    check(len(report) == len(spec.conv_indices()),
+          f"full rank: {len(report)} of {len(spec.conv_indices())} convs "
+          "factored")
+    x = _frames_on_card(torch, 2)
+    BITMATCH.apply_backend_flags()
+    with torch.inference_mode():
+        y0 = forward_folded(params_to(fold_batchnorm(params, spec), "cuda"),
+                            x, spec, BITMATCH)
+        y1 = forward_folded(params_to(fold_batchnorm(full_params, full_spec),
+                                      "cuda"), x, full_spec, BITMATCH)
+        rel = ((y1 - y0).abs().max() / y0.abs().max()).item()
+    check(rel <= FP32_RTOL, f"full-rank factored fp32 forward: max rel "
+          f"{rel} > {FP32_RTOL}")
+    done("lowrank", energy=LOWRANK_ENERGY, host_s=secs,
+         factored_convs=int(m.group(1)), params_line=[
+             ln for ln in out.splitlines() if ln.startswith("lowrank:")],
+         served=served,
+         unfactored_img_per_s=bf16["unpruned"]["img_per_s"],
+         full_rank={"convs": len(report), "host_s": full_s,
+                    "ranks_below_full": sum(e.rank < e.full_rank
+                                            for e in report),
+                    "fp32_max_rel": rel})
+    del full_params, y0, y1
+
+    # (e) weight sharing and packing on phase 6's 75%-magnitude-pruned
+    # weights: eval --cluster-bits --save-cmodel --pack, the artifact
+    # served (its raw maps bit-equal to the reconstructed params'), the
+    # native codec, and the packed int8 artifact of finetune --qat
+    pruned = out_path("magnitude.weights")
+    cpath = out_path("yolov2-voc-c6.npz")
+    captured = {}
+    orig_reconstruct = eval_cli.reconstruct
+
+    def capture(cmodel, *a, **kw):
+        captured["cmodel"] = cmodel
+        captured["params"] = orig_reconstruct(cmodel, *a, **kw)
+        return captured["params"]
+    label = "eval --cluster-bits --save-cmodel --pack"
+    eval_cli.reconstruct = capture
+    try:
+        out, counts, at, secs = _run_cli(
+            torch, kernels, eval_cli.main,
+            ["--cfg", cfg, "--weights", pruned, "--data", data, "--batch",
+             str(BATCH), "--device", "cuda", "--cluster-bits",
+             str(CLUSTER_BITS), "--save-cmodel", cpath, "--pack", "huffman"],
+            label)
+    finally:
+        eval_cli.reconstruct = orig_reconstruct
+    widths["eval_cluster"] = at
+    expect_launches(kernels, counts, at, label,
+                    {"input_stage_mma": n_batches},
+                    {"input_stage_mma": {c1: n_batches}})
+    check(load_huffcodec() is not None, "the native Huffman codec did not "
+          "load (g++ build into modelcompression_tpu_torch/_build)")
+    loaded, _ = load_cmodel(cpath, spec=spec)
+    x = _frames_on_card(torch, 2)
+    with torch.inference_mode():
+        raw = [forward_folded(params_to(fold_batchnorm(p, spec), "cuda"), x,
+                              spec, FAST, fuse_input_stage=True)
+               for p in (captured["params"], loaded)]
+    check(torch.equal(raw[0], raw[1]), "the served cmodel's raw maps differ "
+          "from the reconstructed params'")
+    entry = captured["cmodel"][DECODE_LAYER]
+    fields = packing.pack_codes(entry["codes"], entry["codebook"].size,
+                                "huffman")
+    nc = entry["codes"].size
+    t0 = time.perf_counter()
+    for _ in range(10):
+        native = packing.huffman_decode(fields["payload"],
+                                        fields["huff_lengths"], nc)
+    native_ms = (time.perf_counter() - t0) * 1e2
+    t0 = time.perf_counter()
+    py = packing._decode_py(fields["payload"], fields["huff_lengths"], nc)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(native, py)
+          and np.array_equal(native, entry["codes"].ravel()),
+          "native decode differs from _decode_py")
+    listed = read_data_cfg(data)
+    with open(listed["valid"]) as f:
+        paths = f.read().split()
+    det_dir = out_path("detect_cmodel_in")
+    os.makedirs(det_dir, exist_ok=True)
+    for p_ in paths[:DETECT_QMODEL_IMAGES]:
+        shutil.copy(p_, det_dir)
+    _, counts, at, secs_d = _run_cli(
+        torch, kernels, detect.main,
+        ["--cfg", cfg, "--cmodel", cpath, "--dir", det_dir, "--out-dir",
+         out_path("detect_cmodel_out"), "--batch",
+         str(DETECT_QMODEL_IMAGES), "--device", "cuda", "--deployment"],
+        "detect --cmodel --dir")
+    widths["detect_cmodel"] = at
+    expect_launches(kernels, counts, at, "detect --cmodel", {
+        "input_stage_mma": 1}, {"input_stage_mma": {c1: 1}})
+    widths["server_cmodel"] = phase_server(
+        torch, kernels, card, extra=["--cmodel", cpath],
+        want={"input_stage_mma": 1}, label="yolov2_voc_cmodel",
+        phase="compress_server")
+    qpath = out_path("qat-packed.npz")
+    label = "finetune --qat --save-qmodel --pack"
+    out_f, counts, at, secs_q = _run_cli(
+        torch, kernels, finetune.main,
+        ["--cfg", cfg, *base, "--weights", weights, "--steps",
+         str(QAT_PACK_STEPS), "--qat", "--save-qmodel", qpath, "--pack",
+         "--out", out_path("qat-packed.weights")], label)
+    widths["finetune_qat_pack"] = at
+    expect_launches(kernels, counts, at, label,
+                    {"input_stage_mma": n_batches},
+                    {"input_stage_mma": {c1: n_batches}})
+    with np.load(qpath) as z:
+        n_packed = sum(f_.endswith("/wq_payload") for f_ in z.files)
+    check(n_packed == len(spec.conv_indices()),
+          f"{label}: {n_packed} packed int8 tensors")
+    q, _ = load_qmodel(qpath, spec=spec)
+    check(all(q[f"conv{i}"]["w_q"].dtype == torch.int8
+              for i in spec.conv_indices()), f"{label}: unpacked w_q")
+    ft_map = _map_line(out_f.split("int8 deployment (QAT grids):")[1])[0]
+    out_e, _, _, _ = _run_cli(
+        torch, kernels, eval_cli.main,
+        ["--cfg", cfg, "--qmodel", qpath, "--data", data, "--batch",
+         str(BATCH), "--device", "cuda"], "eval --qmodel (packed)")
+    check(_map_line(out_e)[0] == ft_map, f"eval --qmodel of the packed "
+          f"export: mAP {_map_line(out_e)[0]}, finetune printed {ft_map}")
+    done("share", bits=CLUSTER_BITS, seconds=secs,
+         map50=_map_line(out)[0], artifact_bytes=os.path.getsize(cpath),
+         weights_bytes=os.path.getsize(pruned),
+         bits_per_weight=os.path.getsize(cpath) * 8 / sum(
+             p["w"].numel() for p in params.values()),
+         raw_maps_equal=True, native_codec=True,
+         decode_layer=DECODE_LAYER, decode_codes=int(nc),
+         native_decode_ms=native_ms, py_decode_ms=py_ms, detect_s=secs_d,
+         qat_pack={"seconds": secs_q, "packed_tensors": n_packed,
+                   "bytes": os.path.getsize(qpath), "int8_map50": ft_map,
+                   "qmodel_map_equal": True})
+    return widths
+
+
 TOPK_ENTRIES = (
     ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
     ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
@@ -2977,7 +3474,7 @@ TOPK_ENTRIES = (
 
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                    ft_widths, fam_widths, fam_topk, train_widths,
-                   train_topk, int8_widths, quantile_select):
+                   train_topk, int8_widths, quantile_select, cmp_widths):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -3019,7 +3516,11 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     8 images; ``launches`` is the calibration's, two selects per chunk),
     and every entry counts its launches on the int8 phase's paths
     (``int8_launches``: the tensor-core input stage in the QAT
-    fine-tune's float eval, nothing on the int8 serving paths)."""
+    fine-tune's float eval, nothing on the int8 serving paths). Every
+    entry counts its launches on the compression phase's paths
+    (``compress_launches``: GMP's recompute at S=24 and S=2, LAMP's cut
+    at S=2, the evals' input stage at C=32 and the distilled student's at
+    C=8, the cmodel's serving)."""
     def on(widths, source, width):
         return {path: at[source].get(width, 0)
                 for path, at in widths.items()}
@@ -3052,7 +3553,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "finetune_launches": on_finetune(source, c_out),
             "families_launches": on(fam_widths, source, c_out),
             "families_train_launches": on(train_widths, source, c_out),
-            "int8_launches": on(int8_widths, source, c_out)})
+            "int8_launches": on(int8_widths, source, c_out),
+            "compress_launches": on(cmp_widths, source, c_out)})
     for dtype, name, path in (
             ("bfloat16", "input_stage_mma[C=16]", "yolov3_tiny"),
             ("float32", "input_stage_f32[C=16]", "yolov3_tiny_fp32")):
@@ -3070,7 +3572,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "prev_max_abs_err": r["prev_max_abs_err"],
             "families_launches": on(fam_widths, source, 16),
             "families_train_launches": on(train_widths, source, 16),
-            "int8_launches": on(int8_widths, source, 16)})
+            "int8_launches": on(int8_widths, source, 16),
+            "compress_launches": on(cmp_widths, source, 16)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -3084,7 +3587,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "finetune_launches": on_finetune(YARDSTICK, 32),
         "families_launches": on(fam_widths, YARDSTICK, 32),
         "families_train_launches": on(train_widths, YARDSTICK, 32),
-        "int8_launches": on(int8_widths, YARDSTICK, 32)})
+        "int8_launches": on(int8_widths, YARDSTICK, 32),
+        "compress_launches": on(cmp_widths, YARDSTICK, 32)})
 
     def topk_entry(r, key, source, body, name, launches, widths, library):
         k = r[key]
@@ -3124,7 +3628,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                  "finetune_launches": on_finetune(source, s),
                  "families_launches": on(fam_widths, source, s),
                  "families_train_launches": on(train_widths, source, s),
-                 "int8_launches": on(int8_widths, source, s)},
+                 "int8_launches": on(int8_widths, source, s),
+                 "compress_launches": on(cmp_widths, source, s)},
                 None if s == 24 else
                 "torch.kthvalue: the k-th |w| of the one real segment"))
     s = fam_topk["S"]
@@ -3134,7 +3639,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             fam_widths["yolov4_voc_bisect"][source].get(s, 0),
             {"families_launches": on(fam_widths, source, s),
              "families_train_launches": on(train_widths, source, s),
-             "int8_launches": on(int8_widths, source, s)},
+             "int8_launches": on(int8_widths, source, s),
+             "compress_launches": on(cmp_widths, source, s)},
             "torch.topk of the 128 best scores per image: the whole "
             "selection"))
     s = train_topk["S"]
@@ -3143,7 +3649,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             train_topk, key, source, body, f"{source}[S={s},yolov4]",
             train_widths["prune_magnitude_yolov4"][source].get(s, 0),
             {"families_train_launches": on(train_widths, source, s),
-             "int8_launches": on(int8_widths, source, s)}, None))
+             "int8_launches": on(int8_widths, source, s),
+             "compress_launches": on(cmp_widths, source, s)}, None))
     q = quantile_select
     entries.append({
         "name": f"topk_radix_select[S={q['S']},quantile]", "route": "cuda",
@@ -3154,7 +3661,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "bound_by": q["bound_by"], "library_ms": None,
         "pass_ms": q["pass_ms"], "pass_bound_ms": q["pass_bound_ms"],
         "four_pass_bound_ms": q["four_pass_bound_ms"], "elements": q["n"],
-        "int8_launches": on(int8_widths, "topk_radix_select", q["S"])})
+        "int8_launches": on(int8_widths, "topk_radix_select", q["S"]),
+        "compress_launches": on(cmp_widths, "topk_radix_select", q["S"])})
     return entries
 
 
@@ -3201,11 +3709,14 @@ def main() -> int:
                 torch, KERNELS, card, tmp, data)
             int8_widths, quantile_select = phase_int8(
                 torch, KERNELS, card, tmp, data, weights, main_lines)
+            cmp_widths = phase_compress(torch, KERNELS, card, tmp, data,
+                                        weights, main_lines)
         emit({"kernels": kernel_entries(cases, launches, topk,
                                         prune_launches, eval_widths,
                                         ft_widths, fam_widths, fam_topk,
                                         train_widths, train_topk,
-                                        int8_widths, quantile_select)})
+                                        int8_widths, quantile_select,
+                                        cmp_widths)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

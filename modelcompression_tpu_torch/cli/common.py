@@ -233,20 +233,23 @@ def load_model(args, seed: int = 0):
 
 
 def load_serving_model(args):
-    """``(spec, params, quantized)`` from ``--weights`` (or random init) or
-    a ``--qmodel`` int8 artifact (written by either package), whose
-    embedded architecture must match ``--cfg`` (``ValueError``
-    otherwise). ``quantized`` means params is the int8 pytree of
-    ``compress.forward_quantized``, BN-folded when it was saved.
-    ``--cmodel`` artifacts are not ported yet."""
+    """``(spec, params, quantized)`` from ``--weights`` (or random init), a
+    ``--qmodel`` int8 artifact or a ``--cmodel`` weight-sharing artifact
+    (either written by either package), whose embedded architecture must
+    match ``--cfg`` (``ValueError`` otherwise). ``quantized`` means params
+    is the int8 pytree of ``compress.forward_quantized``, BN-folded when it
+    was saved; a cmodel gives the reconstructed float32 params, served as
+    ``--weights`` are."""
     if getattr(args, "qmodel", None):
         from modelcompression_tpu_torch.compress import load_qmodel
         params, spec = load_qmodel(args.qmodel, spec=load_cfg(
             args.cfg, strict=getattr(args, "strict_cfg", False)))
         return spec, params, True
     if getattr(args, "cmodel", None):
-        raise ValueError("--cmodel is not ported to the PyTorch package "
-                         "yet (ROADMAP Queue 1 item 6e)")
+        from modelcompression_tpu_torch.compress import load_cmodel
+        params, spec = load_cmodel(args.cmodel, spec=load_cfg(
+            args.cfg, strict=getattr(args, "strict_cfg", False)))
+        return spec, params, False
     spec, params, _ = load_model(args)
     return spec, params, False
 

@@ -9,8 +9,10 @@ Runs on --device (default cuda; a missing CUDA device is an error).
 Reading, drawing and writing images and video use cv2. ``--qmodel``
 serves an int8 artifact (``eval --int8 --save-qmodel`` or ``finetune
 --qat --save-qmodel``, of either package) through
-``compress.forward_quantized``. ``--cmodel`` (ROADMAP Queue 1 item 6e)
-and ``--dp`` (item 7) are not ported yet and exit 2.
+``compress.forward_quantized``; ``--cmodel`` a weight-sharing artifact
+(``eval --cluster-bits N --save-cmodel``, of either package, packed or
+not) as its reconstructed float32 params. ``--dp`` (ROADMAP Queue 1 item
+7) is not ported yet and exits 2.
 
 Examples:
   python -m modelcompression_tpu_torch.cli.detect --cfg yolov2-voc.cfg \\
@@ -76,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve a saved int8 deployment artifact "
                         "(eval --int8 --save-qmodel) instead of --weights")
     p.add_argument("--cmodel", default=None, metavar="PATH",
-                   help="weight-sharing artifact (not ported yet)")
+                   help="serve a saved weight-sharing artifact "
+                        "(eval --cluster-bits N --save-cmodel) instead "
+                        "of --weights")
     return p
 
 

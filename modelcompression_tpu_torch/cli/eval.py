@@ -15,9 +15,14 @@ first --calib-images images (absmax, or --calib-quantile through the
 radix-select kernel on CUDA), every conv int8 or the --int8-layers subset
 (the rest bf16); on CUDA each int8 conv is cuBLASLt's int8 GEMM.
 ``--save-qmodel`` writes the int8 artifact, ``--qmodel`` serves one
-(written by either package). Not ported yet, each rejected with exit code
-2 naming its ROADMAP item: --cluster-bits, --save-cmodel, --cmodel and
---pack (Queue 1 item 6e); --dp / --tp above 1 (item 7). Every NMS variant
+(written by either package). ``--cluster-bits N`` clusters each conv's
+weights into a 2^N-entry k-means codebook on the host
+(compress/codebook.py) and evaluates the reconstructed model;
+``--save-cmodel`` writes that artifact (``--pack huffman|fixed``
+entropy-codes its codes, or the int8 weights of ``--save-qmodel``), and
+``--cmodel`` serves one through the unchanged FAST path (input-stage
+kernel included). --dp / --tp above 1 are not ported yet (ROADMAP Queue 1
+item 7) and exit 2 naming their item. Every NMS variant
 of the JAX CLI runs: --exact-nms, --soft-nms (--soft-nms-sigma),
 --diou-nms (--diou-beta), --nms-prefilter-impl bisect. [region] (YOLOv2)
 and [yolo] (YOLOv3 / YOLOv4) cfgs evaluate alike.
@@ -30,6 +35,7 @@ Example:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from modelcompression_tpu_torch.cli.common import (
@@ -37,7 +43,8 @@ from modelcompression_tpu_torch.cli.common import (
     load_serving_model, prep_calibration, prepare_serving,
 )
 from modelcompression_tpu_torch.compress import (
-    quantize_from_batches, save_qmodel,
+    cluster_network, quantize_from_batches, reconstruct, save_cmodel,
+    save_qmodel,
 )
 from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.core.precision import get_precision
@@ -45,9 +52,6 @@ from modelcompression_tpu_torch.evaluation import (
     EvalConfig, dump_detections, evaluate, evaluate_recall,
 )
 from modelcompression_tpu_torch.models import fold_batchnorm, params_to
-
-_NOT_PORTED = "not ported yet; rejected"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -150,15 +154,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of --weights, with no recalibration")
     p.add_argument("--cluster-bits", type=int, default=None,
                    metavar="BITS",
-                   help=f"weight sharing ({_NOT_PORTED})")
+                   help="weight sharing: replace each conv's weights with "
+                        "a per-layer k-means codebook of 2^BITS shared "
+                        "values (pruned zeros stay exact), then evaluate "
+                        "the reconstructed model")
     p.add_argument("--save-cmodel", default=None, metavar="PATH",
-                   help=f"save the weight-sharing artifact ({_NOT_PORTED})")
+                   help="with --cluster-bits: save the weight-sharing "
+                        "artifact (.npz with codes + codebooks + the arch "
+                        "cfg; the JAX package's format)")
     p.add_argument("--pack", nargs="?", const="huffman", default=None,
                    choices=("huffman", "fixed"), metavar="METHOD",
-                   help=f"entropy-code a saved artifact ({_NOT_PORTED})")
+                   help="entropy-code the saved artifact's code tensors "
+                        "(--save-cmodel) or int8 weights (--save-qmodel): "
+                        "'huffman' (default) canonical-Huffman-codes "
+                        "them; 'fixed' bit-packs to ceil(log2 K) bits. "
+                        "Loading is transparent")
     p.add_argument("--cmodel", default=None, metavar="PATH",
-                   help=f"serve a saved weight-sharing artifact "
-                        f"({_NOT_PORTED})")
+                   help="serve a saved weight-sharing artifact "
+                        "(--save-cmodel) instead of --weights; the "
+                        "reconstruction is exact")
     add_parallel_args(p)
     return p
 
@@ -206,15 +220,33 @@ def _usage_error(args):
 def _not_ported(args):
     """The flag a command line needs that is not ported yet, with its
     ROADMAP item, or None."""
-    for flag, on, item in (
-            ("--cluster-bits", args.cluster_bits is not None, "6e"),
-            ("--save-cmodel", args.save_cmodel, "6e"),
-            ("--cmodel", args.cmodel, "6e"), ("--pack", args.pack, "6e"),
-            ("--dp", args.dp > 1, 7), ("--tp", args.tp > 1, 7)):
+    for flag, on in (("--dp", args.dp > 1), ("--tp", args.tp > 1)):
         if on:
             return (f"{flag} is not ported to the PyTorch package yet "
-                    f"(ROADMAP Queue 1 item {item})")
+                    f"(ROADMAP Queue 1 item 7)")
     return None
+
+
+def _cluster(args, spec, params):
+    """--cluster-bits: the reconstructed params of the clustered model,
+    written to --save-cmodel when asked; raises ValueError on bad bits."""
+    cmodel = cluster_network(params, spec, bits=args.cluster_bits)
+    params = reconstruct(cmodel)
+    print(f"weight sharing: {args.cluster_bits}-bit codebooks "
+          f"(<= {1 << args.cluster_bits} shared values per conv)",
+          file=sys.stderr)
+    if args.save_cmodel:
+        save_cmodel(args.save_cmodel, cmodel, spec, pack=args.pack)
+        n_w = sum(int(e["codes"].size) for e in cmodel.values()
+                  if "codes" in e)
+        size = os.path.getsize(args.save_cmodel)
+        print(f"wrote weight-sharing artifact to {args.save_cmodel} "
+              f"({size / 1e6:.2f} MB"
+              + (f", {size * 8 / max(n_w, 1):.2f} bits/weight "
+                 f"incl. f32 vectors+container; pack={args.pack}"
+                 if args.pack else "") + ")",
+              file=sys.stderr)
+    return params
 
 
 def main(argv=None) -> int:
@@ -226,6 +258,8 @@ def main(argv=None) -> int:
     resolve_device(args.device)  # no CUDA: raise before reading anything
     try:
         spec, params, quantized = load_serving_model(args)
+        if args.cluster_bits is not None:
+            params = _cluster(args, spec, params)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -268,7 +302,7 @@ def main(argv=None) -> int:
             int8_layers=int8_sel)
         quantized = True
         if args.save_qmodel:
-            save_qmodel(args.save_qmodel, params, spec)
+            save_qmodel(args.save_qmodel, params, spec, pack=args.pack)
             print(f"wrote int8 deployment artifact to {args.save_qmodel}",
                   file=sys.stderr)
     if quantized:

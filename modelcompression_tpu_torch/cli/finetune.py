@@ -7,8 +7,9 @@ iterative prune -> fine-tune -> eval loop: the structured modes
 ``l1_filter``, ``bn_gamma``, ``fpgm`` and ``taylor`` (scores on
 --taylor-batches batches a round) repack each round (and write the
 slimmed cfg), with ``--tied group`` pruning the shortcut-tied groups of
-residual networks too; ``magnitude`` / ``global`` recompute the masks each
-round through the hand-written top-k kernels on CUDA. Every bundled cfg
+residual networks too; ``magnitude`` / ``global`` / ``lamp`` recompute the
+masks each round through the hand-written top-k kernels on CUDA. Every
+bundled cfg
 trains: [region] (YOLOv2) and [yolo] (YOLOv3 / YOLOv4, the multi-head
 loss). Each run ends with an eval (FAST, batch --batch) of the written
 model.
@@ -18,13 +19,18 @@ with the straight-through estimator, compress/qat.py): the activation
 grids are calibrated on the first --qat-calib-images training images
 (absmax, or --qat-quantile), the --qat-layers convs train int8. After the
 float model's eval comes the exported int8 model's, and --save-qmodel
-writes that int8 artifact.
+writes that int8 artifact (entropy-coded with --pack).
+
+``--gmp S`` ramps the weight sparsity to S on a cubic schedule inside the
+train step (compress/gmp.py): on each due step the masks are recomputed
+from the updated weights through the top-k kernels (per layer, or one
+threshold with --gmp-global). ``--distill T.weights`` adds the loss
+against that teacher's raw map (train/distill.py; --distill-cfg when the
+teacher's architecture differs), in every round with --iterate.
 
 The command lines of the JAX CLI run unchanged: its validations come
-first, with its messages and exit code 2. Not ported yet, each then
-rejected with exit code 2 naming its ROADMAP item: --gmp and --distill
-(Queue 1 item 6), --pack (item 6e); --iterate-mode lamp (item 6); --dp /
---tp above 1 (item 7).
+first, with its messages and exit code 2. --dp / --tp above 1 are not
+ported yet (ROADMAP Queue 1 item 7) and exit 2 naming their item.
 
 Example:
   python -m modelcompression_tpu_torch.cli.finetune --cfg slim.cfg \\
@@ -47,21 +53,21 @@ from modelcompression_tpu_torch.cli.common import (
     quantized_eval_config, resolve_batch_subdivisions, resolve_mask_backend,
 )
 from modelcompression_tpu_torch.compress import (
-    DEFAULT_MASK_BACKEND, MASK_BACKENDS, qat_spec_from_batches,
-    quantize_qat, save_qmodel,
+    DEFAULT_MASK_BACKEND, MASK_BACKENDS, GMPSpec, gmp_init_masks,
+    qat_spec_from_batches, quantize_qat, save_qmodel,
 )
 from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.evaluation import EvalConfig, evaluate
 from modelcompression_tpu_torch.models import (
-    dump_cfg, params_to, save_weights,
+    dump_cfg, load_cfg, load_weights, params_to, save_weights,
 )
 from modelcompression_tpu_torch.models.cfg import ConvLayer
 from modelcompression_tpu_torch.train import (
     BatchLoader, TrainConfig, TrainState, iterative_prune_finetune,
-    make_optimizer, train,
+    make_distill_plan, make_optimizer, train,
 )
 from modelcompression_tpu_torch.train.loop import (
-    NOT_PORTED_MODES, STRUCTURED_MODES,
+    STRUCTURED_MODES,
 )
 from modelcompression_tpu_torch.utils.logging import MetricsLogger
 
@@ -112,17 +118,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preserve-sparsity", action="store_true",
                    help="freeze the zero pattern of the loaded weights")
     p.add_argument("--gmp", type=float, default=None, metavar="SPARSITY",
-                   help="gradual magnitude pruning (not ported yet)")
-    p.add_argument("--gmp-begin", type=int, default=0)
-    p.add_argument("--gmp-end", type=int, default=None)
-    p.add_argument("--gmp-freq", type=int, default=100)
-    p.add_argument("--gmp-initial", type=float, default=0.0)
-    p.add_argument("--gmp-global", action="store_true")
+                   help="gradual magnitude pruning (Zhu & Gupta 2017): "
+                        "ramp weight sparsity to this final value on a "
+                        "cubic schedule, recomputing the masks inside the "
+                        "train step (compress/gmp.py)")
+    p.add_argument("--gmp-begin", type=int, default=0,
+                   help="first step of the GMP ramp (default 0)")
+    p.add_argument("--gmp-end", type=int, default=None,
+                   help="step at which the ramp reaches the final "
+                        "sparsity (default: the run's last step, --steps "
+                        "- 1; steps are 0-based, later values are "
+                        "rejected)")
+    p.add_argument("--gmp-freq", type=int, default=100,
+                   help="recompute the masks every this many steps "
+                        "(plus once exactly at --gmp-end)")
+    p.add_argument("--gmp-initial", type=float, default=0.0,
+                   help="sparsity at the start of the ramp (default 0)")
+    p.add_argument("--gmp-global", action="store_true",
+                   help="one magnitude threshold across all convs instead "
+                        "of per-layer sparsity")
     p.add_argument("--distill", default=None, metavar="WEIGHTS",
-                   help="knowledge-distillation teacher (not ported yet)")
-    p.add_argument("--distill-cfg", default=None)
-    p.add_argument("--distill-weight", type=float, default=1.0)
-    p.add_argument("--distill-temp", type=float, default=1.0)
+                   help="knowledge-distillation fine-tune: train against "
+                        "this teacher's outputs beside the ground truth "
+                        "(train/distill.py); with --iterate every round's "
+                        "student distills from it")
+    p.add_argument("--distill-cfg", default=None,
+                   help="teacher architecture cfg (default: --cfg; must "
+                        "share the student's anchors/classes head)")
+    p.add_argument("--distill-weight", type=float, default=1.0,
+                   help="blend of the distillation loss into the total "
+                        "(total = detection + W * distill)")
+    p.add_argument("--distill-temp", type=float, default=1.0,
+                   help="softmax temperature for the class soft targets "
+                        "([region] family; [yolo] classes are distilled "
+                        "by MSE)")
     p.add_argument("--qat", action="store_true",
                    help="quantization-aware fine-tune: train with the "
                         "deployed int8 grids simulated in the forward "
@@ -146,7 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pack", nargs="?", const="huffman", default=None,
                    choices=("huffman", "fixed"), metavar="METHOD",
                    help="with --save-qmodel: entropy-code the int8 "
-                        "weights (not ported yet)")
+                        "weight tensors (compress/packing.py; loading "
+                        "is transparent)")
     p.add_argument("--iterate", default=None,
                    help="comma list of cumulative prune fractions for the "
                         "iterative loop, e.g. 0.25,0.5,0.75")
@@ -239,17 +269,35 @@ def _usage_error(args, spec) -> str | None:
 def _not_ported(args) -> str | None:
     """The first option the command line needs that is not ported yet,
     with its ROADMAP item, or None."""
-    mode = args.iterate_mode if args.iterate else None
-    for flag, on, item in (
-            ("--gmp", args.gmp is not None, 6), ("--pack", args.pack, "6e"),
-            ("--distill", args.distill, 6),
-            ("--dp", args.dp > 1, 7), ("--tp", args.tp > 1, 7),
-            (f"--iterate-mode {mode}", mode in NOT_PORTED_MODES,
-             NOT_PORTED_MODES.get(mode))):
+    for flag, on in (("--dp", args.dp > 1), ("--tp", args.tp > 1)):
         if on:
             return (f"{flag} is not ported to the PyTorch package yet "
-                    f"(ROADMAP Queue 1 item {item})")
+                    f"(ROADMAP Queue 1 item 7)")
     return None
+
+
+def _gmp_spec(args) -> GMPSpec:
+    """The GMPSpec of --gmp; ValueError with the JAX CLI's message when the
+    ramp does not fit in the run's 0-based steps or the spec is invalid."""
+    last = args.steps - 1
+    if args.gmp_end is not None and args.gmp_end > last:
+        raise ValueError(
+            f"--gmp-end {args.gmp_end} is past the run's last step {last} "
+            f"(steps are 0-based); the ramp would never reach the final "
+            f"sparsity")
+    if args.gmp_begin >= last:
+        raise ValueError(f"--gmp-begin {args.gmp_begin} leaves no room for "
+                         f"the ramp (last step is {last})")
+    try:
+        return GMPSpec(final_sparsity=args.gmp,
+                       initial_sparsity=args.gmp_initial,
+                       begin=args.gmp_begin,
+                       end=args.gmp_end if args.gmp_end is not None
+                       else last,
+                       frequency=args.gmp_freq,
+                       per_layer=not args.gmp_global)
+    except ValueError as e:
+        raise ValueError(f"--gmp: {e}") from e
 
 
 def _to_cpu(params):
@@ -293,6 +341,27 @@ def main(argv=None) -> int:
         qat_spec = qat_spec_from_batches(dev_params, spec, chunks,
                                          int8_layers=int8_sel,
                                          quantile=args.qat_quantile)
+    distill_plan = None
+    if args.distill:
+        t_spec = load_cfg(args.distill_cfg) if args.distill_cfg else spec
+        t_params, _ = load_weights(args.distill, t_spec)
+        try:
+            distill_plan = make_distill_plan(
+                params_to(t_params, device), t_spec, spec,
+                weight=args.distill_weight, temp=args.distill_temp)
+        except ValueError as e:
+            print(f"error: --distill: {e}", file=sys.stderr)
+            return 2
+        print(f"distilling from teacher {args.distill} "
+              f"(weight {args.distill_weight:g}, T {args.distill_temp:g})",
+              file=sys.stderr)
+    gmp_spec = None
+    if args.gmp is not None:
+        try:
+            gmp_spec = _gmp_spec(args)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
 
     overrides = {}
     if args.ema is not None:
@@ -306,7 +375,7 @@ def main(argv=None) -> int:
                                    augment_mosaic=mosaic,
                                    augment_hsv=args.hsv,
                                    subdivisions=subdiv, qat=qat_spec,
-                                   bn_l1=args.bn_l1,
+                                   bn_l1=args.bn_l1, gmp=gmp_spec,
                                    freeze_prefix=args.freeze, **overrides)
     loader = BatchLoader(samples, batch_size=batch,
                          net_h=spec.net.height, net_w=spec.net.width,
@@ -329,7 +398,7 @@ def main(argv=None) -> int:
             mode=args.iterate_mode,
             rng=torch.Generator().manual_seed(args.seed), logger=logger,
             ckpt_dir=args.ckpt_dir, resume=args.resume, initial_seen=seen,
-            mask_backend=args.mask_backend,
+            mask_backend=args.mask_backend, distill=distill_plan,
             taylor_batches=args.taylor_batches, tied=args.tied)
         if not rounds:
             print("nothing to do: all rounds already checkpointed")
@@ -346,6 +415,14 @@ def main(argv=None) -> int:
         return 0
 
     weight_masks = {}
+    if gmp_spec is not None:
+        weight_masks = gmp_init_masks(dev_params, spec, gmp_spec)
+        mode = "global" if args.gmp_global else "per-layer"
+        print(f"gmp: ramping {mode} sparsity "
+              f"{gmp_spec.initial_sparsity:.0%} -> "
+              f"{gmp_spec.final_sparsity:.0%} over steps "
+              f"[{gmp_spec.begin}, {gmp_spec.end}], mask recompute every "
+              f"{gmp_spec.frequency} steps (on {args.device})")
     if args.preserve_sparsity:
         for k, p in dev_params.items():
             m = p["w"] != 0
@@ -367,7 +444,7 @@ def main(argv=None) -> int:
                               weight_masks=weight_masks, seen=seen,
                               ema=args.ema is not None)
     state = train(state, spec, config, loader, n_steps=args.steps,
-                  logger=logger)
+                  logger=logger, distill=distill_plan)
     # with --ema the delivered model is the EMA shadow (weights and BN
     # running stats); the live SGD iterate stays in the state only
     out_params = state["ema_params"] if args.ema is not None \
@@ -377,6 +454,14 @@ def main(argv=None) -> int:
     print(f"wrote {args.out}"
           + (f" (EMA weights, decay {args.ema:g})"
              if args.ema is not None else ""))
+    if gmp_spec is not None:
+        masks = state["weight_masks"].values()
+        n_total = sum(m.numel() for m in masks)
+        n_zero = sum(int((~m).sum()) for m in masks)
+        print(f"gmp: final sparsity {n_zero / max(n_total, 1):.2%} "
+              f"({n_zero}/{n_total} weights zeroed; zero pattern is baked "
+              f"into {args.out} — fine-tune further with "
+              f"--preserve-sparsity)")
     res = evaluate(out_params, spec, eval_samples, eval_names, eval_cfg)
     print(res.summary())
     if qat_spec is not None:
@@ -389,7 +474,7 @@ def main(argv=None) -> int:
         print("int8 deployment (QAT grids):")
         print(qres.summary())
         if args.save_qmodel:
-            save_qmodel(args.save_qmodel, qparams, spec)
+            save_qmodel(args.save_qmodel, qparams, spec, pack=args.pack)
             print(f"wrote int8 deployment artifact to {args.save_qmodel} "
                   f"(serve with eval/detect --qmodel)")
     return 0

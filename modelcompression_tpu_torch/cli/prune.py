@@ -3,6 +3,9 @@
 Modes:
   magnitude   per-layer unstructured magnitude masks at --sparsity
   global      one global |w| threshold at --sparsity
+  lamp        layer-adaptive global magnitude (Lee et al. 2021): one global
+              rank over w^2 / per-layer surviving-mass suffix sums, so the
+              per-layer allocation is automatic; --sparsity
   l1_filter   L1-norm filter ranking at --fraction (or a per-layer
               --fractions schedule) + physical channel repack; writes a
               rewritten cfg beside the slimmed weights. Every filter mode
@@ -15,6 +18,9 @@ Modes:
   taylor      first-order Taylor filter ranking (Molchanov et al. 2017):
               |sum a * dL/da| measured on --score-batches training batches
               of --batch images from --data (required); same repack
+  lowrank     SVD-factor each conv into kxk->r linear + 1x1 (r chosen by
+              --energy or --rank, under the --max-cost FLOPs guard);
+              writes a rewritten cfg whose factored layers are plain convs
 
 --tied group prunes each shortcut-tied group of a residual network with
 one shared keep-set ranked by group-summed scores (the filter modes; the
@@ -23,14 +29,12 @@ default, protect, leaves those convs unpruned).
 The params are read on the CPU, moved to --device (default cuda; a
 missing CUDA device is an error), masked, scored and ranked there, and
 brought back to be written. On a CUDA device the magnitude masks run the
-hand-written top-k/mask kernels (ops/cuda_topk.py); --mask-backend
-reference selects the stable-argsort definition instead. --sweep writes
-one file per point; with --data it also evaluates each point's model on
-the dataset (mAP@50, evaluation/pipeline.evaluate, batch --batch, on
---device).
-
-Not ported yet, each rejected with exit code 2: the modes lamp and
-lowrank (ROADMAP Queue 1 item 6).
+hand-written top-k/mask kernels (ops/cuda_topk.py), as does lamp's global
+cut; --mask-backend reference selects the stable-argsort definition for
+magnitude and global. lowrank's SVD runs in numpy on the host. --sweep
+writes one file per point; with --data it also evaluates each point's
+model on the dataset (mAP@50, evaluation/pipeline.evaluate, batch
+--batch, on --device).
 
 Examples:
   python -m modelcompression_tpu_torch.cli.prune \
@@ -56,9 +60,10 @@ from modelcompression_tpu_torch.cli.common import (
 )
 from modelcompression_tpu_torch.compress import (
     DEFAULT_MASK_BACKEND, MASK_BACKENDS, SCORE_NORMS, apply_masks,
-    csp_balanced_scores_device, filter_scores_device,
+    csp_balanced_scores_device, factor_network, filter_scores_device,
     flop_targeted_keep_sets, keep_sets_from_scores,
-    l1_filter_keep_sets_scheduled, magnitude_mask_fn, mask_sparsity, repack,
+    l1_filter_keep_sets_scheduled, lamp_layer_sparsities, lamp_masks,
+    magnitude_mask_fn, mask_sparsity, repack,
     taylor_filter_scores_device, taylor_scores_all,
     taylor_scores_with_groups, tied_group_scores_device, total_conv_flops,
     uniform_filter_fraction_keep_sets,
@@ -71,7 +76,6 @@ from modelcompression_tpu_torch.models import (
 )
 from modelcompression_tpu_torch.train.loader import BatchLoader
 
-_NOT_PORTED_MODES = {"lamp": 6, "lowrank": 6}
 # structured filter modes -> compress.criteria score criterion
 _FILTER_MODE_CRITERION = {"l1_filter": "l1", "bn_gamma": "bn_gamma",
                           "fpgm": "fpgm"}
@@ -85,14 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
     add_model_args(p)
     p.add_argument("--mode", default="magnitude",
                    choices=("magnitude", "global", "lamp", "l1_filter",
-                            "bn_gamma", "fpgm", "taylor", "lowrank"),
-                   help="lamp and lowrank are not ported yet and are "
-                        "rejected")
+                            "bn_gamma", "fpgm", "taylor", "lowrank"))
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device the masks and scores are computed on "
                         "(default cuda; a missing CUDA device is an error)")
     p.add_argument("--sparsity", type=float, default=None,
-                   help="target weight sparsity (magnitude/global modes)")
+                   help="target weight sparsity (magnitude/global/lamp "
+                        "modes)")
     p.add_argument("--fraction", type=float, default=None,
                    help="filter drop fraction (l1_filter/bn_gamma/fpgm/"
                         "taylor modes)")
@@ -154,13 +157,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="VOCdevkit image set for sweep evaluation")
     p.add_argument("--batch", type=int, default=8,
                    help="sweep evaluation and taylor scoring batch size")
-    # flags of the JAX CLI's lowrank mode, not ported yet: parsed, so that
-    # its command lines reach the rejection that names the ROADMAP item
-    for flag, kind, default in (("--energy", float, 0.9),
-                                ("--rank", str, None),
-                                ("--max-cost", float, 1.0)):
-        p.add_argument(flag, type=kind, default=default,
-                       help="lowrank mode (not ported yet)")
+    p.add_argument("--energy", type=float, default=0.9,
+                   help="lowrank mode: per-layer rank = smallest r whose "
+                        "singular values keep this fraction of the "
+                        "spectral energy (Eckart-Young truncation)")
+    p.add_argument("--rank", default=None,
+                   help="lowrank mode: factor ONLY the listed layers, as "
+                        "'convidx:r,convidx:r' (--energy is ignored; "
+                        "combine with --max-cost to lift the FLOPs guard)")
+    p.add_argument("--max-cost", type=float, default=1.0,
+                   help="lowrank mode: factor a conv only when the "
+                        "factored FLOPs are below this fraction of the "
+                        "original")
     return p
 
 
@@ -187,9 +195,13 @@ def _taylor_scores(args, spec, params, seen, device, with_groups=False,
 
 
 def _magnitude(args, spec, dev_params, sparsity):
-    """(pruned device params, masks, achieved sparsity)."""
-    masks = magnitude_mask_fn(args.mode, args.mask_backend)(
-        dev_params, spec, sparsity)
+    """(pruned device params, masks, achieved sparsity) of the masked
+    modes: magnitude, global, lamp."""
+    if args.mode == "lamp":
+        masks = lamp_masks(dev_params, spec, sparsity)
+    else:
+        masks = magnitude_mask_fn(args.mode, args.mask_backend)(
+            dev_params, spec, sparsity)
     return apply_masks(dev_params, masks), masks, mask_sparsity(masks)
 
 
@@ -380,21 +392,63 @@ def _structured(args, spec, params, seen, device) -> int:
     return 0
 
 
+def _lowrank(args, spec, params, seen) -> int:
+    """SVD-factor the convs (compress/lowrank.py, numpy on the host) and
+    write the factored weights and cfg."""
+    ranks = {}
+    if args.rank:
+        try:
+            for tok in args.rank.split(","):
+                if not tok.strip():
+                    continue
+                idx, _, val = tok.partition(":")
+                ranks[int(idx)] = int(val)
+        except ValueError as e:
+            print(f"error: bad --rank: {e}", file=sys.stderr)
+            return 2
+    if not 0.0 < args.energy <= 1.0:
+        print(f"error: --energy must be in (0, 1], got {args.energy}",
+              file=sys.stderr)
+        return 2
+    try:
+        fac_spec, fac_params, report = factor_network(
+            params, spec, energy=args.energy, ranks=ranks,
+            max_cost=args.max_cost)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    save_weights(args.out, fac_spec, fac_params, seen=seen)
+    for e in report:
+        print(f"  conv{e.layer_idx}: rank {e.rank}/{e.full_rank} "
+              f"(energy {e.energy_kept:.4f}, cost x{e.cost_ratio:.2f})")
+    print(f"lowrank: factored {len(report)} convs at energy>="
+          f"{args.energy:g}; params {num_params(params) / 1e6:.1f}M -> "
+          f"{num_params(fac_params) / 1e6:.1f}M")
+    print(f"wrote {args.out}")
+    out_cfg = args.out_cfg or os.path.splitext(args.out)[0] + ".cfg"
+    _write_cfg(out_cfg, fac_spec)
+    print(f"wrote {out_cfg} (factored architecture — use it for "
+          "eval/fine-tune)")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.mask_backend = resolve_mask_backend(args)
-    item = _NOT_PORTED_MODES.get(args.mode)
-    if item:
-        print(f"error: --mode {args.mode} is not ported to the PyTorch "
-              f"package yet (ROADMAP Queue 1 item {item})", file=sys.stderr)
-        return 2
     device = resolve_device(args.device)
     spec, params, seen = load_model(args)
 
     if args.sweep:
+        if args.mode == "lowrank":
+            print("error: --sweep sweeps sparsities/fractions; lowrank "
+                  "mode selects ranks by --energy/--rank (run per energy "
+                  "point instead)", file=sys.stderr)
+            return 2
         return _sweep(args, spec, params, seen, device)
     if args.mode in _FILTER_MODES:
         return _structured(args, spec, params, seen, device)
+    if args.mode == "lowrank":
+        return _lowrank(args, spec, params, seen)
 
     if args.sparsity is None:
         print(f"error: --sparsity is required for {args.mode} mode",
@@ -406,6 +460,12 @@ def main(argv=None) -> int:
         return 2
     pruned, masks, achieved = _magnitude(
         args, spec, params_to(params, device), args.sparsity)
+    if args.mode == "lamp":
+        per_layer = lamp_layer_sparsities(masks)
+        print("lamp per-layer allocation: "
+              f"min {min(per_layer.values()):.2%}, "
+              f"max {max(per_layer.values()):.2%} "
+              f"over {len(per_layer)} convs")
     save_weights(args.out, spec, params_to(pruned, "cpu"), seen=seen)
     print(f"{args.mode} prune: target sparsity {args.sparsity:.2%}, "
           f"achieved {achieved:.2%} over "

@@ -8,11 +8,12 @@ only batch-``B`` runs of one step. Runs on ``--device cuda`` (default) or
 ``--device cpu``; a missing CUDA device is an error. Serves any bundled
 family ([region] YOLOv2, [yolo] YOLOv3 / YOLOv4) from f32 ``.weights``,
 an int8 ``--qmodel`` artifact (of either package; served through
-``compress.forward_quantized``), or a random model from seed 0 when
-neither is given, with every serving NMS flag of the JAX CLI
+``compress.forward_quantized``), a weight-sharing ``--cmodel`` artifact
+(its reconstructed float32 params), or a random model from seed 0 when
+none is given, with every serving NMS flag of the JAX CLI
 (``--diou-nms`` / ``--diou-beta`` default to the cfg's
-``nms_kind=diounms`` / ``beta_nms``). ``--cmodel`` and ``--dp`` are not
-ported yet and are rejected.
+``nms_kind=diounms`` / ``beta_nms``). ``--dp`` is not ported yet and is
+rejected.
 
 Endpoints:
   POST /detect     image file bytes (jpeg/png/bmp) -> JSON detections in
@@ -79,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve a saved int8 deployment artifact "
                         "(eval --int8 --save-qmodel) instead of --weights")
     p.add_argument("--cmodel", default=None, metavar="PATH",
-                   help="weight-sharing artifact (not ported yet)")
+                   help="serve a saved weight-sharing artifact "
+                        "(eval --cluster-bits N --save-cmodel) instead "
+                        "of --weights")
     p.add_argument("--timeout-s", type=float, default=60.0,
                    help="per-request wait bound for a batch slot")
     p.add_argument("--verbose", action="store_true",

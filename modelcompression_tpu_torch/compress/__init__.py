@@ -11,6 +11,9 @@ from modelcompression_tpu_torch.compress.criteria import (
     magnitude_masks_global, magnitude_masks_perlayer, mask_sparsity,
     tied_group_keep_sets, tied_group_scores_device,
 )
+from modelcompression_tpu_torch.compress.codebook import (
+    cluster_layer, cluster_network, load_cmodel, reconstruct, save_cmodel,
+)
 from modelcompression_tpu_torch.compress.flops import (
     SCORE_NORMS, conv_flops_by_layer, flop_targeted_keep_sets,
     total_conv_flops,
@@ -18,6 +21,19 @@ from modelcompression_tpu_torch.compress.flops import (
 from modelcompression_tpu_torch.compress.graph import (
     channel_source_convs, head_producer_convs, protected_conv_indices,
     prunable_conv_indices, tied_conv_groups,
+)
+from modelcompression_tpu_torch.compress.gmp import (
+    GMPSpec, gmp_init_masks, gmp_mask_update, gmp_masks, gmp_sparsity,
+)
+from modelcompression_tpu_torch.compress.lamp import (
+    lamp_layer_sparsities, lamp_masks, lamp_scores_device,
+)
+from modelcompression_tpu_torch.compress.lowrank import (
+    FactorEntry, breakeven_rank, factor_conv_weight, factor_network,
+    rank_for_energy,
+)
+from modelcompression_tpu_torch.compress.packing import (
+    huffman_decode, huffman_encode, pack_codes, unpack_codes,
 )
 from modelcompression_tpu_torch.compress.qat import (
     QATSpec, fake_quant, fake_quant_weight, qat_spec_from_batches,
@@ -61,4 +77,12 @@ __all__ = ["DEFAULT_MASK_BACKEND", "MASK_BACKENDS", "magnitude_mask_fn",
            "uniform_filter_fraction_keep_sets",
            "taylor_filter_keep_sets", "taylor_filter_scores_device",
            "taylor_gate_indices", "taylor_scores_all",
-           "taylor_scores_with_groups"]
+           "taylor_scores_with_groups",
+           "cluster_layer", "cluster_network", "load_cmodel", "reconstruct",
+           "save_cmodel",
+           "GMPSpec", "gmp_init_masks", "gmp_mask_update", "gmp_masks",
+           "gmp_sparsity",
+           "lamp_layer_sparsities", "lamp_masks", "lamp_scores_device",
+           "FactorEntry", "breakeven_rank", "factor_conv_weight",
+           "factor_network", "rank_for_energy",
+           "huffman_decode", "huffman_encode", "pack_codes", "unpack_codes"]

@@ -54,8 +54,6 @@ from modelcompression_tpu_torch.ops.int8_conv import int8_conv
 
 QParams = Dict[str, Dict[str, torch.Tensor]]
 
-PACKING_ITEM = "ROADMAP Queue 1 item 6e"
-
 
 def _input_layer_of(spec: NetworkSpec, i: int) -> int:
     """Index of the layer whose output feeds layer ``i`` sequentially
@@ -428,16 +426,22 @@ def save_qmodel(path: str, qparams: QParams, spec: NetworkSpec,
                 pack: Optional[str] = None) -> None:
     """Write the quantized pytree and the architecture cfg as one ``.npz``
     artifact, the JAX package's format key for key (``__cfg__``,
-    ``conv<i>/<field>``, ``__net__/input_scale``). ``pack`` (entropy-coded
-    int8 tensors) is not ported yet."""
-    if pack is not None:
-        raise NotImplementedError(
-            f"save_qmodel(pack=...) is not ported to the PyTorch package "
-            f"yet ({PACKING_ITEM})")
+    ``conv<i>/<field>``, ``__net__/input_scale``). ``pack='huffman'`` (or
+    ``'fixed'``) entropy-codes each int8 weight tensor
+    (``compress/packing.py``, symbols ``w_q + 128``, K = 256) into the
+    ``conv<i>/wq_*`` fields, as the JAX package does; ``load_qmodel``
+    unpacks them."""
+    from modelcompression_tpu_torch.compress.packing import pack_codes
     flat = {"__cfg__": np.array(dump_cfg(spec))}
     for key, entry in qparams.items():
         for field, v in entry.items():
-            flat[f"{key}/{field}"] = v.detach().cpu().numpy()
+            v = v.detach().cpu().numpy()
+            if pack is not None and field == "w_q":
+                sym = (v.astype(np.int16) + 128).astype(np.uint16)
+                for pf, pv in pack_codes(sym, 256, pack).items():
+                    flat[f"{key}/wq_{pf}"] = pv
+            else:
+                flat[f"{key}/{field}"] = v
     with open(path, "wb") as f:  # exact path (np would append .npz)
         np.savez_compressed(f, **flat)
 
@@ -468,7 +472,7 @@ def load_qmodel(path: str, spec: Optional[NetworkSpec] = None
     """Load a ``save_qmodel`` artifact (written by either package) as CPU
     tensors; returns (qparams, spec). With ``spec`` the artifact's
     embedded architecture must match it (``ValueError`` otherwise).
-    Packed (``wq_*``) artifacts are not ported yet."""
+    Packed int8 weights (``wq_*`` fields) are unpacked."""
     with np.load(path, allow_pickle=False) as z:
         loaded_spec = parse_cfg(str(z["__cfg__"][()]))
         if spec is not None:
@@ -478,16 +482,21 @@ def load_qmodel(path: str, spec: Optional[NetworkSpec] = None
                     f"qmodel {path} was saved for a different "
                     f"architecture: {diff}")
         qparams: QParams = {}
+        packed: dict = {}
         for k in z.files:
             if k == "__cfg__":
                 continue
             key, field = k.rsplit("/", 1)
             if field.startswith("wq_"):
-                raise NotImplementedError(
-                    f"qmodel {path} holds entropy-coded int8 weights "
-                    f"({k}); unpacking is not ported to the PyTorch "
-                    f"package yet ({PACKING_ITEM})")
-            qparams.setdefault(key, {})[field] = torch.from_numpy(z[k])
+                packed.setdefault(key, {})[field[3:]] = z[k]
+            else:
+                qparams.setdefault(key, {})[field] = torch.from_numpy(z[k])
+    if packed:
+        from modelcompression_tpu_torch.compress.packing import unpack_codes
+        for key, fields in packed.items():
+            w_q = (unpack_codes(fields).astype(np.int16) - 128
+                   ).astype(np.int8)
+            qparams.setdefault(key, {})["w_q"] = torch.from_numpy(w_q)
     return qparams, (spec if spec is not None else loaded_spec)
 
 

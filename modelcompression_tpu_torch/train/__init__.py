@@ -1,3 +1,6 @@
+from modelcompression_tpu_torch.train.distill import (
+    DistillPlan, detection_distill_loss, distill_loss, make_distill_plan,
+)
 from modelcompression_tpu_torch.train.region_loss import (
     RegionLossMetrics, region_loss,
 )
@@ -12,6 +15,8 @@ from modelcompression_tpu_torch.train.loop import (
 )
 
 __all__ = [
+    "DistillPlan", "detection_distill_loss", "distill_loss",
+    "make_distill_plan",
     "RegionLossMetrics", "region_loss", "detection_loss",
     "TrainConfig", "TrainState", "augment_batch", "darknet_lr_schedule",
     "make_optimizer", "make_train_step", "merge_params", "split_trainable",

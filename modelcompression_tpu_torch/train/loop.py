@@ -15,8 +15,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from modelcompression_tpu_torch.compress import (
-    DEFAULT_MASK_BACKEND, channel_masks_from_keep, magnitude_mask_fn,
-    repack, taylor_filter_keep_sets, uniform_filter_fraction_keep_sets,
+    DEFAULT_MASK_BACKEND, channel_masks_from_keep, lamp_masks,
+    magnitude_mask_fn, repack, taylor_filter_keep_sets,
+    uniform_filter_fraction_keep_sets,
 )
 from modelcompression_tpu_torch.models.cfg import NetworkSpec
 from modelcompression_tpu_torch.models.darknet import Params, params_to
@@ -28,8 +29,7 @@ from modelcompression_tpu_torch.utils.logging import MetricsLogger
 from modelcompression_tpu_torch.utils.profiling import StepTimer
 
 STRUCTURED_MODES = ("l1_filter", "bn_gamma", "fpgm", "taylor")
-# modes of the JAX loop not ported yet, with their ROADMAP Queue 1 item
-NOT_PORTED_MODES = {"lamp": 6}
+MASKED_MODES = ("magnitude", "global", "lamp")
 
 
 def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
@@ -48,8 +48,9 @@ def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
     ``metrics_every`` steps and at the last step (each copy waits for the
     device). ``initial_step``: the restored global step when resuming, so
     logging, eval and checkpoint cadences continue the uninterrupted run's
-    numbering. ``mesh`` (data/tensor parallelism) and ``distill`` are not
-    ported yet."""
+    numbering. ``distill`` (a ``train.distill.DistillPlan``) adds the
+    teacher's loss to every step. ``mesh`` (data/tensor parallelism) is
+    not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...) data/tensor parallelism is not ported to the "
@@ -122,8 +123,11 @@ def iterative_prune_finetune(
     smaller dense network. ``taylor`` measures its scores on
     ``taylor_batches`` batches taken from ``loader``'s stream.
     ``magnitude`` / ``global`` recompute the weight masks each round
-    through ``compress.magnitude_mask_fn(mode, mask_backend)`` (on CUDA
-    params, the hand-written top-k kernels) and fine-tune with them.
+    through ``compress.magnitude_mask_fn(mode, mask_backend)``, ``lamp``
+    through ``compress.lamp_masks`` (on CUDA params, both run the
+    hand-written top-k kernels), and fine-tune with them. With
+    ``distill`` every round's student distills from the same (original)
+    teacher.
 
     ``tied`` is the residual-graph policy of the structured modes:
     ``protect`` leaves shortcut-tied convs unpruned; ``group`` prunes each
@@ -136,9 +140,8 @@ def iterative_prune_finetune(
     params and masks with its arch cfg; ``resume`` continues after the
     latest round.
 
-    Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-    item: mode lamp (Queue 1 item 6), ``mesh`` (item 7) and ``distill``
-    (item 6).
+    ``mesh`` is not ported yet and raises ``NotImplementedError`` naming
+    ROADMAP Queue 1 item 7.
     """
     if tied not in ("protect", "group"):
         raise ValueError(f"tied must be 'protect' or 'group', got {tied!r}")
@@ -146,20 +149,12 @@ def iterative_prune_finetune(
         raise ValueError(
             f"tied='group' composes with the structured modes "
             f"(l1_filter | bn_gamma | fpgm | taylor), not {mode!r}")
-    if mode not in STRUCTURED_MODES + ("magnitude", "global", "lamp"):
+    if mode not in STRUCTURED_MODES + MASKED_MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if mode in NOT_PORTED_MODES:
-        raise NotImplementedError(
-            f"iterative mode {mode!r} is not ported to the PyTorch package "
-            f"yet (ROADMAP Queue 1 item {NOT_PORTED_MODES[mode]})")
     if mesh is not None:
         raise NotImplementedError(
             "iterative_prune_finetune(mesh=...) is not ported to the "
             "PyTorch package yet (ROADMAP Queue 1 item 7)")
-    if distill is not None:
-        raise NotImplementedError(
-            "iterative_prune_finetune(distill=...) is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1 item 6)")
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     logger = logger or MetricsLogger()
     rounds: List[IterativeRound] = []
@@ -216,8 +211,11 @@ def iterative_prune_finetune(
                     channel_masks = channel_masks_from_keep(
                         spec, keep_sets, device=device)
             else:
-                fn = magnitude_mask_fn(mode, mask_backend)
-                weight_masks = fn(params, spec, frac)
+                if mode == "lamp":
+                    weight_masks = lamp_masks(params, spec, frac)
+                else:
+                    fn = magnitude_mask_fn(mode, mask_backend)
+                    weight_masks = fn(params, spec, frac)
                 channel_masks = {}
 
         state = TrainState.create(
@@ -226,7 +224,7 @@ def iterative_prune_finetune(
             weight_masks=weight_masks, channel_masks=channel_masks,
             seen=seen_running)
         state = train(state, spec, config, loader, steps_per_round,
-                      logger=logger)
+                      logger=logger, distill=distill)
         params = _detached(state["params"])
         seen_running = state["seen"]
         metrics = eval_fn(spec, params)

@@ -15,7 +15,12 @@ host inside the step; the metrics stay device tensors.
 * **Masked fine-tune**: weight masks multiply the weights inside the loss,
   so the gradients of pruned weights are exactly zero, and are applied
   again after the update (momentum and weight decay act on zero weights
-  too). Channel masks gate conv outputs after the activation.
+  too). Channel masks gate conv outputs after the activation. With
+  ``TrainConfig.gmp`` the masks are recomputed from the updated weights
+  on the schedule's steps (``compress/gmp.py``) before they are applied.
+* **Distillation** (``make_train_step(distill=...)``): the teacher's
+  inference forward runs on the same augmented batch, and ``weight *
+  distill_loss`` joins the detection loss (``train/distill.py``).
 * **BN** takes one-pass fp32 statistics, E[y²] − µ² clamped at 0, and
   folds the biased batch variance into the running variance with the
   torch momentum convention: ``F.batch_norm`` would fold the unbiased one.
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from modelcompression_tpu_torch.compress.gmp import gmp_mask_update
 from modelcompression_tpu_torch.core.precision import FAST, Precision
 from modelcompression_tpu_torch.data.preprocess import (
     distort_hsv, mosaic4, random_flip, random_jitter,
@@ -41,17 +47,14 @@ from modelcompression_tpu_torch.models.cfg import (
 )
 from modelcompression_tpu_torch.models.darknet import (
     BN_EPS, Params, _activate, _conv, _nhwc_out, _per_channel, conv_bn_act,
-    conv_key, maxpool, reorg, route_part, upsample_nearest,
+    conv_key, maxpool, params_to, reorg, route_part, upsample_nearest,
+)
+from modelcompression_tpu_torch.train.distill import (
+    detection_distill_loss, teacher_forward,
 )
 from modelcompression_tpu_torch.train.yolo_loss import detection_loss
 
 BN_MOMENTUM = 0.1  # torch BatchNorm2d default (reference repo class)
-
-
-def _not_ported(option: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to the PyTorch package yet "
-        f"(ROADMAP Queue 1 item {item})")
 
 
 @dataclasses.dataclass
@@ -65,9 +68,10 @@ class TrainConfig:
     (``torch.utils.checkpoint``): about one more forward of work for the
     activation memory of one block. ``qat`` (a ``compress.qat.QATSpec``)
     trains the selected convs with the deployed int8 grids simulated:
-    fake-quant of each conv's input, weight and output. ``gmp`` is not
-    ported yet and raises ``NotImplementedError`` naming its ROADMAP item
-    when set."""
+    fake-quant of each conv's input, weight and output. ``gmp`` (a
+    ``compress.gmp.GMPSpec``) recomputes the weight masks on its schedule
+    after each update; the train state must hold its masks
+    (``gmp_init_masks``)."""
 
     learning_rate: float = 1e-3
     momentum: float = 0.9
@@ -105,11 +109,6 @@ class TrainConfig:
     # running stats, no gradient, params restored bit-identical after every
     # update (weight decay would otherwise move them)
     freeze_prefix: int = 0
-
-    def __post_init__(self):
-        if self.gmp is not None:
-            raise _not_ported("TrainConfig.gmp (gradual magnitude "
-                              "pruning)", 6)
 
     @classmethod
     def from_spec(cls, spec: NetworkSpec, **overrides) -> "TrainConfig":
@@ -385,10 +384,14 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
     in order. Metrics are 0-dim device tensors (means over micro-batches)
     plus ``lr``, a float.
 
-    ``distill`` (knowledge distillation) is not ported yet."""
-    if distill is not None:
-        raise _not_ported("make_train_step(distill=...) (knowledge "
-                          "distillation)", 6)
+    With ``distill`` (a ``train.distill.DistillPlan``) the teacher's
+    inference forward runs on the whole augmented batch, each micro-batch
+    takes the teacher map's same strided rows, and ``weight *
+    distill_loss`` joins the detection loss in the gradient; the metrics
+    gain ``loss_distill`` and ``loss`` stays the detection loss. The
+    teacher params are moved to the params' device once. With
+    ``config.gmp`` the metrics gain ``sparsity``, the achieved sparsity
+    over the state's weight masks."""
     spec.head_indices()  # every spec has [region]/[yolo]
     # BITMATCH trains with TF32 off for cuDNN convs and cuBLAS matmuls
     config.precision.apply_backend_flags()
@@ -403,7 +406,15 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
     freeze_keys = frozenset(
         conv_key(i) for i in conv_indices[:config.freeze_prefix])
 
-    def loss_fn(params, x, targets, seen, channel_masks, weight_masks):
+    teacher = {}  # device -> the teacher params there
+
+    def teacher_params(dev):
+        if dev not in teacher:
+            teacher[dev] = params_to(distill.teacher_params, dev)
+        return teacher[dev]
+
+    def loss_fn(params, x, targets, seen, channel_masks, weight_masks,
+                t_raw=None):
         if weight_masks:
             params = {k: (dict(p, w=p["w"] * weight_masks[k].to(p["w"].dtype))
                           if k in weight_masks else p)
@@ -414,6 +425,13 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
         metrics = detection_loss(raw, targets, spec, seen)
         md = metrics.as_dict()
         loss = metrics.loss
+        if t_raw is not None:
+            d = detection_distill_loss(raw, t_raw, spec, temp=distill.temp,
+                                       coord_scale=distill.coord_scale,
+                                       obj_scale=distill.obj_scale,
+                                       class_scale=distill.class_scale)
+            md["loss_distill"] = d.detach()
+            loss = loss + distill.weight * d
         if config.bn_l1 > 0:
             # slimming penalty; gamma_l1 (the MEAN |gamma|) is reported
             gammas = [p["gamma"].float() for p in params.values()
@@ -452,16 +470,30 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
                 x = x / 255.0
             x, targets = augment_batch(config, x, targets, gen)
 
+        # the teacher on the same augmented batch, whole: no gradient, so
+        # one layer's activations live at a time
+        t_raw = None
+        if distill is not None:
+            t_raw = teacher_forward(distill, teacher_params(dev), x,
+                                    config.precision)
+
+        def micro(a, s):
+            if a is None or subdivisions == 1:
+                return a
+            if isinstance(a, tuple):
+                return tuple(t[s::subdivisions] for t in a)
+            return a[s::subdivisions]
+
         opt = state["optimizer"]
         opt.zero_grad(set_to_none=True)
         seen = state["seen"]
         mets, stats_updates = [], []
         for s in range(subdivisions):
-            xi = x if subdivisions == 1 else x[s::subdivisions]
-            ti = targets if subdivisions == 1 else targets[s::subdivisions]
-            loss, md, bstats = loss_fn(params, xi, ti, seen,
+            loss, md, bstats = loss_fn(params, micro(x, s),
+                                       micro(targets, s), seen,
                                        state["channel_masks"],
-                                       state["weight_masks"])
+                                       state["weight_masks"],
+                                       micro(t_raw, s))
             loss.backward()
             mets.append(md)
             stats_updates.append({k: {n: v.detach() for n, v in bs.items()}
@@ -488,8 +520,15 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
             for k, saved in frozen.items():
                 for n, v in saved.items():
                     params[k][n].copy_(v)
-            # keep pruned weights exactly zero: momentum and decay would
-            # move them off zero
+            # gradual magnitude pruning: the masks recomputed from the
+            # updated weights when the schedule says so (the gradients
+            # above used the old masks: prune after the update)
+            if config.gmp is not None:
+                state["weight_masks"] = gmp_mask_update(
+                    config.gmp, spec, params, state["weight_masks"],
+                    state["step"])
+            # keep pruned weights exactly zero (with GMP, the application
+            # of a fresh mask): momentum and decay would move them off zero
             for k, m in state["weight_masks"].items():
                 params[k]["w"].mul_(m.to(params[k]["w"].dtype))
             # BN running stats (torch momentum convention), one update per
@@ -514,6 +553,11 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
                    else torch.stack([m[k] for m in mets]).mean())
                for k in mets[0]}
         out["lr"] = lr
+        if config.gmp is not None:
+            masks = state["weight_masks"].values()
+            n_total = sum(m.numel() for m in masks)
+            n_kept = sum(m.sum() for m in masks)
+            out["sparsity"] = 1.0 - n_kept.float() / n_total
         state["step"] += 1
         state["seen"] += b
         return state, out

@@ -447,6 +447,70 @@ def test_magnitude_masks_cuda_match_reference(cuda_device, mode):
         assert torch.equal(got[k], want[k]), k
 
 
+def _launch_counts(S):
+    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
+               ct.apply_threshold_cuda)
+    return [k.LAUNCHES_AT[S] for k in kernels]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_layer", [True, False])
+def test_gmp_recompute_through_kernels_matches_plain(cuda_device,
+                                                     per_layer):
+    """A GMP mask update on the card (a due step; the old masks from an
+    earlier recompute, so the intersection acts) equals the same update
+    on the CPU (the kernels' plain versions), with 5/0/1/1 radix select /
+    count / tie count / apply launches at S = convs + 1 (per layer) or
+    2 (global)."""
+    from modelcompression_tpu_torch.compress import gmp
+    from modelcompression_tpu_torch.models import (
+        init_params, params_to, tiny_yolov2_voc,
+    )
+    spec = tiny_yolov2_voc()
+    cpu = init_params(spec, seed=3)
+    g = gmp.GMPSpec(final_sparsity=0.75, begin=0, end=4, frequency=1,
+                    per_layer=per_layer)
+    old = gmp.gmp_masks(cpu, spec, gmp.gmp_sparsity(1, g),
+                        per_layer=per_layer)
+    card = params_to(cpu, cuda_device)
+    S = len(spec.conv_indices()) + 1 if per_layer else 2
+    before = _launch_counts(S)
+    got = gmp.gmp_mask_update(g, spec, card, {k: m.to(cuda_device)
+                                              for k, m in old.items()}, 3)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(S), before)] == \
+        [5, 0, 1, 1]
+    want = gmp.gmp_mask_update(g, spec, cpu, old, 3)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparsity", [0.5, 0.95])
+def test_lamp_cut_through_kernels_matches_plain(cuda_device, sparsity):
+    """LAMP's global cut on the card (prune_flat at S = 2) equals its
+    stable-argsort definition on the same card scores, and lamp_masks
+    launches 5/0/1/1 at S = 2 with exactly int(sparsity * n) zeros."""
+    from modelcompression_tpu_torch.compress import lamp
+    from modelcompression_tpu_torch.models import (
+        init_params, params_to, tiny_yolov2_voc,
+    )
+    spec = tiny_yolov2_voc()
+    params = params_to(init_params(spec, seed=4), cuda_device)
+    cat, sizes = lamp._scores_layout(params, sorted(params))
+    n = sum(sizes)
+    seg = ct._seg_ids_for(sizes, cat.numel(), False, 1, cuda_device)
+    got = ct.prune_flat(cat, seg, torch.tensor([int(sparsity * n), 0],
+                                               device=cuda_device), 2,
+                        return_mask=True)[:n] != 0
+    assert torch.equal(got, lamp.lamp_cut_plain(cat[:n], int(sparsity * n)))
+    before = _launch_counts(2)
+    masks = lamp.lamp_masks(params, spec, sparsity)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(2), before)] == [5, 0, 1, 1]
+    assert sum(int((~m).sum()) for m in masks.values()) == int(sparsity * n)
+
+
 @pytest.mark.cuda
 def test_topk_kernels_at_yolov4_voc_layout_match_plain(cuda_device):
     """YOLOv4-VOC's per-layer prune layout (110 convs, 63,973,472 weights,

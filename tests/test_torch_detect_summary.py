@@ -4,7 +4,8 @@ text-equal to the JAX package's for every bundled cfg (and with a
 (padded final batch) and video mode on a [yolo] fixture, each image's
 detection count equal to the serving step's on the same canvas, and in
 image and directory mode against the JAX package's detect on the same
-files and flags.
+files and flags (from .weights and an int8 --qmodel); a weight-sharing
+--cmodel serves exactly as its reconstructed weights do.
 
 Tolerance against JAX: serving is FAST (bf16), whose roundings differ
 between XLA and ATen, so as in tests/test_torch_eval.py every image has
@@ -249,15 +250,15 @@ def test_detect_matches_jax(model, tmp_path, monkeypatch, capsys, mode,
     (["--image", "a.png"], False, "exactly one of --weights"),
     (["--qmodel", "q.npz", "--image", "a.png"], True,
      "exactly one of --weights"),
-    # id kept from when an int8 --qmodel case came before it (ported
-    # since)
-    pytest.param(["--cmodel", "c.npz", "--image", "a.png"], False,
-                 "item 6e", id="extra5-False-item 6"),
+    # id kept from when an int8 --qmodel case came before it and --cmodel
+    # was refused naming item 6e (both ported since): --cmodel beside
+    # --weights is the JAX CLI's usage error
+    pytest.param(["--cmodel", "c.npz", "--image", "a.png"], True,
+                 "exactly one of --weights", id="extra5-False-item 6"),
 ])
 def test_detect_rejections(model, capsys, extra, weights, message):
     """Exit 2, as the JAX package's detect does, unless exactly one of
-    --weights/--qmodel/--cmodel is given; the artifacts and --dp name
-    their ROADMAP items."""
+    --weights/--qmodel/--cmodel is given; --dp names its ROADMAP item."""
     pytest.importorskip("cv2")
     base = _base(model)
     if not weights:
@@ -313,3 +314,39 @@ def test_detect_qmodel_matches_jax(model, tmp_path, monkeypatch, capsys):
     _assert_detections_match(got, want)
     assert sum(map(len, want)) > 0
     assert got_text == want_text
+
+
+def test_detect_cmodel_equals_its_reconstructed_weights(model, tmp_path,
+                                                       monkeypatch, capsys):
+    """A weight-sharing artifact written (Huffman-packed) by the port,
+    through detect --cmodel --dir (5 images at batch 2): the detections
+    and per-image lines equal, exactly, those of detect --weights on the
+    reconstructed params written as .weights (the reconstruction is exact
+    and the serving path the same)."""
+    cv2 = pytest.importorskip("cv2")
+    from modelcompression_tpu_torch.compress import (
+        cluster_network, reconstruct, save_cmodel,
+    )
+    spec, cfg, _ = model
+    cmodel = cluster_network(init_params(spec, seed=4), spec, bits=5)
+    cpath = str(tmp_path / "c.npz")
+    save_cmodel(cpath, cmodel, spec, pack="huffman")
+    wpath = str(tmp_path / "rec.weights")
+    save_weights(wpath, spec, reconstruct(cmodel), seen=0)
+    src = tmp_path / "frames"
+    src.mkdir()
+    for i, im in enumerate(_images(5, seed=7)):
+        cv2.imwrite(str(src / f"f{i}.png"), im)
+    runs = {}
+    for side, source in (("cmodel", ["--cmodel", cpath]),
+                         ("weights", ["--weights", wpath])):
+        seen = _record_unpacked(monkeypatch, detect)
+        out = str(tmp_path / side)
+        assert detect.main(["--cfg", cfg, *source, "--conf", "0.05",
+                            "--max-detections", "4", "--dir", str(src),
+                            "--out-dir", out, "--batch", "2",
+                            "--device", "cpu"]) == 0
+        runs[side] = (seen, capsys.readouterr().out.replace(out, "<out>"))
+        monkeypatch.undo()  # the next run records on its own
+    assert runs["cmodel"] == runs["weights"]
+    assert sum(map(len, runs["cmodel"][0])) > 0

@@ -475,28 +475,76 @@ def test_eval_cli_recall_equals_jax(cli_model, capsys):
         [l for l in want.splitlines() if l.startswith("recall@")]
 
 
+# the flags this test refused: --dp / --tp still (ROADMAP item 7); the
+# weight-sharing flags (item 6e) were ported since and now run (item None;
+# the test keeps its name). {tmp} is the test's tmp_path.
 NOT_PORTED = {
-    "cmodel": (["--cmodel", "c.npz"], "6e"),  # in place of --weights
-    "cluster_bits": (["--cluster-bits", "4"], "6e"),
-    "save_cmodel": (["--cluster-bits", "4", "--save-cmodel", "c.npz"],
-                    "6e"),
-    "pack": (["--cluster-bits", "4", "--save-cmodel", "c.npz", "--pack"],
-             "6e"),
+    "cmodel": (["--cmodel", "{tmp}/j.npz"], None),  # in place of --weights
+    "cluster_bits": (["--cluster-bits", "4"], None),
+    "save_cmodel": (["--cluster-bits", "4", "--save-cmodel",
+                     "{tmp}/c.npz"], None),
+    "pack": (["--cluster-bits", "4", "--save-cmodel", "{tmp}/c.npz",
+              "--pack"], None),
     "dp": (["--dp", "2"], 7),
     "tp": (["--tp", "2"], 7),
 }
 
 
+def _jax_cmodel(cfg, weights, bits=4):
+    from modelcompression_tpu.compress import codebook as jcb
+    from modelcompression_tpu.models import load_weights as j_load
+    with open(cfg) as f:
+        jspec = j_parse(f.read())
+    params, _ = j_load(weights, jspec)
+    return jcb, jspec, jcb.cluster_network(
+        jax.tree.map(np.asarray, params), jspec, bits=bits)
+
+
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_eval_cli_not_ported_flags_exit_2_naming_their_item(cli_model,
-                                                            capsys, case):
+                                                            capsys, tmp_path,
+                                                            case):
+    """--dp / --tp exit 2 naming item 7. The weight-sharing flags run
+    (BITMATCH): --cluster-bits prints the JAX CLI's mAP; --save-cmodel
+    (packed or not) writes an artifact the JAX package loads to its own
+    clustering; --cmodel serves a JAX-written artifact with the summary of
+    --cluster-bits on the same weights."""
     cfg, weights, data = cli_model
     extra, item = NOT_PORTED[case]
+    extra = [a.format(tmp=tmp_path) for a in extra]
     source = [] if case == "cmodel" else ["--weights", weights]
-    assert teval_cli.main(["--cfg", cfg, *source, "--data", data,
-                           "--device", "cpu", *extra]) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
+    argv = ["--cfg", cfg, *source, "--data", data, "--device", "cpu", *extra]
+    if item is not None:
+        assert teval_cli.main(argv) == 2
+        err = capsys.readouterr().err
+        assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
+        return
+    bm = ["--precision", "bitmatch", "--map-iou", "0.1", "--batch", "2"]
+    jcb, jspec, jcm = _jax_cmodel(cfg, weights)
+    if case == "cmodel":
+        jcb.save_cmodel(str(tmp_path / "j.npz"), jcm, jspec)
+    assert teval_cli.main(argv + bm) == 0
+    got = capsys.readouterr()
+    (g,) = _MAP_LINE.findall(got.out)
+    if case == "cmodel":
+        assert teval_cli.main(["--cfg", cfg, "--weights", weights, "--data",
+                               data, "--device", "cpu", "--cluster-bits",
+                               "4", *bm]) == 0
+        assert _MAP_LINE.findall(capsys.readouterr().out) == [g]
+        return
+    assert "weight sharing: 4-bit codebooks" in got.err
+    if case == "cluster_bits":
+        assert jeval_cli.main(["--cfg", cfg, "--weights", weights, "--data",
+                               data, "--cluster-bits", "4", *bm]) == 0
+        (w,) = _MAP_LINE.findall(capsys.readouterr().out)
+        assert abs(float(g.split()[-1]) - float(w.split()[-1])) <= 1e-6
+        return
+    assert ("bits/weight" in got.err) == (case == "pack")
+    loaded, _ = jcb.load_cmodel(str(tmp_path / "c.npz"), spec=jspec)
+    want = jcb.reconstruct(jcm)
+    for k, p in want.items():
+        for n, a in p.items():
+            assert np.array_equal(np.asarray(loaded[k][n]), np.asarray(a))
 
 
 @pytest.mark.parametrize("extra, message", [

@@ -144,24 +144,31 @@ def test_prune_cli_defaults_to_the_kernel_route(model, tmp_path,
     assert all(m == cuda_topk.__name__ for m, _ in calls)
 
 
-REJECTED = {
-    "lamp": (["--mode", "lamp", "--sparsity", "0.5"], 6),
-    "lowrank": (["--mode", "lowrank"], 6),
+# the modes this test rejected, naming ROADMAP Queue 1 item 6, before they
+# were ported (the test keeps its name): each now writes the JAX CLI's
+# files byte for byte
+PORTED_SINCE = {
+    "lamp": ["--mode", "lamp", "--sparsity", "0.5"],
+    "lowrank": ["--mode", "lowrank", "--energy", "0.7", "--max-cost", "10"],
 }
 
 
-@pytest.mark.parametrize("case", sorted(REJECTED))
+@pytest.mark.parametrize("case", sorted(PORTED_SINCE))
 def test_not_ported_paths_exit_2_naming_their_item(model, tmp_path, capsys,
                                                    case):
     cfg, weights = model
-    extra, item = REJECTED[case]
-    out = tmp_path / "out.weights"
-    rc = prune.main(["--cfg", cfg, "--weights", weights, *extra,
-                     "--device", "cpu", "--out", str(out)])
-    err = capsys.readouterr().err
-    assert rc == 2
-    assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
-    assert not out.exists()
+    outs = []
+    for name, main, dev in (("jax", jax_prune.main, []),
+                            ("port", prune.main, ["--device", "cpu"])):
+        out = tmp_path / f"{name}.weights"
+        assert main(["--cfg", cfg, "--weights", weights, *PORTED_SINCE[case],
+                     "--out", str(out), *dev]) == 0
+        assert "not ported" not in capsys.readouterr().err
+        outs.append(out)
+    assert outs[0].read_bytes() == outs[1].read_bytes()
+    if case == "lowrank":
+        assert outs[0].with_suffix(".cfg").read_text() == \
+            outs[1].with_suffix(".cfg").read_text()
 
 
 @pytest.mark.parametrize("extra, message", [

@@ -468,8 +468,9 @@ def test_qmodel_artifacts_load_in_the_other_package(kind, hybrid,
 
 
 def test_qmodel_guards(tmp_path):
-    """The architecture guard, and the packed format (Queue 1 item 6e)
-    refused on write and on read."""
+    """The architecture guard; and the packed format (refused, naming
+    ROADMAP item 6e, until it was ported): written and read by the port,
+    and a JAX-packed artifact read, both to the saved pytree exactly."""
     js, ts, jqp, tqp = _calibrated("region")
     path = str(tmp_path / "q.npz")
     tq.save_qmodel(path, tqp, ts)
@@ -477,11 +478,16 @@ def test_qmodel_guards(tmp_path):
                                                height=96))
     with pytest.raises(ValueError, match="different architecture"):
         tq.load_qmodel(path, spec=other)
-    with pytest.raises(NotImplementedError, match="item 6e"):
-        tq.save_qmodel(path, tqp, ts, pack="huffman")
+    tq.save_qmodel(path, tqp, ts, pack="huffman")
+    with pytest.raises(ValueError, match="different architecture"):
+        tq.load_qmodel(path, spec=other)
+    got, _ = tq.load_qmodel(path)
     jq.save_qmodel(path, jqp, js, pack="huffman")
-    with pytest.raises(NotImplementedError, match="item 6e"):
-        tq.load_qmodel(path)
+    from_jax, _ = tq.load_qmodel(path)
+    for k, e in tqp.items():
+        for f, v in e.items():
+            assert torch.equal(got[k][f], v), (k, f)
+            assert torch.equal(from_jax[k][f], v), (k, f)
 
 
 # ---- the eval CLI -------------------------------------------------------------
@@ -514,7 +520,8 @@ def _summary(out):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--calib-quantile", "0.999"], ["--int8-layers", "auto:8"]])
+    [], ["--calib-quantile", "0.999"], ["--int8-layers", "auto:8"],
+    ["--pack"]])
 def test_eval_cli_int8_matches_jax_and_its_artifact(cli_model, capsys,
                                                     tmp_path, extra):
     cfg, weights, data = cli_model
@@ -547,7 +554,10 @@ def test_eval_cli_int8_matches_jax_and_its_artifact(cli_model, capsys,
     (["--int8", "--precision", "bitmatch"], "cannot bit-match"),
     (["--int8", "--int8-layers", "1,2"], "not conv layers"),
     (["--int8", "--int8-layers", "auto:x"], "bad --int8-layers"),
-    (["--int8", "--save-qmodel", "q.npz", "--pack"], "item 6e"),
+    # the id of the case that refused --pack (ROADMAP item 6e) before it
+    # was ported; --pack without an artifact is the JAX CLI's usage error
+    pytest.param(["--int8", "--pack"], "--pack entropy-codes",
+                 id="extra3-item 6e"),
 ])
 def test_eval_cli_int8_rejections(cli_model, capsys, extra, message):
     cfg, weights, data = cli_model

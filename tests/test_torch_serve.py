@@ -1,7 +1,8 @@
 """The port's serving daemon (modelcompression_tpu_torch/cli/serve.py) on
 the CPU: /healthz, /stats, /metrics and a /detect POST, with detections
 equal to the direct make_eval_step result (the same step on the same
-canvas: exact), plus the flag surface and the not-ported rejections."""
+canvas: exact), int8 --qmodel and weight-sharing --cmodel serving, plus
+the flag surface and the rejections."""
 
 import argparse
 import json
@@ -154,7 +155,8 @@ def test_deployment_preset_resolution():
 
 
 @pytest.mark.parametrize("extra, match", [
-    # ids kept from when --qmodel was the first case (ported since)
+    # ids kept from when --qmodel was the first case (ported since);
+    # --cmodel is ported too, and beside --weights the usage error
     pytest.param(["--cmodel", "c.npz"], "cmodel", id="extra1-cmodel"),
     pytest.param(["--dp", "2"], "dp", id="extra2-dp"),
 ])
@@ -314,6 +316,50 @@ def test_qmodel_serves_the_int8_forward(tmp_path):
                       for d in item.result) == direct
         status, _, body = _get(httpd.server_address[1], "/healthz")
         assert status == 200 and json.loads(body)["ok"]
+    finally:
+        state.stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+
+
+def test_cmodel_serves_the_reconstructed_params(tmp_path):
+    """--cmodel serves a (Huffman-packed) weight-sharing artifact as its
+    reconstructed float32 params: the dispatcher's detections equal the
+    FAST step's on those params, BN-folded, on the same canvas."""
+    from modelcompression_tpu_torch.compress import (
+        cluster_network, reconstruct, save_cmodel,
+    )
+    from modelcompression_tpu_torch.evaluation import (
+        EvalConfig, make_eval_step,
+    )
+    from modelcompression_tpu_torch.models import fold_batchnorm
+    spec, cfg_path, _ = _write_model(tmp_path, seed=5)
+    cmodel = cluster_network(init_params(spec, seed=5), spec, bits=4)
+    cpath = str(tmp_path / "c.npz")
+    save_cmodel(cpath, cmodel, spec, pack="huffman")
+    base = ["--cfg", cfg_path, "--port", "0", "--device", "cpu",
+            "--batch", "2", "--max-wait-ms", "30", "--conf", "0.05"]
+    httpd, state = serve.build_server(
+        serve.build_parser().parse_args(base + ["--cmodel", cpath]))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        rng = np.random.default_rng(5)
+        canvas = rng.integers(0, 256, (64, 64, 3), np.uint8)
+        item = state.submit(canvas, 100.0, 80.0)
+        assert item.event.wait(60) and item.error is None
+        step = make_eval_step(spec, EvalConfig(
+            conf_thresh=0.05, max_detections=50, device="cpu"))
+        sel, sc, valid, _, _ = step(
+            fold_batchnorm(reconstruct(cmodel), spec),
+            np.stack([canvas] * 2), [100.0, 100.0], [80.0, 80.0])
+        direct = sorted((ci, float(sc[0, ci, k]))
+                        for ci in range(sel.shape[1])
+                        for k in np.nonzero(valid[0, ci].numpy())[0])
+        assert direct
+        assert sorted((d["class_id"], d["score"])
+                      for d in item.result) == direct
     finally:
         state.stop.set()
         httpd.shutdown()

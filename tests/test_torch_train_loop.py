@@ -3,11 +3,13 @@
 utils/checkpoint.py, cli/finetune.py, cli/train.py) against the JAX
 package's, on the CPU at fixture size: the loader's batches equal to the
 JAX loader's and its skip_batches stream identity; the checkpoint round
-trip; the round-0 masks of iterative_prune_finetune in magnitude mode
-(the same zero pattern as the JAX loop's) and the l1_filter repack;
+trip; the round-0 masks of iterative_prune_finetune in magnitude, global
+and lamp modes (the same zero pattern as the JAX loop's), the l1_filter
+repack and distillation from the original teacher in every round;
 resumes equal to uninterrupted runs, bit for bit; the CLIs' validations
-worded as the JAX CLIs', their not-ported exits naming the ROADMAP item,
-and their default device (cuda)."""
+worded as the JAX CLIs', --gmp / --distill / --pack / --iterate-mode
+lamp running, the --dp / --tp exits naming their ROADMAP item, and their
+default device (cuda)."""
 
 import json
 import os
@@ -42,7 +44,7 @@ from modelcompression_tpu_torch.models import (
 )
 from modelcompression_tpu_torch.train import (
     BatchLoader, TrainConfig, TrainState, iterative_prune_finetune,
-    make_optimizer, make_train_step,
+    make_distill_plan, make_optimizer, make_train_step,
 )
 from modelcompression_tpu_torch.utils.checkpoint import (
     latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -218,7 +220,7 @@ def _cfgs(fixture):
                                   precision=BITMATCH, **kw))
 
 
-@pytest.mark.parametrize("mode", ["magnitude", "global"])
+@pytest.mark.parametrize("mode", ["magnitude", "global", "lamp"])
 def test_iterative_round0_masks_match_jax(fixture, mode):
     """Round 0 prunes the loaded params: after its one step the pruned
     weights are exactly zero on both sides, in the same places, and the
@@ -292,12 +294,13 @@ def test_iterative_l1_filter_repacks_as_jax(fixture):
 
 @pytest.mark.parametrize("kw, exc, item", [
     # ids kept from when kw0-kw2 and kw4 were the modes and tied policy
-    # ported since
-    pytest.param(dict(mode="lamp"), NotImplementedError, 6,
+    # ported since; kw3 (mode lamp) and kw6 (distill) were rejected naming
+    # item 6 until they were ported too, and now run (exc None)
+    pytest.param(dict(mode="lamp"), None, None,
                  id="kw3-NotImplementedError-6"),
     pytest.param(dict(mesh=object()), NotImplementedError, 7,
                  id="kw5-NotImplementedError-7"),
-    pytest.param(dict(distill=object()), NotImplementedError, 6,
+    pytest.param(dict(distill="teacher"), None, None,
                  id="kw6-NotImplementedError-6"),
     pytest.param(dict(tied="both"), ValueError, None,
                  id="kw7-ValueError-None"),
@@ -309,11 +312,47 @@ def test_iterative_l1_filter_repacks_as_jax(fixture):
 def test_iterative_rejections(fixture, kw, exc, item):
     _, tcfg = _cfgs(fixture)
     spec = parse_cfg(fixture["text"])
+    params = params_from_jax(fixture["np_params"], spec)
+    if kw.get("distill") == "teacher":
+        kw = dict(kw, distill=make_distill_plan(params, spec, spec))
+
+    def run():
+        return iterative_prune_finetune(
+            spec, params, tcfg, _t_loader(fixture), fractions=[0.5],
+            steps_per_round=1, eval_fn=lambda s, p: {}, logger=_quiet(),
+            **kw)
+    if exc is None:  # ported since: one round runs
+        (r,) = run()
+        assert r.fraction == 0.5 and r.seen == 2
+        return
     with pytest.raises(exc, match=f"item {item}" if item else None):
-        iterative_prune_finetune(
-            spec, params_from_jax(fixture["np_params"], spec), tcfg,
-            _t_loader(fixture), fractions=[0.5], steps_per_round=1,
-            eval_fn=lambda s, p: {}, logger=_quiet(), **kw)
+        run()
+
+
+def test_iterative_distill_uses_the_original_teacher_every_round(
+        fixture, monkeypatch):
+    """With distill, every round's student (repacked smaller each round)
+    trains against the one plan made from the unpruned model, as in the
+    JAX loop."""
+    from modelcompression_tpu_torch.train import loop as loop_mod
+    _, tcfg = _cfgs(fixture)
+    spec = parse_cfg(fixture["text"])
+    params = params_from_jax(fixture["np_params"], spec)
+    plan = make_distill_plan(params, spec, spec, weight=0.5)
+    steps = []
+    real = loop_mod.make_train_step
+
+    def spy(spec_, config, distill=None):
+        steps.append((spec_.layers[0].filters, distill))
+        return real(spec_, config, distill=distill)
+    monkeypatch.setattr(loop_mod, "make_train_step", spy)
+    rounds = iterative_prune_finetune(
+        spec, params, tcfg, _t_loader(fixture), fractions=[0.5, 0.75],
+        steps_per_round=1, eval_fn=lambda s, p: {}, mode="l1_filter",
+        logger=_quiet(), distill=plan)
+    assert [f for f, _ in steps] == [8, 4]
+    assert all(d is plan for _, d in steps)
+    assert rounds[-1].spec.layers[0].filters == 4
 
 
 def test_iterative_resume_equals_uninterrupted(fixture, tmp_path):
@@ -383,18 +422,33 @@ def test_finetune_usage_errors_worded_as_jax(fixture, capsys, case):
         assert message in capsys.readouterr().err
 
 
+# the options this test rejected: --dp / --tp still (item 7); gmp, pack,
+# distill and lamp (item 6) were ported since and now run (item None;
+# the test keeps its name). {tmp} is the test's tmp_path.
 NOT_PORTED = {
-    "gmp": (["--gmp", "0.5"], 6),
-    "pack": (["--qat", "--save-qmodel", "q.npz", "--pack"], "6e"),
-    "distill": (["--distill", "t.weights"], 6), "dp": (["--dp", "2"], 7),
+    "gmp": (["--gmp", "0.5", "--gmp-freq", "1", "--steps", "2"], None),
+    "pack": (["--qat", "--save-qmodel", "{tmp}/q.npz", "--pack"], None),
+    "distill": (["--distill", "{weights}"], None), "dp": (["--dp", "2"], 7),
     "tp": (["--tp", "2"], 7),
-    "lamp": (["--iterate", "0.5", "--iterate-mode", "lamp"], 6),
+    "lamp": (["--iterate", "0.5", "--iterate-mode", "lamp"], None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_finetune_not_ported_exit_2_naming_item(fixture, capsys, case):
+def test_finetune_not_ported_exit_2_naming_item(fixture, capsys, tmp_path,
+                                                case):
     extra, item = NOT_PORTED[case]
+    extra = [a.format(tmp=tmp_path, weights=fixture["weights"])
+             for a in extra]
+    if item is None:
+        assert ft_cli.main(_ft(fixture, *extra)) == 0
+        assert "mAP@50" in capsys.readouterr().out
+        if case == "pack":
+            from modelcompression_tpu.compress import load_qmodel
+            with np.load(tmp_path / "q.npz") as z:
+                assert any(f.endswith("/wq_payload") for f in z.files)
+            load_qmodel(str(tmp_path / "q.npz"))  # the JAX package reads it
+        return
     assert ft_cli.main(_ft(fixture, *extra)) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err

@@ -5,7 +5,7 @@ gradients, the updated params, the momentum buffers and the BN running
 stats; again with subdivisions=2, freeze_prefix=1 (the frozen conv
 bit-identical), weight masks (pruned weights exactly zero after every
 step), EMA and bn_l1. Also the batch-statistics forward, the six LR
-policies with burn-in, and the options that are not ported yet.
+policies with burn-in, and the step's own errors.
 
 Tolerances (fp32 on the CPU; the two packages' convolutions sum in other
 orders, about 1e-6 relative per conv, and six convs with batch-stat BN
@@ -35,7 +35,7 @@ from modelcompression_tpu.models import parse_cfg as jax_parse
 from modelcompression_tpu.train import train_step as jts
 from modelcompression_tpu_torch.core.precision import BITMATCH
 from modelcompression_tpu_torch.models import (
-    forward, params_from_jax, params_to_jax, parse_cfg,
+    forward, init_params, params_from_jax, params_to_jax, parse_cfg,
 )
 from modelcompression_tpu_torch.train import train_step as tts
 
@@ -442,12 +442,26 @@ def test_lr_schedule_matches_jax(policy):
 
 
 def test_not_ported_options_name_their_item():
-    for kw, item in ((dict(gmp=object()), 6),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tts.TrainConfig(**kw)
+    """Named when gmp and distill were rejected naming ROADMAP Queue 1 item
+    6; both are ported now (tests/test_torch_gmp.py and
+    test_torch_distill.py compare their steps with the JAX package's).
+    What stays: the JAX step's own errors, a GMP config over a state
+    without its masks and a freeze that leaves nothing to train."""
+    from modelcompression_tpu_torch.compress import GMPSpec
+    from modelcompression_tpu_torch.train import make_distill_plan
     spec = parse_cfg(tiny_region_cfg(num_classes=3, width=SIZE, height=SIZE))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tts.make_train_step(spec, tts.TrainConfig(), distill=object())
+    config = tts.TrainConfig(gmp=GMPSpec(final_sparsity=0.5, end=2,
+                                         frequency=1),
+                             augment_flip=False)
+    params = init_params(spec, seed=0)
+    state = tts.TrainState.create(params, tts.make_optimizer(config),
+                                  torch.Generator().manual_seed(0))
+    images, targets = _batch()
+    with pytest.raises(ValueError, match="gmp_init_masks"):
+        tts.make_train_step(spec, config)(state, images, targets)
+    plan = make_distill_plan(params, spec, spec)
+    assert callable(tts.make_train_step(spec, tts.TrainConfig(),
+                                        distill=plan))
     with pytest.raises(ValueError, match="freeze_prefix"):
         tts.make_train_step(spec, tts.TrainConfig(freeze_prefix=99))
 
