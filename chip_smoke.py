@@ -1,8 +1,8 @@
 """Drive the PyTorch port's serving, magnitude-prune, evaluation,
 fine-tune, YOLOv3 / YOLOv4 serving, YOLOv3 / YOLOv4 fine-tune and
-structured-prune, int8 (PTQ and QAT), and the other compression axes'
-(GMP, LAMP, distillation, low-rank, weight sharing and packing) paths on
-one NVIDIA GPU and check them.
+structured-prune, int8 (PTQ and QAT), the other compression axes' (GMP,
+LAMP, distillation, low-rank, weight sharing and packing), data-parallel,
+export and deploy paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -235,6 +235,33 @@ Phases, each printing JSON lines on stdout:
             finetune --qat --save-qmodel --pack for 1 step, its packed
             artifact loaded and served by eval --qmodel with the mAP
             finetune printed.
+13. parallel_deploy on full-width YOLOv2-VOC 416 (phase 6's weights,
+            phase 7's fixture): (a) a mesh one wider than the visible cards
+            raises the JAX text ("needs N devices, have M"), --dp 1 builds
+            a one-card mesh; (b) eval --dp 1 at batch 64 (FAST): the
+            summary equal to eval's, 3 input-stage launches at C=32 in
+            each; (c) serve --dp 1 answers 3 requests, /stats and /healthz
+            say dp 1, each request's detections equal to the one-device
+            step's on its canvas, 1 input-stage launch a batch; (d)
+            finetune --dp 1 (one NCCL rank, spawned) for 2 steps at the
+            cfg's batch 64 / subdivisions 8, cuDNN deterministic: the
+            written params bit-equal to finetune's; again with --gmp 0.75
+            --gmp-freq 1 (10 / 0 / 2 / 2 radix / count / tie / apply at
+            S=24 and 3 input-stage launches in rank 0, read from the file
+            it writes; zeros at least floor(s n)); the step with the mesh
+            (BN moments, loss sums and gradients all-reduced) beside the
+            plain step, in turns, and a step's count of NCCL all-reduces
+            alone (host enqueue ms, CUDA-event ms); (e) export at batch 1 and 64 (BITMATCH,
+            no kernel launch): seconds, bytes, the CLI's verify, the
+            program's valid flags equal to the live step's, its ms beside
+            the live eager step's (CUDA events, 10 steps, in turns); (f)
+            deploy --fractions 0.5 --steps 2 --qat-steps 2 --cluster-bits
+            6 --export saved_model --eval-batch 64: report.json with the
+            JAX keys, wall seconds, the input stage 3 times at C=32 (the
+            baseline) and 12 at C=16 (four evals of the slimmed model);
+            (g) export --qmodel of deploy's int8 artifact (its int8 convs,
+            torch._int_mm on the card, traced): the advisory verify's
+            valid-flag agreement and score drift, as the JAX CLI reports.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -1347,7 +1374,7 @@ def _train_batch(torch, b, seed, device, net=NET):
 
 def train_step_timing(torch, spec, params, subdivisions, net=NET,
                       remat=False, timed=TIMED_STEPS, qat=None, gmp=None,
-                      distill=None):
+                      distill=None, mesh=None):
     """The FAST train step (the cfg's augment: jitter and flip) at batch
     64 on a fixed device batch at ``net`` x ``net`` (416, or a multi-scale
     size), with or without ``remat``: steady ms per step from CUDA events
@@ -1356,7 +1383,9 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
     counting 3 x the conv FLOPs per image (forward, and the backward's two
     products). ``qat``: a QAT plan (``compress.qat.QATSpec``) the step
     trains with; ``gmp``: a ``compress.GMPSpec`` (the state seeded with
-    its all-keep masks); ``distill``: a ``train.DistillPlan``."""
+    its all-keep masks); ``distill``: a ``train.DistillPlan``; ``mesh``:
+    the data-parallel step over that mesh (its process group set up by
+    the caller)."""
     from modelcompression_tpu_torch.compress import gmp_init_masks
     from modelcompression_tpu_torch.models import num_conv_flops, params_to
     from modelcompression_tpu_torch.train import (
@@ -1370,7 +1399,7 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
         torch.Generator().manual_seed(SEED),
         weight_masks=(gmp_init_masks(dev_params, spec, gmp)
                       if gmp is not None else None))
-    step = make_train_step(spec, config, distill=distill)
+    step = make_train_step(spec, config, distill=distill, mesh=mesh)
     images, targets = _train_batch(torch, BATCH, SEED, "cuda", net)
     losses = [float(step(state, images, targets)[1]["loss"])
               for _ in range(2)]
@@ -1393,7 +1422,8 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
     gflop_img = 3 * num_conv_flops(spec) * (net / NET) ** 2 / 1e9
     return {"net": net, "subdivisions": subdivisions, "batch": BATCH,
             "remat": remat, "qat": qat is not None, "gmp": gmp is not None,
-            "distill": distill is not None, "timed_steps": timed,
+            "distill": distill is not None, "dp": mesh is not None,
+            "timed_steps": timed,
             "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
             "host_enqueue_ms_per_step": enqueue_ms,
             "max_memory_allocated_gib":
@@ -3464,6 +3494,354 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
     return widths
 
 
+DP_STEPS = 2
+DEPLOY_FRACTION = 0.5
+EXPORT_BATCHES = (1, BATCH)
+EXPORT_TIMED = 10
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms (and no autotuning) inside; the
+    ranks a CLI starts take the same settings."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _rank_cli(torch, kernels, main, argv, label, out_dir):
+    """A CLI run with --dp, whose work runs in rank processes: the
+    launcher must launch nothing itself, and rank 0's launch counts come
+    from the file it writes (``parallel.ranks.LAUNCHES_DIR_ENV``). Returns
+    (rank 0's launches, by width, seconds)."""
+    from modelcompression_tpu_torch.parallel.ranks import LAUNCHES_DIR_ENV
+    os.makedirs(out_dir, exist_ok=True)
+    os.environ[LAUNCHES_DIR_ENV] = out_dir
+    try:
+        _, counts, _, secs = _run_cli(torch, kernels, main, argv, label)
+    finally:
+        del os.environ[LAUNCHES_DIR_ENV]
+    check(not any(counts.values()), f"{label}: the launcher itself "
+          f"launched {counts}")
+    with open(os.path.join(out_dir, "rank0.json")) as f:
+        rank0 = json.load(f)
+    return ({n: v["launches"] for n, v in rank0.items()},
+            {n: {int(k): c for k, c in v["at"].items()}
+             for n, v in rank0.items()}, secs)
+
+
+def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
+    """Phase 13 (module docstring): data parallelism on one card (--dp 1
+    through eval, serve and finetune, NCCL at world size 1), the export
+    CLI and the deploy recipe on full-width YOLOv2-VOC 416 (phase 6's
+    weights, phase 7's fixture). Returns each path's launches by width."""
+    import urllib.request
+
+    import numpy as np
+    import torch.distributed as dist
+    from modelcompression_tpu_torch.cli import deploy, export, finetune, serve
+    from modelcompression_tpu_torch.cli import eval as eval_cli
+    from modelcompression_tpu_torch.cli.common import (
+        run_padded_batch, unpack_detections,
+    )
+    from modelcompression_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from modelcompression_tpu_torch.core.precision import BITMATCH
+    from modelcompression_tpu_torch.evaluation import (
+        EvalConfig, make_eval_step,
+    )
+    from modelcompression_tpu_torch.models import (
+        cfg_path, fold_batchnorm, load_cfg, load_weights, params_to,
+    )
+    from modelcompression_tpu_torch.parallel.ranks import free_port
+    cfg = cfg_path("yolov2-voc.cfg")
+    spec = load_cfg(cfg)
+    params, _ = load_weights(weights, spec)  # phase 6's, from seed 0
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    sub = spec.net.subdivisions
+    c1 = spec.layers[0].filters
+    s_layer = len(spec.conv_indices()) + 1  # + the padding segment
+    widths = {}
+    t_part = [time.perf_counter()]
+
+    def done(part, **kw):
+        now = time.perf_counter()
+        emit({"phase": "parallel_deploy", "part": part, "ok": True,
+              "card": card, "part_s": now - t_part[0], **kw})
+        t_part[0] = now
+
+    def out_path(name):
+        return os.path.join(tmp, name)
+
+    # (a) the mesh: one wider than the visible cards raises the JAX text
+    n_dev = torch.cuda.device_count()
+    try:
+        make_mesh(MeshConfig(data=n_dev + 1))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    want = (f"mesh MeshConfig(data={n_dev + 1}, model=1) needs "
+            f"{n_dev + 1} devices, have {n_dev}")
+    check(raised == want, f"make_mesh raised {raised!r}, expected {want!r}")
+    mesh1 = make_mesh(MeshConfig(data=1))
+    check(mesh1.data_devices == (torch.device("cuda", 0),),
+          f"--dp 1 mesh on {mesh1.data_devices}")
+    done("mesh", error=raised, dp1_devices=[str(d) for d in
+                                             mesh1.data_devices])
+
+    # (b) eval --dp 1 against eval, FAST at batch 64
+    base = ["--cfg", cfg, "--weights", weights, "--data", data, "--batch",
+            str(BATCH), "--device", "cuda"]
+    evals = {}
+    for tag, extra in (("eval", []), ("eval_dp1", ["--dp", "1"])):
+        out, counts, at, secs = _run_cli(torch, kernels, eval_cli.main,
+                                         base + extra, tag)
+        expect_launches(kernels, counts, at, tag,
+                        {"input_stage_mma": n_batches},
+                        {"input_stage_mma": {c1: n_batches}})
+        widths[tag] = at
+        evals[tag] = {"seconds": secs, "summary": _summary_lines(out)}
+    check(evals["eval_dp1"]["summary"] == evals["eval"]["summary"],
+          "eval --dp 1 summary differs from eval's")
+    done("eval_dp1", seconds={k: v["seconds"] for k, v in evals.items()},
+         map_line=[ln for ln in evals["eval"]["summary"]
+                   if ln.startswith("mAP@")])
+
+    # (c) serve --dp 1: 3 requests, /stats and /healthz say dp 1, every
+    # request's detections equal to the one-device step's on its canvas
+    args = serve.build_parser().parse_args(
+        ["--cfg", cfg, "--weights", weights, "--host", "127.0.0.1",
+         "--port", "0", "--deployment", "--batch", str(BATCH), "--device",
+         "cuda", "--max-wait-ms", "20", "--dp", "1"])
+    httpd, state = serve.build_server(args)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = httpd.server_address[1]
+        rng = np.random.default_rng(SEED)
+        canvases = [rng.integers(0, 256, (NET, NET, 3), np.uint8)
+                    for _ in range(3)]
+        reset_counts(kernels)
+        items = [state.submit(c, float(SRC_W), float(SRC_H))
+                 for c in canvases]
+        for it in items:
+            check(it is not None and it.event.wait(300)
+                  and it.error is None, "serve --dp 1: a request failed")
+        deadline = time.monotonic() + 60
+        while state.stats()["images"] < 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        counts, at = read_counts(kernels), read_widths(kernels)
+        check(stats["dp"] == 1 and health["dp"] == 1
+              and stats["images"] == 3, f"serve --dp 1: /stats {stats}")
+        expect_launches(kernels, counts, at, "serve --dp 1",
+                        {"input_stage_mma": stats["batches"]},
+                        {"input_stage_mma": {c1: stats["batches"]}})
+        widths["serve_dp1"] = at
+        direct_step = make_eval_step(spec, state.cfg)
+        sel, sc, valid = run_padded_batch(
+            direct_step, state.params[0], canvases, [float(SRC_W)] * 3,
+            [float(SRC_H)] * 3, BATCH)
+        for i, it in enumerate(items):
+            want = unpack_detections(sel[i], sc[i], valid[i], SRC_W, SRC_H)
+            got = [{k: d[k] for k in ("class_id", "score", "box")}
+                   for d in it.result]
+            check(got == want, f"serve --dp 1: request {i} detections "
+                  f"differ from the direct step's")
+        done("serve_dp1", stats=stats, launches=counts,
+             detections=[len(it.result) for it in items])
+    finally:
+        state.stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    # (d) finetune --dp 1 (one NCCL rank) against finetune, 2 steps at the
+    # cfg's batch 64 / subdivisions 8, cuDNN deterministic in both
+    ft = ["--cfg", cfg, "--weights", weights, "--data", data, "--steps",
+          str(DP_STEPS), "--batch", str(BATCH), "--subdivisions", str(sub),
+          "--device", "cuda"]
+    eval_want = ({"input_stage_mma": n_batches},
+                 {"input_stage_mma": {c1: n_batches}})
+    runs = {}
+    with deterministic_cudnn(torch):
+        _, counts, at, secs = _run_cli(
+            torch, kernels, finetune.main,
+            ft + ["--out", out_path("ft_plain.weights")], "finetune")
+        expect_launches(kernels, counts, at, "finetune", *eval_want)
+        runs["plain"] = secs
+        counts, at, secs = _rank_cli(
+            torch, kernels, finetune.main,
+            ft + ["--dp", "1", "--out", out_path("ft_dp1.weights")],
+            "finetune --dp 1", out_path("launches_ft_dp1"))
+        expect_launches(kernels, counts, at, "finetune --dp 1", *eval_want)
+        widths["finetune_dp1"] = at
+        runs["dp1"] = secs
+    (p_plain, seen_plain), (p_dp, seen_dp) = (
+        load_weights(out_path(f"ft_{t}.weights"), spec)
+        for t in ("plain", "dp1"))
+    max_diff = max(float((p_dp[k][n] - v).abs().max())
+                   for k, p in p_plain.items() for n, v in p.items())
+    check(seen_dp == seen_plain and max_diff == 0.0,
+          f"finetune --dp 1 differs from finetune: max |d| {max_diff}, "
+          f"seen {seen_dp} vs {seen_plain}")
+    prune_want = {n: DP_STEPS * k for n, k in PRUNE_LAUNCHES.items()}
+    counts, at, secs = _rank_cli(
+        torch, kernels, finetune.main,
+        ft + ["--dp", "1", "--gmp", str(GMP_FINAL), "--gmp-begin", "0",
+              "--gmp-end", str(DP_STEPS - 1), "--gmp-freq", "1", "--out",
+              out_path("ft_dp1_gmp.weights")],
+        "finetune --dp 1 --gmp", out_path("launches_ft_dp1_gmp"))
+    expect_launches(kernels, counts, at, "finetune --dp 1 --gmp",
+                    dict(prune_want, input_stage_mma=n_batches),
+                    dict({n: {s_layer: k} for n, k in prune_want.items()},
+                         input_stage_mma={c1: n_batches}))
+    widths["finetune_dp1_gmp"] = at
+    runs["dp1_gmp"] = secs
+    written, _ = load_weights(out_path("ft_dp1_gmp.weights"), spec)
+    zeros = {k: int((p["w"] == 0).sum()) for k, p in written.items()}
+    floors = {k: int(np.float32(GMP_FINAL) * np.float32(p["w"].numel()))
+              for k, p in written.items()}
+    check(all(zeros[k] >= floors[k] for k in zeros),
+          "finetune --dp 1 --gmp: a layer below floor(s n) zeros")
+    n_bn = sum(1 for i in spec.conv_indices()
+               if spec.layers[i].batch_normalize)
+    # a step's collectives: the BN moments forward and backward per conv
+    # and micro-batch, the loss sums per micro-batch, the gradients once
+    n_coll = 2 * n_bn * sub + sub + 1
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        timing = [train_step_timing(torch, spec, params, sub, timed=3,
+                                    mesh=m)
+                  for m in (None, mesh1, mesh1, None)]
+        moments = torch.zeros(2, 1024, device="cuda")
+
+        def collectives():
+            for _ in range(n_coll):
+                dist.all_reduce(moments)
+
+        collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        coll_ms = time_ms(torch, collectives, iters=3, warmup=1)
+    finally:
+        dist.destroy_process_group()
+    done("finetune_dp1", seconds=runs, bit_equal=max_diff == 0.0,
+         seen=seen_dp, launches_gmp=counts, step_ms=_in_turns(timing),
+         bn_all_reduces_per_step=2 * n_bn * sub,
+         collectives_per_step=n_coll,
+         collectives_alone={"host_enqueue_ms": host_ms, "ms": coll_ms,
+                            "host_enqueue_ms_each": host_ms / n_coll,
+                            "ms_each": coll_ms / n_coll,
+                            "elements": moments.numel()},
+         step_note="--dp 1: the BN moments all-reduced per micro-batch "
+                   "(forward, and their gradients in the backward), the "
+                   "loss sums per micro-batch, one flat gradient "
+                   "all-reduce a step (NCCL, world size 1)")
+
+    # (e) export at batch 1 and 64: seconds, bytes, the CLI's verify, and
+    # the exported program against the live eager step (CUDA events)
+    exports = {}
+    folded = params_to(fold_batchnorm(params, spec), "cuda")
+    live = make_eval_step(spec, EvalConfig(
+        conf_thresh=0.25, nms_thresh=0.45, max_detections=50,
+        precision=BITMATCH, fuse_input_stage=False, device="cuda"))
+    for b in EXPORT_BATCHES:
+        path = out_path(f"yolov2_b{b}.pt2")
+        out, counts, at, secs = _run_cli(
+            torch, kernels, export.main,
+            ["--cfg", cfg, "--weights", weights, "--out", path, "--batch",
+             str(b), "--platforms", "cuda"], f"export --batch {b}")
+        expect_launches(kernels, counts, at, f"export --batch {b}", {}, {})
+        check("verify ok" in out, f"export --batch {b}: no verify line")
+        nodes = re.search(r"(\d+) graph nodes", out)
+        program = torch.export.load(path).module()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + b)
+        images = torch.randint(0, 256, (b, NET, NET, 3), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        wh = torch.full((b,), float(NET), device="cuda")
+        got = program(images, wh, wh)
+        want = live(folded, images, wh, wh)
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        check(bool((got[2] == want[2]).all()),
+              f"export --batch {b}: valid flags differ from the live step")
+
+        def run_program():
+            with torch.inference_mode():
+                program(images, wh, wh)
+
+        ms = [time_ms(torch, fn, EXPORT_TIMED) for fn in (
+            lambda: live(folded, images, wh, wh), run_program, run_program,
+            lambda: live(folded, images, wh, wh))]
+        exports[b] = {"export_s": secs, "bytes": os.path.getsize(path),
+                      "graph_nodes": int(nodes.group(1)) if nodes else None,
+                      "verify": "ok", "max_abs_err_vs_live": err,
+                      "ms_live": [ms[0], ms[3]], "ms_pt2": [ms[1], ms[2]]}
+        del program
+        os.remove(path)
+    done("export", exports=exports, precision="bitmatch")
+
+    # (f) deploy: prune 0.5 + 2 steps, QAT 2 steps, 6-bit cmodel, .pt2
+    out_dir = out_path("deploy")
+    out, counts, at, secs = _run_cli(
+        torch, kernels, deploy.main,
+        ["--cfg", cfg, "--weights", weights, "--data", data, "--out-dir",
+         out_dir, "--fractions", str(DEPLOY_FRACTION), "--steps", "2",
+         "--qat-steps", "2", "--cluster-bits", str(CLUSTER_BITS),
+         "--export", "saved_model", "--eval-batch", str(BATCH), "--device",
+         "cuda"], "deploy")
+    c_slim = int(c1 * (1 - DEPLOY_FRACTION))
+    # evals at C=32: the baseline; at the slim width: the round's, the
+    # pruned stage's, QAT's float eval and the cmodel's (int8: none)
+    expect_launches(kernels, counts, at, "deploy",
+                    {"input_stage_mma": 5 * n_batches},
+                    {"input_stage_mma": {c1: n_batches,
+                                         c_slim: 4 * n_batches}})
+    widths["deploy"] = at
+    with open(os.path.join(out_dir, "report.json")) as f:
+        report = json.load(f)
+    check(set(report) == {"stages", "artifacts", "wall_s"}
+          and set(report["stages"]) == {"baseline", "pruned", "int8"}
+          and set(report["artifacts"]) == {"slim.weights", "deploy.qz",
+                                           "deploy.cz", "saved_model"},
+          f"deploy report keys: {sorted(report)}")
+    check("verify ok" in out, "deploy: the export stage did not verify")
+    done("deploy", wall_s=secs, report=report, launches=counts,
+         launches_by_width=at)
+
+    # (g) export of deploy's int8 artifact: the hybrid's int8 convs
+    # (cuBLASLt through torch._int_mm) traced into the program, FAST
+    out, counts, at, secs = _run_cli(
+        torch, kernels, export.main,
+        ["--cfg", os.path.join(out_dir, "slim.cfg"), "--qmodel",
+         os.path.join(out_dir, "deploy.qz"), "--out",
+         out_path("slim_int8.pt2"), "--batch", "1", "--platforms", "cuda"],
+        "export --qmodel")
+    expect_launches(kernels, counts, at, "export --qmodel", {}, {})
+    agree = re.search(r"valid-flag agreement ([0-9.]+)%, max score drift "
+                      r"(\S+)", out)
+    check(agree is not None, "export --qmodel: no advisory verify line")
+    done("export_qmodel", export_s=secs,
+         bytes=os.path.getsize(out_path("slim_int8.pt2")),
+         valid_agreement_pct=float(agree.group(1)),
+         max_score_drift=float(agree.group(2)))
+    return widths
+
+
 TOPK_ENTRIES = (
     ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
     ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
@@ -3474,7 +3852,8 @@ TOPK_ENTRIES = (
 
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                    ft_widths, fam_widths, fam_topk, train_widths,
-                   train_topk, int8_widths, quantile_select, cmp_widths):
+                   train_topk, int8_widths, quantile_select, cmp_widths,
+                   par_widths):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -3520,7 +3899,10 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     entry counts its launches on the compression phase's paths
     (``compress_launches``: GMP's recompute at S=24 and S=2, LAMP's cut
     at S=2, the evals' input stage at C=32 and the distilled student's at
-    C=8, the cmodel's serving)."""
+    C=8, the cmodel's serving), and on the data-parallel and deploy
+    phase's (``parallel_launches``: eval / serve / finetune --dp 1, rank
+    0's counts for finetune, GMP's recompute at S=24, deploy's evals at
+    C=32 and C=16)."""
     def on(widths, source, width):
         return {path: at[source].get(width, 0)
                 for path, at in widths.items()}
@@ -3554,7 +3936,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "families_launches": on(fam_widths, source, c_out),
             "families_train_launches": on(train_widths, source, c_out),
             "int8_launches": on(int8_widths, source, c_out),
-            "compress_launches": on(cmp_widths, source, c_out)})
+            "compress_launches": on(cmp_widths, source, c_out),
+            "parallel_launches": on(par_widths, source, c_out)})
     for dtype, name, path in (
             ("bfloat16", "input_stage_mma[C=16]", "yolov3_tiny"),
             ("float32", "input_stage_f32[C=16]", "yolov3_tiny_fp32")):
@@ -3573,7 +3956,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "families_launches": on(fam_widths, source, 16),
             "families_train_launches": on(train_widths, source, 16),
             "int8_launches": on(int8_widths, source, 16),
-            "compress_launches": on(cmp_widths, source, 16)})
+            "compress_launches": on(cmp_widths, source, 16),
+            "parallel_launches": on(par_widths, source, 16)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -3588,7 +3972,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "families_launches": on(fam_widths, YARDSTICK, 32),
         "families_train_launches": on(train_widths, YARDSTICK, 32),
         "int8_launches": on(int8_widths, YARDSTICK, 32),
-        "compress_launches": on(cmp_widths, YARDSTICK, 32)})
+        "compress_launches": on(cmp_widths, YARDSTICK, 32),
+        "parallel_launches": on(par_widths, YARDSTICK, 32)})
 
     def topk_entry(r, key, source, body, name, launches, widths, library):
         k = r[key]
@@ -3629,7 +4014,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                  "families_launches": on(fam_widths, source, s),
                  "families_train_launches": on(train_widths, source, s),
                  "int8_launches": on(int8_widths, source, s),
-                 "compress_launches": on(cmp_widths, source, s)},
+                 "compress_launches": on(cmp_widths, source, s),
+                 "parallel_launches": on(par_widths, source, s)},
                 None if s == 24 else
                 "torch.kthvalue: the k-th |w| of the one real segment"))
     s = fam_topk["S"]
@@ -3640,7 +4026,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             {"families_launches": on(fam_widths, source, s),
              "families_train_launches": on(train_widths, source, s),
              "int8_launches": on(int8_widths, source, s),
-             "compress_launches": on(cmp_widths, source, s)},
+             "compress_launches": on(cmp_widths, source, s),
+             "parallel_launches": on(par_widths, source, s)},
             "torch.topk of the 128 best scores per image: the whole "
             "selection"))
     s = train_topk["S"]
@@ -3650,7 +4037,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             train_widths["prune_magnitude_yolov4"][source].get(s, 0),
             {"families_train_launches": on(train_widths, source, s),
              "int8_launches": on(int8_widths, source, s),
-             "compress_launches": on(cmp_widths, source, s)}, None))
+             "compress_launches": on(cmp_widths, source, s),
+             "parallel_launches": on(par_widths, source, s)}, None))
     q = quantile_select
     entries.append({
         "name": f"topk_radix_select[S={q['S']},quantile]", "route": "cuda",
@@ -3662,7 +4050,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "pass_ms": q["pass_ms"], "pass_bound_ms": q["pass_bound_ms"],
         "four_pass_bound_ms": q["four_pass_bound_ms"], "elements": q["n"],
         "int8_launches": on(int8_widths, "topk_radix_select", q["S"]),
-        "compress_launches": on(cmp_widths, "topk_radix_select", q["S"])})
+        "compress_launches": on(cmp_widths, "topk_radix_select", q["S"]),
+        "parallel_launches": on(par_widths, "topk_radix_select", q["S"])})
     return entries
 
 
@@ -3711,12 +4100,14 @@ def main() -> int:
                 torch, KERNELS, card, tmp, data, weights, main_lines)
             cmp_widths = phase_compress(torch, KERNELS, card, tmp, data,
                                         weights, main_lines)
+            par_widths = phase_parallel_deploy(torch, KERNELS, card, tmp,
+                                               data, weights)
         emit({"kernels": kernel_entries(cases, launches, topk,
                                         prune_launches, eval_widths,
                                         ft_widths, fam_widths, fam_topk,
                                         train_widths, train_topk,
                                         int8_widths, quantile_select,
-                                        cmp_widths)})
+                                        cmp_widths, par_widths)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

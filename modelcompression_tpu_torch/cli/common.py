@@ -6,6 +6,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import torch
@@ -33,15 +34,63 @@ def add_model_args(p: argparse.ArgumentParser, weights_required=True):
 
 
 def add_parallel_args(p: argparse.ArgumentParser):
-    """Parsed so the JAX CLI's command lines reach the rejection of values
-    above 1, which names the ROADMAP item (data/tensor parallelism is not
-    ported yet)."""
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (not ported yet: values above "
-                        "1 are rejected)")
+                   help="data-parallel size: shard the batch over this "
+                        "many devices on the mesh's 'data' axis (inference: "
+                        "one step per device in this process; training: "
+                        "one process per device, the BN statistics and "
+                        "gradients all-reduced). 0 = single-device "
+                        "(default); 1 runs the data-parallel path on one "
+                        "device")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (not ported yet: values "
-                        "above 1 are rejected)")
+                   help="tensor-parallel size: shard conv filters over "
+                        "the 'model' axis (train paths only; not ported "
+                        "yet: values above 1 exit 2, ROADMAP Queue 1 item "
+                        "11)")
+
+
+def build_mesh(args):
+    """(mesh, tp_enabled) from --dp/--tp; (None, False) without --dp.
+
+    ``--dp N`` with N >= 1 builds an N-wide 'data' mesh on ``--device``
+    (CUDA: N visible cards, else the JAX ``ValueError``). The JAX CLIs
+    build none below 2; here ``--dp 1`` runs the data-parallel path on one
+    card, with the same results. ``--tp`` above 1 raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    from modelcompression_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
+    if getattr(args, "tp", 1) > 1:
+        raise NotImplementedError(TP_NOT_PORTED)
+    dp = getattr(args, "dp", 0)
+    if dp < 1:
+        return None, False
+    return make_mesh(MeshConfig(data=dp),
+                     device=getattr(args, "device", None)), False
+
+
+def spawn_ranks(args, target: str, argv):
+    """The training CLIs' ``--dp N``: outside a process group, start N
+    ranks that each run ``target`` (the CLI's ``module:main``) on the same
+    command line (``parallel/ranks.spawn``) and return the code they exit
+    with. Returns None, for the caller to go on, inside a rank, without
+    --dp, or with --tp above 1 (which the CLI rejects)."""
+    from modelcompression_tpu_torch.parallel import ranks
+    if (getattr(args, "dp", 0) < 1 or getattr(args, "tp", 1) > 1
+            or ranks.rank() is not None):
+        return None
+    mesh, _ = build_mesh(args)  # the device rule and the device count
+    return ranks.spawn(target, sys.argv[1:] if argv is None else argv,
+                       args.dp, mesh.data_devices[0].type)
+
+
+def rank_device(args, mesh):
+    """The device this process trains on: its rank's on the mesh, else
+    ``--device``."""
+    from modelcompression_tpu_torch.core.device import resolve_device
+    from modelcompression_tpu_torch.parallel import ranks
+    if mesh is None:
+        return resolve_device(args.device)
+    return mesh.data_devices[ranks.rank() or 0]
 
 
 def add_data_args(p: argparse.ArgumentParser):

@@ -11,8 +11,9 @@ serves an int8 artifact (``eval --int8 --save-qmodel`` or ``finetune
 --qat --save-qmodel``, of either package) through
 ``compress.forward_quantized``; ``--cmodel`` a weight-sharing artifact
 (``eval --cluster-bits N --save-cmodel``, of either package, packed or
-not) as its reconstructed float32 params. ``--dp`` (ROADMAP Queue 1 item
-7) is not ported yet and exits 2.
+not) as its reconstructed float32 params. ``--dp N`` (with --dir or
+--video) splits each device batch over N devices of --device, the params
+replicated, one step per shard (``parallel.data_parallel``).
 
 Examples:
   python -m modelcompression_tpu_torch.cli.detect --cfg yolov2-voc.cfg \\
@@ -34,14 +35,15 @@ import time
 import numpy as np
 
 from modelcompression_tpu_torch.cli.common import (
-    add_model_args, add_serving_nms_args, dispatch_padded_batch, fetch_batch,
-    load_serving_model, prepare_serving, resolve_serving_eval_config,
-    run_padded_batch, unpack_detections,
+    add_model_args, add_serving_nms_args, build_mesh, dispatch_padded_batch,
+    fetch_batch, load_serving_model, prepare_serving,
+    resolve_serving_eval_config, run_padded_batch, unpack_detections,
 )
 from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.data.preprocess import letterbox_host
 from modelcompression_tpu_torch.data.voc import VOC_CLASSES, read_names
 from modelcompression_tpu_torch.evaluation import make_eval_step
+from modelcompression_tpu_torch.parallel import data_parallel, replicate
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,8 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=16,
                    help="with --dir/--video: device batch size")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel detect (not ported yet: any value "
-                        "is rejected)")
+                   help="with --dir/--video: split each device batch "
+                        "over this many devices on a 'data' mesh axis "
+                        "(params replicated, one step per shard — same "
+                        "mechanism as serve/eval --dp). --batch must "
+                        "divide evenly. 0 = single device (no mesh); any "
+                        "N >= 1 builds an N-device mesh and requires "
+                        "--dir/--video")
     add_serving_nms_args(p)
     p.add_argument("--names", default=None, help=".names file")
     p.add_argument("--qmodel", default=None, metavar="PATH",
@@ -264,10 +271,6 @@ def main(argv=None) -> int:
         print("error: exactly one of --image, --dir or --video is "
               "required", file=sys.stderr)
         return 2
-    if args.dp:
-        print("error: --dp is not ported to the PyTorch package yet "
-              "(ROADMAP Queue 1 item 7)", file=sys.stderr)
-        return 2
     try:
         resolve_device(args.device)  # no CUDA: fail before reading
         spec, params, quantized = load_serving_model(args)
@@ -280,6 +283,21 @@ def main(argv=None) -> int:
     cfg = resolve_serving_eval_config(args, spec=spec)
     folded, cfg = prepare_serving(spec, params, quantized, cfg)
     step = make_eval_step(spec, cfg)
+
+    # dp >= 1 takes the mesh path, as in the JAX CLI: --dp 1 gets the same
+    # mode and divisibility checks as --dp 2
+    if args.dp >= 1:
+        if not (args.dir or args.video):
+            print("error: --dp applies to the batched --dir/--video "
+                  "modes only", file=sys.stderr)
+            return 2
+        if args.batch % args.dp:
+            print(f"error: --batch {args.batch} must be divisible by "
+                  f"--dp {args.dp}", file=sys.stderr)
+            return 2
+        mesh, _ = build_mesh(args)
+        folded = replicate(folded, mesh)
+        step = data_parallel(step, mesh)
 
     if args.dir:
         return _detect_dir(args, spec, folded, step, names)

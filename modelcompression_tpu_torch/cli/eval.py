@@ -21,8 +21,10 @@ weights into a 2^N-entry k-means codebook on the host
 ``--save-cmodel`` writes that artifact (``--pack huffman|fixed``
 entropy-codes its codes, or the int8 weights of ``--save-qmodel``), and
 ``--cmodel`` serves one through the unchanged FAST path (input-stage
-kernel included). --dp / --tp above 1 are not ported yet (ROADMAP Queue 1
-item 7) and exit 2 naming their item. Every NMS variant
+kernel included). ``--dp N`` evaluates data-parallel over N devices of
+--device in this process (one step per shard, the results equal to one
+device's; on the CPU every shard runs on the host); --tp above 1 is not
+ported yet (ROADMAP Queue 1 item 11) and exits 2. Every NMS variant
 of the JAX CLI runs: --exact-nms, --soft-nms (--soft-nms-sigma),
 --diou-nms (--diou-beta), --nms-prefilter-impl bisect. [region] (YOLOv2)
 and [yolo] (YOLOv3 / YOLOv4) cfgs evaluate alike.
@@ -39,8 +41,8 @@ import os
 import sys
 
 from modelcompression_tpu_torch.cli.common import (
-    add_data_args, add_model_args, add_parallel_args, load_dataset,
-    load_serving_model, prep_calibration, prepare_serving,
+    add_data_args, add_model_args, add_parallel_args, build_mesh,
+    load_dataset, load_serving_model, prep_calibration, prepare_serving,
 )
 from modelcompression_tpu_torch.compress import (
     cluster_network, quantize_from_batches, reconstruct, save_cmodel,
@@ -52,6 +54,7 @@ from modelcompression_tpu_torch.evaluation import (
     EvalConfig, dump_detections, evaluate, evaluate_recall,
 )
 from modelcompression_tpu_torch.models import fold_batchnorm, params_to
+from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -220,11 +223,7 @@ def _usage_error(args):
 def _not_ported(args):
     """The flag a command line needs that is not ported yet, with its
     ROADMAP item, or None."""
-    for flag, on in (("--dp", args.dp > 1), ("--tp", args.tp > 1)):
-        if on:
-            return (f"{flag} is not ported to the PyTorch package yet "
-                    f"(ROADMAP Queue 1 item 7)")
-    return None
+    return TP_NOT_PORTED if args.tp > 1 else None
 
 
 def _cluster(args, spec, params):
@@ -320,6 +319,10 @@ def main(argv=None) -> int:
                   "— raise --max-det to widen the proposal set",
                   file=sys.stderr)
             return 2
+        if args.dp > 1 or args.tp > 1:
+            print("error: --recall runs single-device; --dp/--tp do not "
+                  "apply", file=sys.stderr)
+            return 2
         if not 0.0 < args.recall_iou <= 1.0:
             print(f"error: --recall-iou must be in (0, 1], got "
                   f"{args.recall_iou}", file=sys.stderr)
@@ -328,7 +331,12 @@ def main(argv=None) -> int:
                                recall_iou=args.recall_iou, progress=True)
         print(rres.summary())
         return 0
-    res = evaluate(params, spec, samples, names, cfg)
+    mesh, _ = build_mesh(args)
+    if mesh is not None and args.batch % mesh.shape["data"]:
+        print(f"error: --batch {args.batch} must be divisible by "
+              f"--dp {mesh.shape['data']}", file=sys.stderr)
+        return 2
+    res = evaluate(params, spec, samples, names, cfg, mesh=mesh)
     print(res.summary())
     if args.dump_dir:
         dump_detections(res, args.dump_dir)

@@ -28,9 +28,15 @@ threshold with --gmp-global). ``--distill T.weights`` adds the loss
 against that teacher's raw map (train/distill.py; --distill-cfg when the
 teacher's architecture differs), in every round with --iterate.
 
+``--dp N`` trains data-parallel: N ranks, one process per device of
+--device (nccl on cuda:0..N-1, gloo on the CPU), each given the same
+batches; the BN statistics, loss sums and gradients are all-reduced, so
+the params equal a one-device run's. Rank 0 alone logs, evaluates and
+writes --out and the checkpoints; a failing rank fails the command.
+
 The command lines of the JAX CLI run unchanged: its validations come
-first, with its messages and exit code 2. --dp / --tp above 1 are not
-ported yet (ROADMAP Queue 1 item 7) and exit 2 naming their item.
+first, with its messages and exit code 2. --tp above 1 is not ported yet
+(ROADMAP Queue 1 item 11) and exits 2 naming its item.
 
 Example:
   python -m modelcompression_tpu_torch.cli.finetune --cfg slim.cfg \\
@@ -48,20 +54,22 @@ import numpy as np
 import torch
 
 from modelcompression_tpu_torch.cli.common import (
-    add_data_args, add_model_args, add_parallel_args, load_dataset,
-    load_model, load_train_dataset, prep_calibration,
-    quantized_eval_config, resolve_batch_subdivisions, resolve_mask_backend,
+    add_data_args, add_model_args, add_parallel_args, build_mesh,
+    load_dataset, load_model, load_train_dataset, prep_calibration,
+    quantized_eval_config, rank_device, resolve_batch_subdivisions,
+    resolve_mask_backend, spawn_ranks,
 )
 from modelcompression_tpu_torch.compress import (
     DEFAULT_MASK_BACKEND, MASK_BACKENDS, GMPSpec, gmp_init_masks,
     qat_spec_from_batches, quantize_qat, save_qmodel,
 )
-from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.evaluation import EvalConfig, evaluate
 from modelcompression_tpu_torch.models import (
     dump_cfg, load_cfg, load_weights, params_to, save_weights,
 )
 from modelcompression_tpu_torch.models.cfg import ConvLayer
+from modelcompression_tpu_torch.parallel.ranks import is_primary
+from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
 from modelcompression_tpu_torch.train import (
     BatchLoader, TrainConfig, TrainState, iterative_prune_finetune,
     make_distill_plan, make_optimizer, train,
@@ -267,13 +275,9 @@ def _usage_error(args, spec) -> str | None:
 
 
 def _not_ported(args) -> str | None:
-    """The first option the command line needs that is not ported yet,
-    with its ROADMAP item, or None."""
-    for flag, on in (("--dp", args.dp > 1), ("--tp", args.tp > 1)):
-        if on:
-            return (f"{flag} is not ported to the PyTorch package yet "
-                    f"(ROADMAP Queue 1 item 7)")
-    return None
+    """The option the command line needs that is not ported yet, with its
+    ROADMAP item, or None."""
+    return TP_NOT_PORTED if args.tp > 1 else None
 
 
 def _gmp_spec(args) -> GMPSpec:
@@ -308,7 +312,12 @@ def _to_cpu(params):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.mask_backend = resolve_mask_backend(args)
-    device = resolve_device(args.device)  # no CUDA: raise before reading
+    rc = spawn_ranks(args, "modelcompression_tpu_torch.cli.finetune:main",
+                     argv)
+    if rc is not None:  # --dp: the ranks ran this CLI
+        return rc
+    mesh = build_mesh(args)[0] if args.tp <= 1 else None
+    device = rank_device(args, mesh)  # no CUDA: raise before reading
     spec, params, seen = load_model(args)
     samples, names = load_train_dataset(args)
     if not samples:
@@ -381,13 +390,21 @@ def main(argv=None) -> int:
                          net_h=spec.net.height, net_w=spec.net.width,
                          max_boxes=args.max_boxes, seed=args.seed,
                          device=device)
-    logger = MetricsLogger(jsonl_path=args.log_jsonl)
+    logger = MetricsLogger(jsonl_path=args.log_jsonl if is_primary()
+                           else None)
     eval_cfg = EvalConfig(batch_size=batch, device=args.device)
+    if mesh is not None and (batch // subdiv) % mesh.shape["data"]:
+        print(f"error: micro-batch {batch // subdiv} (batch/subdivisions) "
+              f"must be divisible by --dp {mesh.shape['data']}",
+              file=sys.stderr)
+        return 2
 
     if args.iterate:
         fractions = [float(x) for x in args.iterate.split(",") if x]
 
         def eval_fn(s, p):
+            if not is_primary():  # rank 0 evaluates
+                return {}
             res = evaluate(p, s, eval_samples, eval_names, eval_cfg)
             print(res.summary())
             return {"map50": res.map50}
@@ -398,8 +415,10 @@ def main(argv=None) -> int:
             mode=args.iterate_mode,
             rng=torch.Generator().manual_seed(args.seed), logger=logger,
             ckpt_dir=args.ckpt_dir, resume=args.resume, initial_seen=seen,
-            mask_backend=args.mask_backend, distill=distill_plan,
+            mesh=mesh, mask_backend=args.mask_backend, distill=distill_plan,
             taylor_batches=args.taylor_batches, tied=args.tied)
+        if not is_primary():
+            return 0
         if not rounds:
             print("nothing to do: all rounds already checkpointed")
             return 0
@@ -444,7 +463,9 @@ def main(argv=None) -> int:
                               weight_masks=weight_masks, seen=seen,
                               ema=args.ema is not None)
     state = train(state, spec, config, loader, n_steps=args.steps,
-                  logger=logger, distill=distill_plan)
+                  logger=logger, mesh=mesh, distill=distill_plan)
+    if not is_primary():
+        return 0
     # with --ema the delivered model is the EMA shadow (weights and BN
     # running stats); the live SGD iterate stays in the state only
     out_params = state["ema_params"] if args.ema is not None \

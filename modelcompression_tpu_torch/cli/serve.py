@@ -12,8 +12,9 @@ an int8 ``--qmodel`` artifact (of either package; served through
 (its reconstructed float32 params), or a random model from seed 0 when
 none is given, with every serving NMS flag of the JAX CLI
 (``--diou-nms`` / ``--diou-beta`` default to the cfg's
-``nms_kind=diounms`` / ``beta_nms``). ``--dp`` is not ported yet and is
-rejected.
+``nms_kind=diounms`` / ``beta_nms``). ``--dp N`` serves data-parallel:
+the params replicated on N devices of --device, every batch split over
+them, one step per shard (``parallel.data_parallel``).
 
 Endpoints:
   POST /detect     image file bytes (jpeg/png/bmp) -> JSON detections in
@@ -44,13 +45,14 @@ from typing import Optional
 import numpy as np
 
 from modelcompression_tpu_torch.cli.common import (
-    add_model_args, add_serving_nms_args, dispatch_padded_batch, fetch_batch,
-    load_serving_model, prepare_serving, resolve_serving_eval_config,
-    run_padded_batch, unpack_detections,
+    add_model_args, add_serving_nms_args, build_mesh, dispatch_padded_batch,
+    fetch_batch, load_serving_model, prepare_serving,
+    resolve_serving_eval_config, run_padded_batch, unpack_detections,
 )
 from modelcompression_tpu_torch.data.preprocess import letterbox_host
 from modelcompression_tpu_torch.data.voc import VOC_CLASSES, read_names
 from modelcompression_tpu_torch.evaluation import make_eval_step
+from modelcompression_tpu_torch.parallel import data_parallel, replicate
 
 MAX_BODY = 64 * 1024 * 1024
 
@@ -72,8 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="how long the dispatcher waits to fill a batch "
                         "after the first request arrives")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel serving (not ported yet; values "
-                        "above 1 are rejected)")
+                   help="data-parallel serving: split each device batch "
+                        "over this many devices on a 'data' mesh axis "
+                        "(params replicated, one step per shard). --batch "
+                        "must divide evenly. 0 = single device (default)")
     add_serving_nms_args(p)
     p.add_argument("--names", default=None, help=".names file")
     p.add_argument("--qmodel", default=None, metavar="PATH",
@@ -108,8 +112,9 @@ class _Pending:
 class ServeState:
     """Model + batcher shared by the HTTP handlers and the dispatcher."""
 
-    def __init__(self, spec, params, step, names, args):
+    def __init__(self, spec, params, step, names, args, mesh=None):
         self.spec = spec
+        self.mesh = mesh
         self.params = params
         self.step = step
         self.names = names
@@ -292,6 +297,7 @@ class ServeState:
                 "mean_batch_fill": (self.n_images / self.n_batches
                                     if self.n_batches else 0.0),
                 "compiled_batch": self.batch,
+                "dp": self.mesh.shape["data"] if self.mesh else 1,
                 "uptime_s": round(wall, 1),
                 "img_per_sec_wall": (self.n_images / wall
                                      if wall > 0 else 0.0),
@@ -329,6 +335,8 @@ def _make_handler(state: ServeState):
                     "conf": cfg.conf_thresh if cfg else None,
                     "max_detections": cfg.max_detections if cfg else None,
                     "nms_prefilter": cfg.nms_prefilter if cfg else None,
+                    "dp": (state.mesh.shape["data"]
+                           if state.mesh is not None else 1),
                 })
             elif self.path == "/stats":
                 self._send_json(200, state.stats())
@@ -390,9 +398,6 @@ def build_server(args) -> "tuple[ThreadingHTTPServer, ServeState]":
     """Load the model, run one warm-up batch, and return (httpd, state)
     with the dispatcher ALREADY running — callers only
     serve_forever()/shutdown()."""
-    if getattr(args, "dp", 0) > 1:
-        raise ValueError("--dp is not ported to the PyTorch package yet "
-                         "(ROADMAP Queue 1 item 7)")
     spec, params, quantized = load_serving_model(args)
     names = read_names(args.names) if args.names else list(VOC_CLASSES)
     if len(names) != spec.classes:
@@ -400,7 +405,18 @@ def build_server(args) -> "tuple[ThreadingHTTPServer, ServeState]":
     cfg = resolve_serving_eval_config(args, spec=spec)
     folded, cfg = prepare_serving(spec, params, quantized, cfg)
     step = make_eval_step(spec, cfg)
-    state = ServeState(spec, folded, step, names, args)
+    mesh = None
+    dp = getattr(args, "dp", 0)
+    if dp >= 1:
+        # the params replicated on a 'data' mesh, every device batch split
+        # over it in the step (same mechanism as eval --dp)
+        if args.batch % dp:
+            raise ValueError(
+                f"--batch {args.batch} must be divisible by --dp {dp}")
+        mesh, _ = build_mesh(args)
+        folded = replicate(folded, mesh)
+        step = data_parallel(step, mesh)
+    state = ServeState(spec, folded, step, names, args, mesh=mesh)
     state.cfg = cfg
 
     # warm-up through the dispatcher's exact call path (first-call costs:
@@ -443,7 +459,9 @@ def main(argv=None) -> int:
           f"{state.max_wait * 1e3:.0f} ms, conf {state.cfg.conf_thresh}, "
           f"K {state.cfg.max_detections}, prefilter "
           f"{state.cfg.nms_prefilter}"
-          f"{', deployment preset' if args.deployment else ''})",
+          f"{', deployment preset' if args.deployment else ''}"
+          + (f", dp {state.mesh.shape['data']}"
+             if state.mesh is not None else "") + ")",
           file=sys.stderr)
     try:
         httpd.serve_forever()

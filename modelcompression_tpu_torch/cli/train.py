@@ -6,8 +6,10 @@ a missing CUDA device is an error). Hyper-parameters default to the cfg's
 and at the end; ``--resume`` restores the latest one and fast-forwards the
 data stream, so the run continues as an uninterrupted one would.
 
-Not ported yet, rejected with exit code 2: --dp / --tp above 1 (ROADMAP
-Queue 1 item 7).
+``--dp N`` trains data-parallel over N devices of --device, one process
+per device (as ``finetune --dp``); rank 0 alone logs, evaluates and
+checkpoints. Not ported yet, rejected with exit code 2: --tp above 1
+(ROADMAP Queue 1 item 11).
 
 Example:
   python -m modelcompression_tpu_torch.cli.train --cfg tiny-yolo-voc.cfg \\
@@ -22,13 +24,15 @@ import sys
 import torch
 
 from modelcompression_tpu_torch.cli.common import (
-    add_data_args, add_model_args, add_parallel_args, load_dataset,
-    load_model, load_train_dataset, resolve_batch_subdivisions,
+    add_data_args, add_model_args, add_parallel_args, build_mesh,
+    load_dataset, load_model, load_train_dataset, rank_device,
+    resolve_batch_subdivisions, spawn_ranks,
 )
-from modelcompression_tpu_torch.core.device import resolve_device
 from modelcompression_tpu_torch.evaluation import EvalConfig, evaluate
 from modelcompression_tpu_torch.models import dump_cfg, params_to
 from modelcompression_tpu_torch.models.cfg import ConvLayer
+from modelcompression_tpu_torch.parallel.ranks import is_primary
+from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
 from modelcompression_tpu_torch.train import (
     BatchLoader, TrainConfig, TrainState, make_optimizer, train,
 )
@@ -93,7 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)  # no CUDA: raise before reading
+    rc = spawn_ranks(args, "modelcompression_tpu_torch.cli.train:main", argv)
+    if rc is not None:  # --dp: the ranks ran this CLI
+        return rc
+    mesh = build_mesh(args)[0] if args.tp <= 1 else None
+    device = rank_device(args, mesh)  # no CUDA: raise before reading
     spec, params, seen = load_model(args, seed=args.seed)
     samples, names = load_train_dataset(args)
     if not samples:
@@ -119,9 +127,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if args.dp > 1 or args.tp > 1:
-        print("error: --dp/--tp is not ported to the PyTorch package yet "
-              "(ROADMAP Queue 1 item 7)", file=sys.stderr)
+    if args.tp > 1:
+        print(f"error: {TP_NOT_PORTED}", file=sys.stderr)
         return 2
     mosaic = args.mosaic if args.mosaic is not None else spec.net.mosaic
     config = TrainConfig.from_spec(
@@ -180,10 +187,17 @@ def main(argv=None) -> int:
             loader.skip_batches(start)
             print(f"resumed {latest} at step {start} "
                   f"(seen {state['seen']}); {n_steps} steps to go")
-    logger = MetricsLogger(jsonl_path=args.log_jsonl)
+    logger = MetricsLogger(jsonl_path=args.log_jsonl if is_primary()
+                           else None)
+    if mesh is not None and (batch // subdiv) % mesh.shape["data"]:
+        print(f"error: micro-batch {batch // subdiv} (batch/subdivisions) "
+              f"must be divisible by --dp {mesh.shape['data']}",
+              file=sys.stderr)
+        return 2
 
+    # rank 0 alone evaluates and checkpoints
     eval_fn = None
-    if args.eval_every:
+    if args.eval_every and is_primary():
         eval_samples, eval_names = load_dataset(args)
         eval_cfg = EvalConfig(batch_size=batch, device=args.device)
 
@@ -192,7 +206,7 @@ def main(argv=None) -> int:
             return {"map50": res.map50, "img_per_sec": res.images_per_sec}
 
     ckpt_fn = None
-    if args.checkpoint_dir:
+    if args.checkpoint_dir and is_primary():
         def ckpt_fn(step, st):
             # named by the GLOBAL step, so a resumed run extends the
             # directory instead of overwriting step_00000001 onward
@@ -203,8 +217,8 @@ def main(argv=None) -> int:
                   logger=logger, eval_fn=eval_fn,
                   eval_every=args.eval_every, checkpoint_fn=ckpt_fn,
                   checkpoint_every=args.checkpoint_every,
-                  initial_step=start)
-    if args.checkpoint_dir:
+                  initial_step=start, mesh=mesh)
+    if args.checkpoint_dir and is_primary():
         d = save_checkpoint(args.checkpoint_dir, state["step"], spec, state)
         print(f"final checkpoint -> {d}")
     return 0

@@ -333,20 +333,42 @@ def evaluate(params: Params, spec: NetworkSpec, samples: Sequence[Sample],
     ``config.fold_bn`` and no ``forward_fn`` is set (a custom forward owns
     its params' layout: the int8 pytree is folded and quantized already),
     and moved to ``config.device``. All boxes (GT and detections) are
-    kept in source-image pixel coordinates. ``mesh`` (data-parallel eval)
-    is not ported yet."""
+    kept in source-image pixel coordinates.
+
+    ``mesh``: a mesh with a 'data' axis (``core.mesh.make_mesh`` on
+    ``config.device``): the params are replicated to each of its devices,
+    each batch is split over them, the step runs once per shard on its
+    device's current stream, and the outputs are concatenated in batch
+    order (``parallel.data_parallel``); the results equal the
+    single-device run's. The batch size must divide the data axis."""
     config = config or EvalConfig()
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate(mesh=...) data-parallel eval is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1 item 7)")
     device = resolve_device(config.device)
     if config.fold_bn and config.forward_fn is None:
         params = fold_batchnorm(params, spec)
-    params = params_to(params, device)
     step = make_eval_step(spec, config)
     net_h, net_w = spec.net.height, spec.net.width
     bs = config.batch_size
+    if mesh is not None:
+        from modelcompression_tpu_torch.parallel import (
+            data_parallel, replicate, shard_batch,
+        )
+        dp = mesh.shape.get("data", 1)
+        if bs % dp:
+            raise ValueError(
+                f"eval batch {bs} not divisible by data-parallel size {dp}")
+        params = replicate(params, mesh)
+        run = data_parallel(step, mesh).run_shards
+
+        def to_dev(arrs):
+            return shard_batch(arrs, mesh)
+    else:
+        params = params_to(params, device)
+
+        def run(p, dev_arrs):
+            return step(p, *dev_arrs)
+
+        def to_dev(arrs):
+            return to_device(arrs, device)
 
     dets: Dict[str, List[Detection]] = {c: [] for c in class_names}
     gts: Dict[str, List[GroundTruth]] = {c: [] for c in class_names}
@@ -369,7 +391,7 @@ def evaluate(params: Params, spec: NetworkSpec, samples: Sequence[Sample],
 
     def put(item):
         chunk, arrs = item
-        return chunk, arrs[1:], to_device(arrs, device)
+        return chunk, arrs[1:], to_dev(arrs)
 
     n_images = 0
     t_loop0 = time.perf_counter()
@@ -386,7 +408,7 @@ def evaluate(params: Params, spec: NetworkSpec, samples: Sequence[Sample],
                 host_batches(), depth=2, device=device, put=put):
             if not first_dev:
                 first_dev.append(dev_arrs)
-            outs = step(params, *dev_arrs)
+            outs = run(params, dev_arrs)
             if pending is not None:
                 p_chunk, p_w, p_h, p_outs = pending
                 yield p_chunk, p_w, p_h, fetch(p_outs)
@@ -463,7 +485,7 @@ def evaluate(params: Params, spec: NetworkSpec, samples: Sequence[Sample],
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        [t.cpu() for t in step(params, *first_dev[0])]
+        [t.cpu() for t in run(params, first_dev[0])]
         ips_steady = n_first / max(time.perf_counter() - t0, 1e-9)
     else:
         ips_steady = 0.0

@@ -1,0 +1,9 @@
+from modelcompression_tpu_torch.core.mesh import MeshConfig, make_mesh
+from modelcompression_tpu_torch.parallel.sharding import (
+    data_parallel, param_specs, place_train_state, replicate, shard_batch,
+)
+
+__all__ = [
+    "MeshConfig", "make_mesh", "data_parallel", "param_specs",
+    "place_train_state", "replicate", "shard_batch",
+]

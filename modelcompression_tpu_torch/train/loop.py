@@ -21,6 +21,7 @@ from modelcompression_tpu_torch.compress import (
 )
 from modelcompression_tpu_torch.models.cfg import NetworkSpec
 from modelcompression_tpu_torch.models.darknet import Params, params_to
+from modelcompression_tpu_torch.parallel.ranks import is_primary
 from modelcompression_tpu_torch.train.loader import BatchLoader
 from modelcompression_tpu_torch.train.train_step import (
     TrainConfig, TrainState, make_optimizer, make_train_step,
@@ -49,13 +50,26 @@ def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
     device). ``initial_step``: the restored global step when resuming, so
     logging, eval and checkpoint cadences continue the uninterrupted run's
     numbering. ``distill`` (a ``train.distill.DistillPlan``) adds the
-    teacher's loss to every step. ``mesh`` (data/tensor parallelism) is
-    not ported yet."""
+    teacher's loss to every step.
+
+    ``mesh`` (``core.mesh.Mesh``): data parallel over its 'data' axis, one
+    process per device (``parallel/ranks.py``; each rank calls ``train``
+    with the same loader stream). The state is placed on this rank's
+    device and the step all-reduces what the JAX package's sharded program
+    does (``make_train_step``). The loader's batch size must divide the
+    data axis."""
     if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...) data/tensor parallelism is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1 item 7)")
-    step_fn = make_train_step(spec, config, distill=distill)
+        from modelcompression_tpu_torch.parallel import (
+            place_train_state, ranks,
+        )
+        dp = mesh.shape.get("data", 1)
+        if loader.batch_size % dp:
+            raise ValueError(
+                f"batch {loader.batch_size} not divisible by data-parallel "
+                f"size {dp}")
+        state = place_train_state(state, mesh, spec,
+                                  rank=ranks.rank() or 0)
+    step_fn = make_train_step(spec, config, distill=distill, mesh=mesh)
     logger = logger or MetricsLogger()
     timer = StepTimer()
     it = iter(loader)
@@ -140,8 +154,9 @@ def iterative_prune_finetune(
     params and masks with its arch cfg; ``resume`` continues after the
     latest round.
 
-    ``mesh`` is not ported yet and raises ``NotImplementedError`` naming
-    ROADMAP Queue 1 item 7.
+    ``mesh``: data parallel, one process per device (``train``); every
+    rank computes the same masks or keep-sets, and only the primary
+    process (rank 0) writes the round checkpoints.
     """
     if tied not in ("protect", "group"):
         raise ValueError(f"tied must be 'protect' or 'group', got {tied!r}")
@@ -151,10 +166,6 @@ def iterative_prune_finetune(
             f"(l1_filter | bn_gamma | fpgm | taylor), not {mode!r}")
     if mode not in STRUCTURED_MODES + MASKED_MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "iterative_prune_finetune(mesh=...) is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1 item 7)")
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     logger = logger or MetricsLogger()
     rounds: List[IterativeRound] = []
@@ -224,7 +235,7 @@ def iterative_prune_finetune(
             weight_masks=weight_masks, channel_masks=channel_masks,
             seen=seen_running)
         state = train(state, spec, config, loader, steps_per_round,
-                      logger=logger, distill=distill)
+                      logger=logger, mesh=mesh, distill=distill)
         params = _detached(state["params"])
         seen_running = state["seen"]
         metrics = eval_fn(spec, params)
@@ -233,7 +244,7 @@ def iterative_prune_finetune(
         rounds.append(IterativeRound(ridx, frac, spec, params, metrics,
                                      seen=seen_running))
         prev_frac = frac
-        if ckpt_dir:
+        if ckpt_dir and is_primary():
             from modelcompression_tpu_torch.utils.checkpoint import (
                 save_checkpoint,
             )

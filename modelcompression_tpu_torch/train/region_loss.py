@@ -105,8 +105,50 @@ class RegionLossMetrics:
                 for f in dataclasses.fields(self)}
 
 
+def loss_metrics(total: torch.Tensor, terms, b: int, ratios, n_gt,
+                 reduce=None) -> RegionLossMetrics:
+    """A detection loss's metrics from its batch sums.
+
+    ``total`` is the differentiable loss, ``sum(terms) / b``; ``terms``
+    the batch sums of the coord, obj, noobj and cls losses, then any
+    other that ``total`` holds; ``ratios`` the (numerator, count) pairs of
+    avg_iou, recall50, obj_conf and noobj_conf, each count clamped at 1;
+    ``n_gt`` the valid ground-truth count.
+
+    ``reduce`` (data parallel, from the train step) sums a 1-D tensor over
+    the ranks. The sums, counts and ``b`` are reduced before the
+    divisions, so every metric is the global batch's, ``loss`` included;
+    ``loss`` keeps the gradient of this rank's ``total``, which the step
+    averages over the ranks."""
+    if reduce is None:
+        with torch.no_grad():
+            return RegionLossMetrics(
+                total, *(t / b for t in terms[:4]),
+                *(num / torch.clamp_min(cnt, 1.0) for num, cnt in ratios),
+                n_gt=n_gt)
+    with torch.no_grad():
+        # b as a device fill: a host scalar would be copied from pageable
+        # memory, which waits for the device
+        flat = [*terms, total.new_full((), float(b)),
+                *(x for pair in ratios for x in pair), n_gt]
+        g = reduce(torch.stack([x.to(total.dtype) for x in flat]))
+        k = len(terms)
+        g_terms, g_b, g_ratios = g[:k], g[k], g[k + 1:k + 9]
+        g_total = g_terms[0]
+        for t in g_terms[1:]:
+            g_total = g_total + t
+        g_total = g_total / g_b
+    metrics = RegionLossMetrics(
+        total + (g_total - total).detach(), *(t / g_b for t in g_terms[:4]),
+        *(g_ratios[i] / torch.clamp_min(g_ratios[i + 1], 1.0)
+          for i in range(0, 8, 2)),
+        n_gt=g[k + 9].to(n_gt.dtype))
+    return metrics
+
+
 def region_loss(raw: torch.Tensor, targets: torch.Tensor,
-                region: RegionLayer, seen) -> RegionLossMetrics:
+                region: RegionLayer, seen,
+                reduce=None) -> RegionLossMetrics:
     """Compute the region loss.
 
     Args:
@@ -115,6 +157,7 @@ def region_loss(raw: torch.Tensor, targets: torch.Tensor,
       targets: (B, M, 5) rows [cls, cx, cy, w, h] normalized; w==0 invalid.
       region: [region] config.
       seen: images seen so far (int or 0-dim tensor; the prior-loss gate).
+      reduce: data-parallel sum over the ranks (``loss_metrics``).
 
     Returns RegionLossMetrics; ``loss`` is the scalar sum / batch.
     """
@@ -247,20 +290,13 @@ def region_loss(raw: torch.Tensor, targets: torch.Tensor,
         (1 - amask) * (_bce_kl(zx, 0.5) + _bce_kl(zy, 0.5)
                        + 0.5 * (tw ** 2 + th ** 2)))
 
-    n_gt = torch.clamp_min(torch.sum(vw), 1.0)
     total = (loss_coord + loss_obj + loss_noobj + loss_cls + loss_prior) / b
 
     with torch.no_grad():
-        return RegionLossMetrics(
-            loss=total,
-            loss_coord=loss_coord / b,
-            loss_obj=loss_obj / b,
-            loss_noobj=loss_noobj / b,
-            loss_cls=loss_cls / b,
-            avg_iou=torch.sum(iou_at_gt * vw) / n_gt,
-            recall50=torch.sum((iou_at_gt > 0.5) * vw) / n_gt,
-            obj_conf=torch.sum(to * amask) / torch.clamp_min(
-                torch.sum(amask), 1.0),
-            noobj_conf=torch.sum(to * (1 - amask)) / torch.clamp_min(
-                torch.sum(1 - amask), 1.0),
-            n_gt=torch.sum(vw))
+        n_gt = torch.sum(vw)
+        ratios = ((torch.sum(iou_at_gt * vw), n_gt),
+                  (torch.sum((iou_at_gt > 0.5) * vw), n_gt),
+                  (torch.sum(to * amask), torch.sum(amask)),
+                  (torch.sum(to * (1 - amask)), torch.sum(1 - amask)))
+    return loss_metrics(total, (loss_coord, loss_obj, loss_noobj, loss_cls,
+                                loss_prior), b, ratios, n_gt, reduce)

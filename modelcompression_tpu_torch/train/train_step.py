@@ -280,17 +280,21 @@ def augment_batch(config: TrainConfig, x: torch.Tensor,
 
 
 def _conv_block_train(y: torch.Tensor, p: Dict[str, torch.Tensor],
-                      l: ConvLayer, precision: Precision):
+                      l: ConvLayer, precision: Precision, bn_reduce=None):
     """One conv + (batch-stat BN | bias) + activation on NCHW ``y``;
     returns (y, batch stats or None). The statistics are one pass over the
     conv output in fp32, E[y²] − µ², clamped at 0 (``torch.maximum``,
-    whose gradient splits a tie as ``jnp.maximum``'s does)."""
+    whose gradient splits a tie as ``jnp.maximum``'s does). Data
+    parallel, ``bn_reduce`` maps this rank's stacked (µ, E[y²]) to the
+    global micro-batch's, through a collective with a gradient."""
     y = _conv(y, p["w"], l, precision)
     stats = None
     if l.batch_normalize:
         y32 = y.to(torch.promote_types(y.dtype, torch.float32))
         mu = y32.mean(dim=(0, 2, 3))
         ex2 = y32.square().mean(dim=(0, 2, 3))
+        if bn_reduce is not None:
+            mu, ex2 = bn_reduce(torch.stack([mu, ex2]))
         var = torch.maximum(ex2 - mu.square(), torch.zeros_like(mu))
         stats = {"mean": mu, "var": var}
         inv = torch.rsqrt(var + BN_EPS)
@@ -306,7 +310,7 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                    precision: Precision,
                    channel_masks: Dict[int, torch.Tensor],
                    freeze: frozenset = frozenset(), remat: bool = False,
-                   qat=None):
+                   qat=None, bn_reduce=None):
     """Training forward on NHWC ``x`` with batch statistics; returns the
     NHWC fp32 raw map and the per-conv batch (mean, var). Frozen convs run
     inference BN on detached params, so no backward reaches them. With
@@ -315,7 +319,9 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
     each selected conv takes its input fake-quanted on ``in_scale``, its
     weight per output channel, and fake-quants its post-activation output
     on ``out_scale`` (after the channel mask), the boundary placement of
-    ``compress/quantize.forward_quantized``."""
+    ``compress/quantize.forward_quantized``. ``bn_reduce`` (data
+    parallel) makes the batch statistics the global micro-batch's
+    (``_conv_block_train``)."""
     if qat is not None:
         from modelcompression_tpu_torch.compress.qat import (
             fake_quant, fake_quant_weight,
@@ -338,11 +344,14 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                                 l, precision)
             else:
                 if remat:
+                    # the recompute in the backward runs bn_reduce's
+                    # collective again, in the same order on every rank
                     y, stats = torch.utils.checkpoint.checkpoint(
-                        _conv_block_train, y, p, l, precision,
+                        _conv_block_train, y, p, l, precision, bn_reduce,
                         use_reentrant=False)
                 else:
-                    y, stats = _conv_block_train(y, p, l, precision)
+                    y, stats = _conv_block_train(y, p, l, precision,
+                                                 bn_reduce)
                 if stats is not None:
                     batch_stats[key] = stats
             if i in channel_masks:
@@ -370,7 +379,8 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
     return _nhwc_out(y), batch_stats
 
 
-def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
+def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
+                    mesh=None):
     """Build the train step.
 
     step(state, images (B,H,W,3) uint8 or float, targets (B,M,5))
@@ -391,7 +401,20 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
     gain ``loss_distill`` and ``loss`` stays the detection loss. The
     teacher params are moved to the params' device once. With
     ``config.gmp`` the metrics gain ``sparsity``, the achieved sparsity
-    over the state's weight masks."""
+    over the state's weight masks.
+
+    ``mesh`` (a ``core.mesh.Mesh``): data parallel over its 'data' axis,
+    one process per device in a process group of that size
+    (``parallel/ranks.py``), each rank given the same global batch. The
+    step does what the JAX package's sharded program does: every rank
+    augments the global batch with the same draws and keeps its rows, the
+    r-th contiguous chunk of each (strided) micro-batch; the BN statistics
+    and the loss sums are all-reduced per micro-batch, so the running
+    statistics and every metric are the global batch's; the gradients are
+    averaged with one flat all-reduce before the update, so the params,
+    the masks (GMP recomputes them on every rank), the EMA and ``seen``
+    stay equal on every rank. A mesh of one device outside a process
+    group is the plain step."""
     spec.head_indices()  # every spec has [region]/[yolo]
     # BITMATCH trains with TF32 off for cuDNN convs and cuBLAS matmuls
     config.precision.apply_backend_flags()
@@ -405,6 +428,27 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
             f"trainable conv (network has {len(conv_indices)})")
     freeze_keys = frozenset(
         conv_key(i) for i in conv_indices[:config.freeze_prefix])
+
+    world, rank, bn_reduce, metric_reduce = 1, 0, None, None
+    if mesh is not None:
+        from modelcompression_tpu_torch.parallel import ranks
+        world = mesh.shape["data"]
+        if ranks.rank() is None and world > 1:
+            raise ValueError(
+                f"a data-parallel train step over {world} devices runs one "
+                f"process per device: start the ranks with "
+                f"parallel.ranks.spawn (finetune / train --dp)")
+        if ranks.rank() is not None:
+            if ranks.world_size() != world:
+                raise ValueError(
+                    f"mesh data axis {world} != process group size "
+                    f"{ranks.world_size()}")
+            rank = ranks.rank()
+
+            def bn_reduce(t):
+                return ranks.all_reduce_sum(t) / world
+
+            metric_reduce = ranks.all_reduce_sum_
 
     teacher = {}  # device -> the teacher params there
 
@@ -421,8 +465,10 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
                       for k, p in params.items()}
         raw, batch_stats = _forward_train(params, x, spec, config.precision,
                                           channel_masks, freeze=freeze_keys,
-                                          remat=config.remat, qat=config.qat)
-        metrics = detection_loss(raw, targets, spec, seen)
+                                          remat=config.remat, qat=config.qat,
+                                          bn_reduce=bn_reduce)
+        metrics = detection_loss(raw, targets, spec, seen,
+                                 reduce=metric_reduce)
         md = metrics.as_dict()
         loss = metrics.loss
         if t_raw is not None:
@@ -431,6 +477,9 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
                                        obj_scale=distill.obj_scale,
                                        class_scale=distill.class_scale)
             md["loss_distill"] = d.detach()
+            if metric_reduce is not None:  # the mean over the ranks
+                md["loss_distill"] = metric_reduce(
+                    d.detach().reshape(1).clone())[0] / world
             loss = loss + distill.weight * d
         if config.bn_l1 > 0:
             # slimming penalty; gamma_l1 (the MEAN |gamma|) is reported
@@ -469,6 +518,16 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
             if images.dtype == torch.uint8:
                 x = x / 255.0
             x, targets = augment_batch(config, x, targets, gen)
+        if mesh is not None:
+            # this rank's rows of the global batch: the contiguous chunk
+            # whose strided micro-batches are the r-th chunks of the
+            # global ones
+            if (b // subdivisions) % world:
+                raise ValueError(
+                    f"micro-batch {b // subdivisions} not divisible by "
+                    f"data-parallel size {world}")
+            lo = rank * (b // world)
+            x, targets = x[lo:lo + b // world], targets[lo:lo + b // world]
 
         # the teacher on the same augmented batch, whole: no gradient, so
         # one layer's activations live at a time
@@ -504,6 +563,14 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None):
             for v in trainable:
                 if v.grad is not None:
                     v.grad.mul_(inv_s)
+        if metric_reduce is not None:
+            # the ranks' mean gradient, through one flat all-reduce
+            grads = [v.grad for v in trainable if v.grad is not None]
+            flat = metric_reduce(torch.cat([g.reshape(-1) for g in grads]))
+            flat.div_(world)
+            for g, part in zip(grads, flat.split([g.numel()
+                                                  for g in grads])):
+                g.copy_(part.view_as(g))
         with torch.no_grad():
             # frozen convs have no gradient: a zero one lets SGD move their
             # momentum as optax does (decay acts on it), and the saved

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from modelcompression_tpu_torch.models.cfg import NetworkSpec, YoloLayer
 from modelcompression_tpu_torch.train.region_loss import (
-    RegionLossMetrics, _anchors_on, _bce_kl, _pair_iou, region_loss,
+    RegionLossMetrics, _anchors_on, _bce_kl, _pair_iou, loss_metrics,
+    region_loss,
 )
 
 
@@ -131,7 +132,7 @@ def _head_layers(spec: NetworkSpec) -> Tuple[YoloLayer, ...]:
 
 
 def yolo_loss(raws: Sequence[torch.Tensor], targets: torch.Tensor,
-              spec: NetworkSpec) -> RegionLossMetrics:
+              spec: NetworkSpec, reduce=None) -> RegionLossMetrics:
     """The summed multi-head [yolo] loss.
 
     Args:
@@ -140,6 +141,8 @@ def yolo_loss(raws: Sequence[torch.Tensor], targets: torch.Tensor,
         float32 here (kept when wider).
       targets: (B, M, 5) rows [cls, cx, cy, w, h] normalized; w == 0 pads.
       spec: the network spec (head layers, net input size).
+      reduce: data-parallel sum over the ranks (``region_loss.
+        loss_metrics``).
 
     Returns RegionLossMetrics; ``loss`` is the scalar sum over heads over
     the batch size.
@@ -338,27 +341,21 @@ def yolo_loss(raws: Sequence[torch.Tensor], targets: torch.Tensor,
             acc["n_noobj"] += torch.sum(1 - amask)
 
     total = (acc["coord"] + acc["obj"] + acc["noobj"] + acc["cls"]) / b
-    with torch.no_grad():
-        n_assigned = torch.clamp_min(acc["wins"], 1.0)
-        return RegionLossMetrics(
-            loss=total,
-            loss_coord=acc["coord"] / b,
-            loss_obj=acc["obj"] / b,
-            loss_noobj=acc["noobj"] / b,
-            loss_cls=acc["cls"] / b,
-            avg_iou=acc["iou_sum"] / n_assigned,
-            recall50=acc["recall"] / n_assigned,
-            obj_conf=acc["to_obj"] / torch.clamp_min(acc["n_obj"], 1.0),
-            noobj_conf=acc["to_noobj"] / torch.clamp_min(acc["n_noobj"],
-                                                         1.0),
-            n_gt=torch.sum(gt_valid.float()))
+    ratios = ((acc["iou_sum"], acc["wins"]), (acc["recall"], acc["wins"]),
+              (acc["to_obj"], acc["n_obj"]), (acc["to_noobj"],
+                                              acc["n_noobj"]))
+    return loss_metrics(total, tuple(acc[k] for k in ("coord", "obj",
+                                                      "noobj", "cls")),
+                        b, ratios, torch.sum(gt_valid.float()), reduce)
 
 
 def detection_loss(raw, targets: torch.Tensor, spec: NetworkSpec,
-                   seen) -> RegionLossMetrics:
+                   seen, reduce=None) -> RegionLossMetrics:
     """Family dispatch: [region] specs -> ``region_loss`` on the single raw
     map; [yolo] specs -> ``yolo_loss`` over the tuple of per-scale maps.
-    ``seen`` gates [region]'s early prior loss; [yolo] has none."""
+    ``seen`` gates [region]'s early prior loss; [yolo] has none.
+    ``reduce``: data-parallel sum over the ranks
+    (``region_loss.loss_metrics``)."""
     if spec.is_multi_head:
-        return yolo_loss(raw, targets, spec)
-    return region_loss(raw, targets, spec.region, seen)
+        return yolo_loss(raw, targets, spec, reduce=reduce)
+    return region_loss(raw, targets, spec.region, seen, reduce=reduce)

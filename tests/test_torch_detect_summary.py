@@ -5,7 +5,8 @@ text-equal to the JAX package's for every bundled cfg (and with a
 detection count equal to the serving step's on the same canvas, and in
 image and directory mode against the JAX package's detect on the same
 files and flags (from .weights and an int8 --qmodel); a weight-sharing
---cmodel serves exactly as its reconstructed weights do.
+--cmodel serves exactly as its reconstructed weights do; --dp 2 --dir
+serves what one device serves.
 
 Tolerance against JAX: serving is FAST (bf16), whose roundings differ
 between XLA and ATen, so as in tests/test_torch_eval.py every image has
@@ -245,7 +246,12 @@ def test_detect_matches_jax(model, tmp_path, monkeypatch, capsys, mode,
 
 
 @pytest.mark.parametrize("extra, weights, message", [
-    (["--dp", "2", "--dir", "x"], True, "ROADMAP Queue 1 item 7"),
+    # id kept from when --dp was refused naming ROADMAP item 7: it is
+    # ported and runs (_detect_dp); beside --image it is the JAX CLI's
+    # usage error
+    pytest.param(["--dp", "2", "--dir", "x"], True,
+                 "applies to the batched --dir/--video",
+                 id="extra0-True-ROADMAP Queue 1 item 7"),
     (["--image", "a.png", "--dir", "x"], True, "exactly one of --image"),
     (["--image", "a.png"], False, "exactly one of --weights"),
     (["--qmodel", "q.npz", "--image", "a.png"], True,
@@ -256,16 +262,52 @@ def test_detect_matches_jax(model, tmp_path, monkeypatch, capsys, mode,
     pytest.param(["--cmodel", "c.npz", "--image", "a.png"], True,
                  "exactly one of --weights", id="extra5-False-item 6"),
 ])
-def test_detect_rejections(model, capsys, extra, weights, message):
+def test_detect_rejections(model, tmp_path, monkeypatch, capsys, extra,
+                           weights, message):
     """Exit 2, as the JAX package's detect does, unless exactly one of
-    --weights/--qmodel/--cmodel is given; --dp names its ROADMAP item."""
+    --weights/--qmodel/--cmodel is given, or with --dp outside --dir /
+    --video; --dp --dir runs (_detect_dp)."""
     pytest.importorskip("cv2")
     base = _base(model)
     if not weights:
         i = base.index("--weights")
         base = base[:i] + base[i + 2:]
+    if "--dp" in extra:
+        _detect_dp(base, tmp_path, monkeypatch, capsys)
+        extra = ["--dp", "1", "--image", "a.png"]
     assert detect.main(base + extra) == 2
     assert message in capsys.readouterr().err
+
+
+def _detect_dp(base, tmp_path, monkeypatch, capsys):
+    """detect --dp 2 --dir on two CPU shards, 5 images at batch 2 (a padded
+    final batch): the printed lines and every image's detections equal the
+    single-device run's; a batch --dp does not divide exits 2."""
+    cv2 = pytest.importorskip("cv2")
+    src = tmp_path / "frames"
+    src.mkdir()
+    for i, im in enumerate(_images(5, seed=3)):
+        cv2.imwrite(str(src / f"f{i}.png"), im)
+    seen = _record_unpacked(monkeypatch, detect)
+    texts = []
+    for dp in ("2", "0"):
+        out = tmp_path / f"dp{dp}"
+        assert detect.main(base + ["--dir", str(src), "--out-dir", str(out),
+                                   "--batch", "2", "--dp", dp]) == 0
+        texts.append(capsys.readouterr().out.replace(str(out), ""))
+    got, want = seen[:5], seen[5:]
+    assert texts[0] == texts[1] and len(want) == 5
+    for g, w in zip(got, want):
+        assert [d["class_id"] for d in g] == [d["class_id"] for d in w]
+        np.testing.assert_allclose([d["score"] for d in g],
+                                   [d["score"] for d in w], rtol=1e-6)
+        np.testing.assert_allclose([d["box"] for d in g],
+                                   [d["box"] for d in w], atol=1e-4)
+    assert sum(map(len, want)) > 0
+    assert detect.main(base + ["--dir", str(src), "--batch", "3",
+                               "--dp", "2"]) == 2
+    assert "--batch 3 must be divisible by --dp 2" in \
+        capsys.readouterr().err
 
 
 def test_detect_defaults_to_cuda(model, monkeypatch, capsys):

@@ -372,9 +372,14 @@ def test_evaluate_rules(fixture_160, monkeypatch):
     data, text, _, npp = fixture_160
     _, ts = _samples(data)
     spec, params = t_parse(text), params_from_jax(npp)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # mesh= runs data-parallel now (tests/test_torch_parallel.py); a batch
+    # the mesh does not divide is the JAX error
+    from modelcompression_tpu_torch.core.mesh import MeshConfig, make_mesh
+    with pytest.raises(ValueError, match="eval batch 8 not divisible by "
+                                         "data-parallel size 3"):
         tpipe.evaluate(params, spec, ts, CLASSES,
-                       tpipe.EvalConfig(device="cpu"), mesh=object())
+                       tpipe.EvalConfig(device="cpu"),
+                       mesh=make_mesh(MeshConfig(data=3), device="cpu"))
     with pytest.raises(ValueError, match="map_iou"):
         tpipe.EvalConfig(device="cpu", map_iou=1.5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -475,9 +480,10 @@ def test_eval_cli_recall_equals_jax(cli_model, capsys):
         [l for l in want.splitlines() if l.startswith("recall@")]
 
 
-# the flags this test refused: --dp / --tp still (ROADMAP item 7); the
-# weight-sharing flags (item 6e) were ported since and now run (item None;
-# the test keeps its name). {tmp} is the test's tmp_path.
+# the flags this test refused: --tp still (now ROADMAP item 11); the
+# weight-sharing flags (item 6e) and --dp (item 7) were ported since and
+# now run (item None; the test keeps its name). {tmp} is the test's
+# tmp_path.
 NOT_PORTED = {
     "cmodel": (["--cmodel", "{tmp}/j.npz"], None),  # in place of --weights
     "cluster_bits": (["--cluster-bits", "4"], None),
@@ -485,8 +491,8 @@ NOT_PORTED = {
                      "{tmp}/c.npz"], None),
     "pack": (["--cluster-bits", "4", "--save-cmodel", "{tmp}/c.npz",
               "--pack"], None),
-    "dp": (["--dp", "2"], 7),
-    "tp": (["--tp", "2"], 7),
+    "dp": (["--dp", "2"], None),
+    "tp": (["--tp", "2"], 11),
 }
 
 
@@ -504,7 +510,9 @@ def _jax_cmodel(cfg, weights, bits=4):
 def test_eval_cli_not_ported_flags_exit_2_naming_their_item(cli_model,
                                                             capsys, tmp_path,
                                                             case):
-    """--dp / --tp exit 2 naming item 7. The weight-sharing flags run
+    """--tp exits 2 naming item 11. --dp 2 evaluates over two CPU shards
+    with the single-device run's mAP line, and the JAX CLI's --dp 2 (its
+    forced CPU devices) prints the same. The weight-sharing flags run
     (BITMATCH): --cluster-bits prints the JAX CLI's mAP; --save-cmodel
     (packed or not) writes an artifact the JAX package loads to its own
     clustering; --cmodel serves a JAX-written artifact with the summary of
@@ -520,6 +528,20 @@ def test_eval_cli_not_ported_flags_exit_2_naming_their_item(cli_model,
         assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
         return
     bm = ["--precision", "bitmatch", "--map-iou", "0.1", "--batch", "2"]
+    if case == "dp":
+        lines = []
+        for main, a in ((teval_cli.main, argv + bm),
+                        (teval_cli.main, argv[:-2] + bm),
+                        (jeval_cli.main, argv[:-4] + extra + bm)):
+            assert main(a) == 0
+            lines.append(_MAP_LINE.findall(capsys.readouterr().out))
+        assert lines[0] == lines[1] and len(lines[0]) == 1
+        (g,), (w,) = lines[0], lines[2]
+        assert abs(float(g.split()[-1]) - float(w.split()[-1])) <= 1e-6
+        assert teval_cli.main(argv + bm[:-1] + ["3"]) == 2
+        assert "--batch 3 must be divisible by --dp 2" in \
+            capsys.readouterr().err
+        return
     jcb, jspec, jcm = _jax_cmodel(cfg, weights)
     if case == "cmodel":
         jcb.save_cmodel(str(tmp_path / "j.npz"), jcm, jspec)

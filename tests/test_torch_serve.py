@@ -156,16 +156,63 @@ def test_deployment_preset_resolution():
 
 @pytest.mark.parametrize("extra, match", [
     # ids kept from when --qmodel was the first case (ported since);
-    # --cmodel is ported too, and beside --weights the usage error
+    # --cmodel is ported too, and beside --weights the usage error; --dp
+    # is ported too and serves (_serve_dp), a batch it does not divide the
+    # JAX CLI's usage error
     pytest.param(["--cmodel", "c.npz"], "cmodel", id="extra1-cmodel"),
     pytest.param(["--dp", "2"], "dp", id="extra2-dp"),
 ])
 def test_not_ported_options_are_rejected(tmp_path, capsys, extra, match):
     _, cfg_path, wpath = _write_model(tmp_path)
-    rc = serve.main(["--cfg", cfg_path, "--weights", wpath, "--port", "0",
-                     "--device", "cpu"] + extra)
+    argv = ["--cfg", cfg_path, "--weights", wpath, "--port", "0",
+            "--device", "cpu"] + extra
+    if match == "dp":
+        _serve_dp(argv)
+        argv += ["--batch", "3"]
+    rc = serve.main(argv)
     assert rc == 2
     assert match in capsys.readouterr().err
+
+
+def _serve_dp(argv):
+    """serve --dp 2 on two CPU shards (the JAX test_serve.py case): the
+    state holds a 2-wide mesh, /healthz and /stats say dp 2, and a posted
+    image's detections equal the single-device step's on its canvas."""
+    cv2 = pytest.importorskip("cv2")
+    from modelcompression_tpu_torch.data.preprocess import letterbox_host
+    from modelcompression_tpu_torch.evaluation import make_eval_step
+    args = serve.build_parser().parse_args(
+        argv + ["--batch", "4", "--max-wait-ms", "30", "--conf", "0.05"])
+    httpd, state = serve.build_server(args)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        assert state.mesh.shape["data"] == 2 and len(state.params) == 2
+        port = httpd.server_address[1]
+        assert json.loads(_get(port, "/healthz")[2])["dp"] == 2
+        assert json.loads(_get(port, "/stats")[2])["dp"] == 2
+        img = np.random.default_rng(41).integers(0, 255, (80, 100, 3),
+                                                 np.uint8)
+        ok, buf = cv2.imencode(".png", img)
+        status, out = _post(port, bytes(buf))
+        assert status == 200
+        canvas, _, _, _ = letterbox_host(
+            cv2.imdecode(buf, cv2.IMREAD_COLOR)[:, :, ::-1], 64, 64)
+        step = make_eval_step(state.spec, state.cfg)
+        sel, sc, valid, _, _ = step(state.params[0],
+                                    np.stack([canvas] * 4), [100.0] * 4,
+                                    [80.0] * 4)
+        direct = sorted((ci, float(sc[0, ci, k]))
+                        for ci in range(sel.shape[1])
+                        for k in np.nonzero(valid[0, ci].numpy())[0])
+        got = sorted((d["class_id"], d["score"])
+                     for d in out["detections"])
+        assert got == pytest.approx(direct, rel=1e-5) and len(got) > 0
+    finally:
+        state.stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
 
 
 def test_cuda_default_raises_without_cuda(tmp_path, monkeypatch, capsys):

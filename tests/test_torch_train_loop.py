@@ -8,8 +8,8 @@ and lamp modes (the same zero pattern as the JAX loop's), the l1_filter
 repack and distillation from the original teacher in every round;
 resumes equal to uninterrupted runs, bit for bit; the CLIs' validations
 worded as the JAX CLIs', --gmp / --distill / --pack / --iterate-mode
-lamp running, the --dp / --tp exits naming their ROADMAP item, and their
-default device (cuda)."""
+lamp / --dp running (two gloo ranks), the --tp exits naming their ROADMAP
+item, and their default device (cuda)."""
 
 import json
 import os
@@ -298,7 +298,9 @@ def test_iterative_l1_filter_repacks_as_jax(fixture):
     # item 6 until they were ported too, and now run (exc None)
     pytest.param(dict(mode="lamp"), None, None,
                  id="kw3-NotImplementedError-6"),
-    pytest.param(dict(mesh=object()), NotImplementedError, 7,
+    # kw5 (mesh) was rejected naming item 7 until data parallelism was
+    # ported: a one-device CPU mesh runs a round
+    pytest.param(dict(mesh="cpu:1"), None, None,
                  id="kw5-NotImplementedError-7"),
     pytest.param(dict(distill="teacher"), None, None,
                  id="kw6-NotImplementedError-6"),
@@ -315,6 +317,11 @@ def test_iterative_rejections(fixture, kw, exc, item):
     params = params_from_jax(fixture["np_params"], spec)
     if kw.get("distill") == "teacher":
         kw = dict(kw, distill=make_distill_plan(params, spec, spec))
+    if kw.get("mesh") == "cpu:1":
+        from modelcompression_tpu_torch.core.mesh import (
+            MeshConfig, make_mesh,
+        )
+        kw = dict(kw, mesh=make_mesh(MeshConfig(data=1), device="cpu"))
 
     def run():
         return iterative_prune_finetune(
@@ -342,9 +349,9 @@ def test_iterative_distill_uses_the_original_teacher_every_round(
     steps = []
     real = loop_mod.make_train_step
 
-    def spy(spec_, config, distill=None):
+    def spy(spec_, config, distill=None, **kw):  # kw: train's mesh
         steps.append((spec_.layers[0].filters, distill))
-        return real(spec_, config, distill=distill)
+        return real(spec_, config, distill=distill, **kw)
     monkeypatch.setattr(loop_mod, "make_train_step", spy)
     rounds = iterative_prune_finetune(
         spec, params, tcfg, _t_loader(fixture), fractions=[0.5, 0.75],
@@ -422,14 +429,15 @@ def test_finetune_usage_errors_worded_as_jax(fixture, capsys, case):
         assert message in capsys.readouterr().err
 
 
-# the options this test rejected: --dp / --tp still (item 7); gmp, pack,
-# distill and lamp (item 6) were ported since and now run (item None;
-# the test keeps its name). {tmp} is the test's tmp_path.
+# the options this test rejected: --tp still (now item 11); gmp, pack,
+# distill and lamp (item 6) and --dp (item 7) were ported since and now
+# run (item None; the test keeps its name). {tmp} is the test's tmp_path.
 NOT_PORTED = {
     "gmp": (["--gmp", "0.5", "--gmp-freq", "1", "--steps", "2"], None),
     "pack": (["--qat", "--save-qmodel", "{tmp}/q.npz", "--pack"], None),
-    "distill": (["--distill", "{weights}"], None), "dp": (["--dp", "2"], 7),
-    "tp": (["--tp", "2"], 7),
+    "distill": (["--distill", "{weights}"], None),
+    "dp": (["--dp", "2", "--out", "{tmp}/dp.weights"], None),
+    "tp": (["--tp", "2"], 11),
     "lamp": (["--iterate", "0.5", "--iterate-mode", "lamp"], None),
 }
 
@@ -440,6 +448,14 @@ def test_finetune_not_ported_exit_2_naming_item(fixture, capsys, tmp_path,
     extra, item = NOT_PORTED[case]
     extra = [a.format(tmp=tmp_path, weights=fixture["weights"])
              for a in extra]
+    if case == "dp":  # rank 0 prints in its own process
+        assert ft_cli.main(_ft(fixture, *extra)) == 0
+        params, seen = load_weights(str(tmp_path / "dp.weights"),
+                                    parse_cfg(fixture["text"]))
+        assert seen == 100 + 2 and all(
+            bool(torch.isfinite(v).all()) for p in params.values()
+            for v in p.values())
+        return
     if item is None:
         assert ft_cli.main(_ft(fixture, *extra)) == 0
         assert "mAP@50" in capsys.readouterr().out
@@ -636,8 +652,10 @@ def test_train_cli_resume_rules(fixture, tmp_path, capsys):
             "2", "--batch", "2", "--resume", "--device", "cpu"]
     assert train_cli.main(argv) == 2
     assert "--resume requires --checkpoint-dir" in capsys.readouterr().err
-    assert train_cli.main(argv[:-3] + ["--dp", "2", "--device", "cpu"]) == 2
-    assert "item 7" in capsys.readouterr().err
+    # --dp (rejected naming item 7 until it was ported) trains in two ranks
+    assert train_cli.main(argv[:-3] + ["--dp", "2", "--device", "cpu"]) == 0
+    assert train_cli.main(argv[:-3] + ["--tp", "2", "--device", "cpu"]) == 2
+    assert "item 11" in capsys.readouterr().err
 
 
 def test_train_cli_multi_scale_and_eval(fixture, tmp_path, capsys):
