@@ -2,7 +2,8 @@
 fine-tune, YOLOv3 / YOLOv4 serving, YOLOv3 / YOLOv4 fine-tune and
 structured-prune, int8 (PTQ and QAT), the other compression axes' (GMP,
 LAMP, distillation, low-rank, weight sharing and packing), data-parallel,
-export and deploy paths on one NVIDIA GPU and check them.
+export, deploy and tensor-parallel paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -262,6 +263,28 @@ Phases, each printing JSON lines on stdout:
             (g) export --qmodel of deploy's int8 artifact (its int8 convs,
             torch._int_mm on the card, traced): the advisory verify's
             valid-flag agreement and score drift, as the JAX CLI reports.
+14. tensor_parallel on full-width YOLOv2-VOC 416 (phase 6's weights,
+            phase 7's fixture, the cfg's batch 64 and subdivisions 8, FAST
+            unless stated), over a (1, 2) mesh whose two ranks share
+            cuda:0 (gloo: NCCL refuses two ranks on one card; gloo takes
+            the CUDA tensors of every collective, so nothing is staged):
+            (a) finetune --tp 2 on a one-card machine exits 2 with the JAX
+            text ("needs 2 devices, have 1"); (b) one float64 TP step
+            (batch 16, subdivisions 2) against the plain float64 step from
+            the same params: every gathered gradient within 1e-4 of its
+            largest magnitude, the params' distance reported; the FAST
+            step's, TP and plain, largest relative gradient and parameter
+            differences from each other and from the float64 step
+            reported; (c) the finetune CLI's ranks with --tp 2 --gmp 0.75
+            --gmp-freq 1 for 2 steps: 10 / 0 / 2 / 2 radix / count / tie /
+            apply launches at S=24 in each rank (the recompute on the
+            gathered weights), 3 input-stage launches at C=32 in rank 0's
+            eval, read from each rank's file, zeros in the written weights
+            at least floor(s n) a layer; (d) the TP step beside the plain
+            step in turns (CUDA events, the plain step on rank 0 alone) and
+            a step's collectives by kind with their host ms, the backend
+            named. Two ranks on one card measure the code path's host and
+            gloo cost, not NVLink.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -1384,8 +1407,8 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
     products). ``qat``: a QAT plan (``compress.qat.QATSpec``) the step
     trains with; ``gmp``: a ``compress.GMPSpec`` (the state seeded with
     its all-keep masks); ``distill``: a ``train.DistillPlan``; ``mesh``:
-    the data-parallel step over that mesh (its process group set up by
-    the caller)."""
+    the parallel step over that mesh (its ranks' grid set up by the
+    caller: ``parallel.ranks``), the state placed on this rank's shards."""
     from modelcompression_tpu_torch.compress import gmp_init_masks
     from modelcompression_tpu_torch.models import num_conv_flops, params_to
     from modelcompression_tpu_torch.train import (
@@ -1399,6 +1422,13 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
         torch.Generator().manual_seed(SEED),
         weight_masks=(gmp_init_masks(dev_params, spec, gmp)
                       if gmp is not None else None))
+    if mesh is not None:
+        from modelcompression_tpu_torch.parallel import (
+            place_train_state, ranks,
+        )
+        state = place_train_state(state, mesh, spec,
+                                  tp=mesh.shape["model"] > 1,
+                                  rank=ranks.rank() or 0)
     step = make_train_step(spec, config, distill=distill, mesh=mesh)
     images, targets = _train_batch(torch, BATCH, SEED, "cuda", net)
     losses = [float(step(state, images, targets)[1]["loss"])
@@ -1423,6 +1453,7 @@ def train_step_timing(torch, spec, params, subdivisions, net=NET,
     return {"net": net, "subdivisions": subdivisions, "batch": BATCH,
             "remat": remat, "qat": qat is not None, "gmp": gmp is not None,
             "distill": distill is not None, "dp": mesh is not None,
+            "tp": mesh.shape["model"] if mesh is not None else 0,
             "timed_steps": timed,
             "step_ms": ms, "img_per_s": BATCH / ms * 1e3,
             "host_enqueue_ms_per_step": enqueue_ms,
@@ -3096,8 +3127,8 @@ def gmp_recorder(torch, records):
                         "plain_equal": True})
         return got
 
-    def update(g, net, trainable, old, step):
-        out = orig_update(g, net, trainable, old, step)
+    def update(g, net, trainable, old, step, shards=None):
+        out = orig_update(g, net, trainable, old, step, shards=shards)
         if gmp.gmp_due(g, step):
             keys = list(old)
             zeros = [int((~out[k]).sum()) for k in keys]
@@ -3531,9 +3562,9 @@ def _rank_cli(torch, kernels, main, argv, label, out_dir):
           f"launched {counts}")
     with open(os.path.join(out_dir, "rank0.json")) as f:
         rank0 = json.load(f)
-    return ({n: v["launches"] for n, v in rank0.items()},
-            {n: {int(k): c for k, c in v["at"].items()}
-             for n, v in rank0.items()}, secs)
+    return ({n: rank0[n]["launches"] for n, _ in kernels},
+            {n: {int(k): c for k, c in rank0[n]["at"].items()}
+             for n, _ in kernels}, secs)
 
 
 def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
@@ -3558,7 +3589,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
     from modelcompression_tpu_torch.models import (
         cfg_path, fold_batchnorm, load_cfg, load_weights, params_to,
     )
-    from modelcompression_tpu_torch.parallel.ranks import free_port
+    from modelcompression_tpu_torch.parallel import ranks
     cfg = cfg_path("yolov2-voc.cfg")
     spec = load_cfg(cfg)
     params, _ = load_weights(weights, spec)  # phase 6's, from seed 0
@@ -3719,8 +3750,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
     # a step's collectives: the BN moments forward and backward per conv
     # and micro-batch, the loss sums per micro-batch, the gradients once
     n_coll = 2 * n_bn * sub + sub + 1
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
-                            f"{free_port()}", rank=0, world_size=1)
+    ranks.init_grid(mesh1, 0, "nccl", f"file://{out_path('pg_store')}")
     try:
         timing = [train_step_timing(torch, spec, params, sub, timed=3,
                                     mesh=m)
@@ -3738,7 +3768,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
         host_ms = (time.perf_counter() - t0) * 1e3
         coll_ms = time_ms(torch, collectives, iters=3, warmup=1)
     finally:
-        dist.destroy_process_group()
+        ranks.destroy_grid()
     done("finetune_dp1", seconds=runs, bit_equal=max_diff == 0.0,
          seen=seen_dp, launches_gmp=counts, step_ms=_in_turns(timing),
          bn_all_reduces_per_step=2 * n_bn * sub,
@@ -3842,6 +3872,266 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
     return widths
 
 
+TP = 2
+TP_STEPS = 2
+# the float64 and FAST steps held against the plain ones: the cfg's
+# micro-batch of 8, twice
+TP_F64_BATCH, TP_F64_SUB = 16, 2
+
+
+def _tp_mesh(torch):
+    """The (1, 2) mesh whose two ranks share cuda:0: the analogue of the
+    JAX tests' forced host devices on a one-card machine. NCCL refuses
+    two ranks on one card, so its ranks run gloo, which takes CUDA tensors
+    in every collective the step writes out."""
+    from modelcompression_tpu_torch.core.mesh import MeshConfig, make_mesh
+    return make_mesh(MeshConfig(data=1, model=TP),
+                     devices=[torch.device("cuda", 0)] * TP)
+
+
+def _tp_one_step(torch, spec, params, mesh, precision, batch, sub):
+    """One step from ``params`` at ``precision`` on a fixed batch: the
+    plain step on rank 0 alone (the other rank waits), then the
+    tensor-parallel step on every rank. Returns, on rank 0, each step's
+    gradients and updated params (the TP ones gathered whole), and the
+    TP step's collectives by kind."""
+    import torch.distributed as dist
+    from modelcompression_tpu_torch.parallel import place_train_state, ranks
+    from modelcompression_tpu_torch.parallel.sharding import (
+        gather_params, sharded_keys,
+    )
+    from modelcompression_tpu_torch.train import (
+        TrainConfig, TrainState, make_optimizer, make_train_step,
+    )
+    config = TrainConfig.from_spec(spec, precision=precision,
+                                   subdivisions=sub, augment_flip=False,
+                                   augment_jitter=0.0)
+    images, targets = _train_batch(torch, batch, SEED + 14, "cuda")
+    grid = ranks.grid()
+    dev = {k: {n: v.to("cuda", precision.param_dtype)
+               for n, v in p.items()} for k, p in params.items()}
+
+    def state():
+        return TrainState.create(dev, make_optimizer(config),
+                                 torch.Generator().manual_seed(SEED))
+
+    def taken(st, grads):
+        return ({k: {n: v.detach() for n, v in p.items()}
+                 for k, p in grads.items()},
+                {k: {n: v.detach() for n, v in p.items()}
+                 for k, p in st["params"].items()})
+
+    out = {}
+    if grid.rank == 0:
+        st, _ = make_train_step(spec, config)(state(), images, targets)
+        out["plain"] = taken(st, {k: {n: v.grad for n, v in p.items()
+                                      if v.grad is not None}
+                                  for k, p in st["params"].items()})
+    dist.barrier()
+    st = place_train_state(state(), mesh, spec, tp=True, rank=grid.rank)
+    step = make_train_step(spec, config, mesh=mesh)
+    ranks.reset_collectives()
+    st, _ = step(st, images, targets)
+    torch.cuda.synchronize()
+    out["collectives"] = {k: dict(v) for k, v in ranks.COLLECTIVES.items()}
+    keys = sharded_keys(spec, TP)
+    grads = {k: {n: (ranks.all_gather_rows(v.grad, grid.model_group)
+                     if k in keys else v.grad)
+                 for n, v in p.items() if v.grad is not None}
+             for k, p in st["params"].items()}
+    out["tp"] = taken({"params": gather_params(st["params"], mesh, spec)},
+                      grads)
+    return out
+
+
+def _worst(got, want):
+    """(largest _max_rel over the tensors of two {key: {name: tensor}}
+    trees, the tensor's name)."""
+    return max((_max_rel(got[k][n].double(), v.double()), f"{k}/{n}")
+               for k, p in want.items() for n, v in p.items())
+
+
+def _tp_step_rank(argv):
+    """Rank target of phase 14 (b) and (d): ``argv`` = [weights, result
+    json]. Rank 0 writes the results."""
+    import torch
+    import torch.distributed as dist
+    from modelcompression_tpu_torch.core.precision import FAST, Precision
+    from modelcompression_tpu_torch.models import cfg_path, load_cfg
+    from modelcompression_tpu_torch.models import load_weights
+    from modelcompression_tpu_torch.parallel import ranks
+    weights, result = argv
+    spec = load_cfg(cfg_path("yolov2-voc.cfg"))
+    params, _ = load_weights(weights, spec)
+    mesh = ranks.grid().mesh
+    primary = ranks.grid().rank == 0
+    res = {"backend": ranks.grid().backend}
+    f64 = Precision(name="float64", compute_dtype=torch.float64,
+                    param_dtype=torch.float64)
+    got = {name: _tp_one_step(torch, spec, params, mesh, prec, TP_F64_BATCH,
+                              TP_F64_SUB)
+           for name, prec in (("float64", f64), ("fast", FAST))}
+    if primary:
+        (g64, p64), (g64_tp, p64_tp) = got["float64"]["plain"], \
+            got["float64"]["tp"]
+        worst = _worst(g64_tp, g64)
+        res["float64"] = {
+            "batch": TP_F64_BATCH, "subdivisions": TP_F64_SUB,
+            "worst_grad_rel": worst[0], "worst": worst[1],
+            "max_param_abs_diff": max(
+                float((p64_tp[k][n] - v).abs().max())
+                for k, p in p64.items() for n, v in p.items()),
+            "collectives": got["float64"]["collectives"]}
+        # FAST (bf16 convs) from the same params: each step's distance
+        # from the plain float64 step, and the TP step's from the plain
+        (g, p), (g_tp, p_tp) = got["fast"]["plain"], got["fast"]["tp"]
+        res["fast"] = {
+            "grad_rel": {"tp_vs_plain": _worst(g_tp, g),
+                         "plain_vs_float64": _worst(g, g64),
+                         "tp_vs_float64": _worst(g_tp, g64)},
+            "param_rel": {"tp_vs_plain": _worst(p_tp, p),
+                          "plain_vs_float64": _worst(p, p64),
+                          "tp_vs_float64": _worst(p_tp, p64)}}
+    # the FAST step at the cfg's batch 64 / subdivisions 8, in turns: the
+    # plain step on rank 0 alone, the TP step on both ranks; the TP
+    # turns' collectives counted over their 2 warm-up and 2 timed steps
+    timing = []
+    ranks.reset_collectives()
+    for m in (None, mesh, mesh, None):
+        dist.barrier()
+        if m is not None or primary:
+            timing.append(train_step_timing(
+                torch, spec, params, spec.net.subdivisions, timed=2,
+                mesh=m))
+    if primary:
+        steps = 2 * (2 + 2)
+        res["step_ms"] = _in_turns(timing)
+        res["enqueue_ms"] = [t["host_enqueue_ms_per_step"] for t in timing]
+        res["peak_gib"] = [t["max_memory_allocated_gib"] for t in timing]
+        res["collectives_per_step"] = {
+            k: {"calls": v["calls"] / steps, "host_ms": v["host_ms"] / steps}
+            for k, v in ranks.COLLECTIVES.items()}
+        with open(result, "w") as f:
+            json.dump(res, f)
+    return 0
+
+
+def phase_tensor_parallel(torch, kernels, card, tmp, data, weights):
+    """Phase 14 (module docstring): tensor parallelism on full-width
+    YOLOv2-VOC 416 (phase 6's weights, phase 7's fixture) over a (1, 2)
+    mesh whose ranks share cuda:0 (gloo). Returns each rank's launches
+    by width."""
+    import numpy as np
+    from modelcompression_tpu_torch.cli import finetune
+    from modelcompression_tpu_torch.models import (
+        cfg_path, load_cfg, load_weights,
+    )
+    from modelcompression_tpu_torch.parallel import ranks
+    cfg = cfg_path("yolov2-voc.cfg")
+    spec = load_cfg(cfg)
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    c1 = spec.layers[0].filters
+    s_layer = len(spec.conv_indices()) + 1
+    t_part = [time.perf_counter()]
+
+    def done(part, **kw):
+        now = time.perf_counter()
+        emit({"phase": "tensor_parallel", "part": part, "ok": True,
+              "card": card, "part_s": now - t_part[0], **kw})
+        t_part[0] = now
+
+    def out_path(name):
+        return os.path.join(tmp, name)
+
+    ft = ["--cfg", cfg, "--weights", weights, "--data", data, "--steps",
+          str(TP_STEPS), "--batch", str(BATCH), "--subdivisions",
+          str(spec.net.subdivisions), "--device", "cuda"]
+    # (a) --tp 2 through the CLI wants one card per rank: on a one-card
+    # machine it exits 2 with the JAX text
+    n_dev = torch.cuda.device_count()
+    if n_dev < TP:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = finetune.main(ft + ["--tp", str(TP), "--out",
+                                     out_path("tp_cli.weights")])
+        want = (f"mesh MeshConfig(data=1, model={TP}) needs {TP} devices, "
+                f"have {n_dev}")
+        check(rc == 2 and want in err.getvalue(),
+              f"finetune --tp {TP} on {n_dev} card(s): exit {rc}, "
+              f"{err.getvalue()!r}")
+        done("cli_mesh", error=want)
+
+    mesh = _tp_mesh(torch)
+    # (b) and (d): the TP step against the plain step, and in turns
+    result = out_path("tp_steps.json")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    rc = ranks.spawn("chip_smoke:_tp_step_rank", [weights, result], mesh,
+                     backend="gloo")
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"tensor-parallel step ranks exited {rc}")
+    with open(result) as f:
+        res = json.load(f)
+    f64 = res.pop("float64")
+    check(f64["worst_grad_rel"] <= STEP_GRAD_TOL,
+          f"TP float64 step: {f64['worst']} differs by "
+          f"{f64['worst_grad_rel']} of its max |g| from the plain step's")
+    done("step", seconds=secs,
+         staging="none: gloo takes the CUDA tensors of every collective",
+         float64=f64, **res,
+         note="two ranks share one card: the times are the TP code "
+              "path's host and gloo cost, not NVLink's")
+
+    # (c) the finetune ranks with GMP: each rank recomputes the masks on
+    # the gathered weights through the top-k kernels; rank 0 evaluates
+    counts_dir = out_path("launches_tp")
+    os.makedirs(counts_dir, exist_ok=True)
+    os.environ[ranks.LAUNCHES_DIR_ENV] = counts_dir
+    out = out_path("ft_tp_gmp.weights")
+    argv = ft + ["--tp", str(TP), "--gmp", str(GMP_FINAL), "--gmp-begin",
+                 "0", "--gmp-end", str(TP_STEPS - 1), "--gmp-freq", "1",
+                 "--out", out]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    try:
+        rc = ranks.spawn("modelcompression_tpu_torch.cli.finetune:main",
+                         argv, mesh, backend="gloo")
+    finally:
+        del os.environ[ranks.LAUNCHES_DIR_ENV]
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"finetune --tp {TP} ranks exited {rc}")
+    counts = read_counts(kernels)
+    check(not any(counts.values()), f"finetune --tp: the launcher itself "
+          f"launched {counts}")
+    prune_want = {n: TP_STEPS * k for n, k in PRUNE_LAUNCHES.items()}
+    widths, per_rank = {}, {}
+    for r in range(TP):
+        with open(os.path.join(counts_dir, f"rank{r}.json")) as f:
+            got = json.load(f)
+        counts = {n: got[n]["launches"] for n, _ in kernels}
+        at = {n: {int(k): c for k, c in got[n]["at"].items()}
+              for n, _ in kernels}
+        eval_want = ({"input_stage_mma": n_batches} if r == 0 else {})
+        expect_launches(
+            kernels, counts, at, f"finetune --tp rank {r}",
+            dict(prune_want, **eval_want),
+            dict({n: {s_layer: k} for n, k in prune_want.items()},
+                 **({"input_stage_mma": {c1: n_batches}} if r == 0
+                    else {})))
+        widths[f"finetune_tp_gmp_rank{r}"] = at
+        per_rank[r] = {"launches": counts,
+                       "collectives": got["collectives"]}
+    written, _ = load_weights(out, spec)
+    zeros = {k: int((p["w"] == 0).sum()) for k, p in written.items()}
+    floors = {k: int(np.float32(GMP_FINAL) * np.float32(p["w"].numel()))
+              for k, p in written.items()}
+    check(all(zeros[k] >= floors[k] for k in zeros),
+          "finetune --tp --gmp: a layer below floor(s n) zeros")
+    done("finetune_tp_gmp", seconds=secs, ranks=per_rank,
+         zeros=sum(zeros.values()), floor_zeros=sum(floors.values()))
+    return widths
+
+
 TOPK_ENTRIES = (
     ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
     ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
@@ -3853,7 +4143,7 @@ TOPK_ENTRIES = (
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                    ft_widths, fam_widths, fam_topk, train_widths,
                    train_topk, int8_widths, quantile_select, cmp_widths,
-                   par_widths):
+                   par_widths, tp_widths):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -3902,7 +4192,10 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     C=8, the cmodel's serving), and on the data-parallel and deploy
     phase's (``parallel_launches``: eval / serve / finetune --dp 1, rank
     0's counts for finetune, GMP's recompute at S=24, deploy's evals at
-    C=32 and C=16)."""
+    C=32 and C=16), and on the tensor-parallel phase's
+    (``tensor_parallel_launches``: each rank of finetune --tp 2 --gmp,
+    GMP's recompute on the gathered weights at S=24 in each, rank 0's
+    eval at C=32)."""
     def on(widths, source, width):
         return {path: at[source].get(width, 0)
                 for path, at in widths.items()}
@@ -3937,7 +4230,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "families_train_launches": on(train_widths, source, c_out),
             "int8_launches": on(int8_widths, source, c_out),
             "compress_launches": on(cmp_widths, source, c_out),
-            "parallel_launches": on(par_widths, source, c_out)})
+            "parallel_launches": on(par_widths, source, c_out),
+            "tensor_parallel_launches": on(tp_widths, source, c_out)})
     for dtype, name, path in (
             ("bfloat16", "input_stage_mma[C=16]", "yolov3_tiny"),
             ("float32", "input_stage_f32[C=16]", "yolov3_tiny_fp32")):
@@ -3957,7 +4251,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "families_train_launches": on(train_widths, source, 16),
             "int8_launches": on(int8_widths, source, 16),
             "compress_launches": on(cmp_widths, source, 16),
-            "parallel_launches": on(par_widths, source, 16)})
+            "parallel_launches": on(par_widths, source, 16),
+            "tensor_parallel_launches": on(tp_widths, source, 16)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -3973,7 +4268,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "families_train_launches": on(train_widths, YARDSTICK, 32),
         "int8_launches": on(int8_widths, YARDSTICK, 32),
         "compress_launches": on(cmp_widths, YARDSTICK, 32),
-        "parallel_launches": on(par_widths, YARDSTICK, 32)})
+        "parallel_launches": on(par_widths, YARDSTICK, 32),
+        "tensor_parallel_launches": on(tp_widths, YARDSTICK, 32)})
 
     def topk_entry(r, key, source, body, name, launches, widths, library):
         k = r[key]
@@ -4015,7 +4311,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                  "families_train_launches": on(train_widths, source, s),
                  "int8_launches": on(int8_widths, source, s),
                  "compress_launches": on(cmp_widths, source, s),
-                 "parallel_launches": on(par_widths, source, s)},
+                 "parallel_launches": on(par_widths, source, s),
+                 "tensor_parallel_launches": on(tp_widths, source, s)},
                 None if s == 24 else
                 "torch.kthvalue: the k-th |w| of the one real segment"))
     s = fam_topk["S"]
@@ -4027,7 +4324,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
              "families_train_launches": on(train_widths, source, s),
              "int8_launches": on(int8_widths, source, s),
              "compress_launches": on(cmp_widths, source, s),
-             "parallel_launches": on(par_widths, source, s)},
+             "parallel_launches": on(par_widths, source, s),
+             "tensor_parallel_launches": on(tp_widths, source, s)},
             "torch.topk of the 128 best scores per image: the whole "
             "selection"))
     s = train_topk["S"]
@@ -4038,7 +4336,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             {"families_train_launches": on(train_widths, source, s),
              "int8_launches": on(int8_widths, source, s),
              "compress_launches": on(cmp_widths, source, s),
-             "parallel_launches": on(par_widths, source, s)}, None))
+             "parallel_launches": on(par_widths, source, s),
+             "tensor_parallel_launches": on(tp_widths, source, s)}, None))
     q = quantile_select
     entries.append({
         "name": f"topk_radix_select[S={q['S']},quantile]", "route": "cuda",
@@ -4051,7 +4350,9 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "four_pass_bound_ms": q["four_pass_bound_ms"], "elements": q["n"],
         "int8_launches": on(int8_widths, "topk_radix_select", q["S"]),
         "compress_launches": on(cmp_widths, "topk_radix_select", q["S"]),
-        "parallel_launches": on(par_widths, "topk_radix_select", q["S"])})
+        "parallel_launches": on(par_widths, "topk_radix_select", q["S"]),
+        "tensor_parallel_launches": on(tp_widths, "topk_radix_select",
+                                       q["S"])})
     return entries
 
 
@@ -4102,12 +4403,14 @@ def main() -> int:
                                         weights, main_lines)
             par_widths = phase_parallel_deploy(torch, KERNELS, card, tmp,
                                                data, weights)
+            tp_widths = phase_tensor_parallel(torch, KERNELS, card, tmp,
+                                              data, weights)
         emit({"kernels": kernel_entries(cases, launches, topk,
                                         prune_launches, eval_widths,
                                         ft_widths, fam_widths, fam_topk,
                                         train_widths, train_topk,
                                         int8_widths, quantile_select,
-                                        cmp_widths, par_widths)})
+                                        cmp_widths, par_widths, tp_widths)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -44,43 +44,51 @@ def add_parallel_args(p: argparse.ArgumentParser):
                         "device")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel size: shard conv filters over "
-                        "the 'model' axis (train paths only; not ported "
-                        "yet: values above 1 exit 2, ROADMAP Queue 1 item "
-                        "11)")
+                        "the 'model' axis (training: one process per "
+                        "device of the (max(dp,1), tp) mesh, each conv "
+                        "whose filter count tp divides split over the "
+                        "model ranks; eval replicates the model over it)")
 
 
 def build_mesh(args):
-    """(mesh, tp_enabled) from --dp/--tp; (None, False) without --dp.
+    """(mesh, tp_enabled) from --dp/--tp; (None, False) when unused.
 
-    ``--dp N`` with N >= 1 builds an N-wide 'data' mesh on ``--device``
-    (CUDA: N visible cards, else the JAX ``ValueError``). The JAX CLIs
-    build none below 2; here ``--dp 1`` runs the data-parallel path on one
-    card, with the same results. ``--tp`` above 1 raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    ``--dp N`` with N >= 1, or ``--tp`` above 1, builds a (max(dp, 1), tp)
+    mesh on ``--device`` (CUDA: one visible card per device, else the JAX
+    ``ValueError``). The JAX CLIs build none for ``--dp 1`` alone; here it
+    runs the data-parallel path on one card, with the same results. Inside
+    a rank of ``spawn_ranks`` the mesh is the one the ranks were started
+    on."""
     from modelcompression_tpu_torch.core.mesh import MeshConfig, make_mesh
-    from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
-    if getattr(args, "tp", 1) > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
-    dp = getattr(args, "dp", 0)
-    if dp < 1:
+    from modelcompression_tpu_torch.parallel import ranks
+    dp, tp = getattr(args, "dp", 0), getattr(args, "tp", 1)
+    if dp < 1 and tp <= 1:
         return None, False
-    return make_mesh(MeshConfig(data=dp),
-                     device=getattr(args, "device", None)), False
+    config = MeshConfig(data=max(dp, 1), model=max(tp, 1))
+    grid = ranks.grid()
+    if grid is not None:
+        if grid.mesh.shape != {"data": config.data, "model": config.model}:
+            raise ValueError(f"mesh {config} differs from the ranks' mesh "
+                             f"{grid.mesh.shape}")
+        return grid.mesh, tp > 1
+    return make_mesh(config, device=getattr(args, "device", None)), tp > 1
 
 
 def spawn_ranks(args, target: str, argv):
-    """The training CLIs' ``--dp N``: outside a process group, start N
-    ranks that each run ``target`` (the CLI's ``module:main``) on the same
-    command line (``parallel/ranks.spawn``) and return the code they exit
-    with. Returns None, for the caller to go on, inside a rank, without
-    --dp, or with --tp above 1 (which the CLI rejects)."""
+    """The training CLIs' ``--dp`` / ``--tp``: outside a process group,
+    start one rank per device of the mesh (``build_mesh``), each running
+    ``target`` (the CLI's ``module:main``) on the same command line
+    (``parallel/ranks.spawn``), and return the code they exit with.
+    Returns None, for the caller to go on, inside a rank or without a
+    mesh. Raises the JAX ``ValueError`` for a mesh wider than the
+    devices."""
     from modelcompression_tpu_torch.parallel import ranks
-    if (getattr(args, "dp", 0) < 1 or getattr(args, "tp", 1) > 1
-            or ranks.rank() is not None):
+    if ranks.grid() is not None:
         return None
-    mesh, _ = build_mesh(args)  # the device rule and the device count
-    return ranks.spawn(target, sys.argv[1:] if argv is None else argv,
-                       args.dp, mesh.data_devices[0].type)
+    mesh, _ = build_mesh(args)
+    if mesh is None:
+        return None
+    return ranks.spawn(target, sys.argv[1:] if argv is None else argv, mesh)
 
 
 def rank_device(args, mesh):
@@ -90,7 +98,7 @@ def rank_device(args, mesh):
     from modelcompression_tpu_torch.parallel import ranks
     if mesh is None:
         return resolve_device(args.device)
-    return mesh.data_devices[ranks.rank() or 0]
+    return mesh.rank_devices[ranks.rank() or 0]
 
 
 def add_data_args(p: argparse.ArgumentParser):

@@ -23,8 +23,9 @@ entropy-codes its codes, or the int8 weights of ``--save-qmodel``), and
 ``--cmodel`` serves one through the unchanged FAST path (input-stage
 kernel included). ``--dp N`` evaluates data-parallel over N devices of
 --device in this process (one step per shard, the results equal to one
-device's; on the CPU every shard runs on the host); --tp above 1 is not
-ported yet (ROADMAP Queue 1 item 11) and exits 2. Every NMS variant
+device's; on the CPU every shard runs on the host); ``--tp M`` builds
+the (max(N, 1), M) mesh and replicates the model over its model axis,
+as the JAX CLI does, with the same results. Every NMS variant
 of the JAX CLI runs: --exact-nms, --soft-nms (--soft-nms-sigma),
 --diou-nms (--diou-beta), --nms-prefilter-impl bisect. [region] (YOLOv2)
 and [yolo] (YOLOv3 / YOLOv4) cfgs evaluate alike.
@@ -54,7 +55,6 @@ from modelcompression_tpu_torch.evaluation import (
     EvalConfig, dump_detections, evaluate, evaluate_recall,
 )
 from modelcompression_tpu_torch.models import fold_batchnorm, params_to
-from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -220,12 +220,6 @@ def _usage_error(args):
     return None
 
 
-def _not_ported(args):
-    """The flag a command line needs that is not ported yet, with its
-    ROADMAP item, or None."""
-    return TP_NOT_PORTED if args.tp > 1 else None
-
-
 def _cluster(args, spec, params):
     """--cluster-bits: the reconstructed params of the clustered model,
     written to --save-cmodel when asked; raises ValueError on bad bits."""
@@ -250,7 +244,7 @@ def _cluster(args, spec, params):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    why = _usage_error(args) or _not_ported(args)
+    why = _usage_error(args)
     if why:
         print(f"error: {why}", file=sys.stderr)
         return 2
@@ -331,7 +325,11 @@ def main(argv=None) -> int:
                                recall_iou=args.recall_iou, progress=True)
         print(rres.summary())
         return 0
-    mesh, _ = build_mesh(args)
+    try:
+        mesh, _ = build_mesh(args)
+    except ValueError as e:  # a mesh wider than the devices
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     if mesh is not None and args.batch % mesh.shape["data"]:
         print(f"error: --batch {args.batch} must be divisible by "
               f"--dp {mesh.shape['data']}", file=sys.stderr)

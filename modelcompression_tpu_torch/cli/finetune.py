@@ -28,15 +28,18 @@ threshold with --gmp-global). ``--distill T.weights`` adds the loss
 against that teacher's raw map (train/distill.py; --distill-cfg when the
 teacher's architecture differs), in every round with --iterate.
 
-``--dp N`` trains data-parallel: N ranks, one process per device of
---device (nccl on cuda:0..N-1, gloo on the CPU), each given the same
-batches; the BN statistics, loss sums and gradients are all-reduced, so
-the params equal a one-device run's. Rank 0 alone logs, evaluates and
-writes --out and the checkpoints; a failing rank fails the command.
+``--dp N`` and ``--tp M`` train over a (max(N, 1), M) mesh: one rank
+per device of --device (nccl on cuda:0..N*M-1, gloo on the CPU), each
+given the same batches. Over the data axis the batch is split and the
+BN statistics, loss sums and gradients are all-reduced; over the model
+axis each conv whose filter count M divides is split by filters, its
+output channels all-gathered (``parallel/``), so the params equal a
+one-device run's. Rank 0 alone logs, evaluates and writes --out and the
+checkpoints, after every rank has gathered the params whole; a failing
+rank fails the command.
 
 The command lines of the JAX CLI run unchanged: its validations come
-first, with its messages and exit code 2. --tp above 1 is not ported yet
-(ROADMAP Queue 1 item 11) and exits 2 naming its item.
+first, with its messages and exit code 2.
 
 Example:
   python -m modelcompression_tpu_torch.cli.finetune --cfg slim.cfg \\
@@ -69,7 +72,7 @@ from modelcompression_tpu_torch.models import (
 )
 from modelcompression_tpu_torch.models.cfg import ConvLayer
 from modelcompression_tpu_torch.parallel.ranks import is_primary
-from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
+from modelcompression_tpu_torch.parallel.sharding import gather_train_state
 from modelcompression_tpu_torch.train import (
     BatchLoader, TrainConfig, TrainState, iterative_prune_finetune,
     make_distill_plan, make_optimizer, train,
@@ -274,12 +277,6 @@ def _usage_error(args, spec) -> str | None:
     return None
 
 
-def _not_ported(args) -> str | None:
-    """The option the command line needs that is not ported yet, with its
-    ROADMAP item, or None."""
-    return TP_NOT_PORTED if args.tp > 1 else None
-
-
 def _gmp_spec(args) -> GMPSpec:
     """The GMPSpec of --gmp; ValueError with the JAX CLI's message when the
     ramp does not fit in the run's 0-based steps or the spec is invalid."""
@@ -312,11 +309,15 @@ def _to_cpu(params):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.mask_backend = resolve_mask_backend(args)
-    rc = spawn_ranks(args, "modelcompression_tpu_torch.cli.finetune:main",
-                     argv)
-    if rc is not None:  # --dp: the ranks ran this CLI
+    try:
+        rc = spawn_ranks(args, "modelcompression_tpu_torch.cli.finetune:main",
+                         argv)
+        mesh = build_mesh(args)[0]
+    except ValueError as e:  # a mesh wider than the devices
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if rc is not None:  # --dp / --tp: the ranks ran this CLI
         return rc
-    mesh = build_mesh(args)[0] if args.tp <= 1 else None
     device = rank_device(args, mesh)  # no CUDA: raise before reading
     spec, params, seen = load_model(args)
     samples, names = load_train_dataset(args)
@@ -329,7 +330,7 @@ def main(argv=None) -> int:
               "or the devkit image set) — refusing to train for nothing",
               file=sys.stderr)
         return 2
-    why = _usage_error(args, spec) or _not_ported(args)
+    why = _usage_error(args, spec)
     if why:
         print(f"error: {why}", file=sys.stderr)
         return 2
@@ -464,6 +465,7 @@ def main(argv=None) -> int:
                               ema=args.ema is not None)
     state = train(state, spec, config, loader, n_steps=args.steps,
                   logger=logger, mesh=mesh, distill=distill_plan)
+    state = gather_train_state(state, mesh, spec)  # every rank gathers
     if not is_primary():
         return 0
     # with --ema the delivered model is the EMA shadow (weights and BN

@@ -6,10 +6,11 @@ a missing CUDA device is an error). Hyper-parameters default to the cfg's
 and at the end; ``--resume`` restores the latest one and fast-forwards the
 data stream, so the run continues as an uninterrupted one would.
 
-``--dp N`` trains data-parallel over N devices of --device, one process
-per device (as ``finetune --dp``); rank 0 alone logs, evaluates and
-checkpoints. Not ported yet, rejected with exit code 2: --tp above 1
-(ROADMAP Queue 1 item 11).
+``--dp N`` and ``--tp M`` train over a (max(N, 1), M) mesh of --device,
+one process per device (as ``finetune --dp / --tp``): the batch split
+over the data axis, the conv filters over the model axis; rank 0 alone
+logs, evaluates and checkpoints (the params gathered whole on every rank
+first).
 
 Example:
   python -m modelcompression_tpu_torch.cli.train --cfg tiny-yolo-voc.cfg \\
@@ -32,7 +33,7 @@ from modelcompression_tpu_torch.evaluation import EvalConfig, evaluate
 from modelcompression_tpu_torch.models import dump_cfg, params_to
 from modelcompression_tpu_torch.models.cfg import ConvLayer
 from modelcompression_tpu_torch.parallel.ranks import is_primary
-from modelcompression_tpu_torch.parallel.sharding import TP_NOT_PORTED
+from modelcompression_tpu_torch.parallel.sharding import gather_train_state
 from modelcompression_tpu_torch.train import (
     BatchLoader, TrainConfig, TrainState, make_optimizer, train,
 )
@@ -97,10 +98,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    rc = spawn_ranks(args, "modelcompression_tpu_torch.cli.train:main", argv)
-    if rc is not None:  # --dp: the ranks ran this CLI
+    try:
+        rc = spawn_ranks(args, "modelcompression_tpu_torch.cli.train:main",
+                         argv)
+        mesh = build_mesh(args)[0]
+    except ValueError as e:  # a mesh wider than the devices
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if rc is not None:  # --dp / --tp: the ranks ran this CLI
         return rc
-    mesh = build_mesh(args)[0] if args.tp <= 1 else None
     device = rank_device(args, mesh)  # no CUDA: raise before reading
     spec, params, seen = load_model(args, seed=args.seed)
     samples, names = load_train_dataset(args)
@@ -126,9 +132,6 @@ def main(argv=None) -> int:
         batch, subdiv = resolve_batch_subdivisions(args, spec)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
-        return 2
-    if args.tp > 1:
-        print(f"error: {TP_NOT_PORTED}", file=sys.stderr)
         return 2
     mosaic = args.mosaic if args.mosaic is not None else spec.net.mosaic
     config = TrainConfig.from_spec(
@@ -195,32 +198,41 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    # rank 0 alone evaluates and checkpoints
+    # rank 0 alone evaluates and checkpoints; every rank takes the calls,
+    # as tensor parallelism gathers the params whole for them
     eval_fn = None
-    if args.eval_every and is_primary():
-        eval_samples, eval_names = load_dataset(args)
-        eval_cfg = EvalConfig(batch_size=batch, device=args.device)
+    if args.eval_every:
+        if is_primary():
+            eval_samples, eval_names = load_dataset(args)
+            eval_cfg = EvalConfig(batch_size=batch, device=args.device)
 
         def eval_fn(p):
+            if not is_primary():
+                return {}
             res = evaluate(p, spec, eval_samples, eval_names, eval_cfg)
             return {"map50": res.map50, "img_per_sec": res.images_per_sec}
 
     ckpt_fn = None
-    if args.checkpoint_dir and is_primary():
+    if args.checkpoint_dir:
         def ckpt_fn(step, st):
-            # named by the GLOBAL step, so a resumed run extends the
-            # directory instead of overwriting step_00000001 onward
-            d = save_checkpoint(args.checkpoint_dir, st["step"], spec, st)
-            print(f"checkpoint -> {d}")
+            if is_primary():
+                # named by the GLOBAL step, so a resumed run extends the
+                # directory instead of overwriting step_00000001 onward
+                d = save_checkpoint(args.checkpoint_dir, st["step"], spec,
+                                    st)
+                print(f"checkpoint -> {d}")
 
     state = train(state, spec, config, loader, n_steps=n_steps,
                   logger=logger, eval_fn=eval_fn,
                   eval_every=args.eval_every, checkpoint_fn=ckpt_fn,
                   checkpoint_every=args.checkpoint_every,
                   initial_step=start, mesh=mesh)
-    if args.checkpoint_dir and is_primary():
-        d = save_checkpoint(args.checkpoint_dir, state["step"], spec, state)
-        print(f"final checkpoint -> {d}")
+    if args.checkpoint_dir:
+        state = gather_train_state(state, mesh, spec)
+        if is_primary():
+            d = save_checkpoint(args.checkpoint_dir, state["step"], spec,
+                                state)
+            print(f"final checkpoint -> {d}")
     return 0
 
 

@@ -155,10 +155,16 @@ def gmp_due(spec: GMPSpec, step: int) -> bool:
 
 def gmp_mask_update(spec: GMPSpec, net: NetworkSpec, trainable: Params,
                     masks: Dict[str, torch.Tensor],
-                    step: int) -> Dict[str, torch.Tensor]:
+                    step: int, shards=None) -> Dict[str, torch.Tensor]:
     """One scheduled mask update: on a due step, the masks recomputed from
     the live weights and intersected with the old ones; else the old
     masks. Non-GMP masks in ``masks`` pass through.
+
+    Tensor parallel, ``masks`` and ``trainable`` hold this rank's filter
+    slices and ``shards()`` (called on a due step only) returns (the full
+    weights, ``local(key, full mask)`` -> this rank's slice): the masks
+    are recomputed on the full weights, as one device computes them, and
+    each rank keeps its slice.
 
     The intersection makes the update monotone: a once-pruned weight
     never re-enters. The recompute sees the weights after the optimizer
@@ -177,8 +183,12 @@ def gmp_mask_update(spec: GMPSpec, net: NetworkSpec, trainable: Params,
             f"with weight_masks=gmp_init_masks(...)")
     out = dict(masks)
     if gmp_due(spec, step):
+        local = None
+        if shards is not None:
+            trainable, local = shards()
         fresh = gmp_masks(trainable, net, gmp_sparsity(step, spec),
                           per_layer=spec.per_layer, skip=spec.skip)
         for k in keys:
-            out[k] = fresh[k] & masks[k]
+            out[k] = (fresh[k] if local is None else local(k, fresh[k])) \
+                & masks[k]
     return out

@@ -1,16 +1,19 @@
-"""Device mesh for data parallelism, port of
+"""Device mesh for data and tensor parallelism, port of
 ``modelcompression_tpu/core/mesh.py``.
 
 A mesh is a (data, model) grid of devices. The JAX package hands it to
 GSPMD, which partitions one program over it. Here the port does that by
 hand (``parallel/sharding.py``): inference runs one step per device of
 the ``data`` axis in one process, training runs one process per device
-(``parallel/ranks.py``) with the collectives written out.
+of the whole grid (``parallel/ranks.py``) with the collectives written
+out. Rank ``r = d * model + m`` runs on ``devices[d][m]``, the JAX
+order (``make_mesh`` reshapes the device list to (data, model)).
 
-On CUDA the devices are the visible cards, so an N-wide ``data`` axis
-needs N of them. On the CPU every shard lives on ``cpu``, the analogue of
-the JAX tests' forced host devices: a mesh of any size fits, and each
-shard runs in turn.
+On CUDA the devices are the visible cards, so a mesh of N devices needs
+N of them; a caller may name the devices itself, the same card more than
+once. On the CPU every shard lives on ``cpu``, the analogue of the JAX
+tests' forced host devices: a mesh of any size fits, and each shard runs
+in turn.
 """
 
 from __future__ import annotations
@@ -43,9 +46,28 @@ class Mesh:
         return {"data": len(self.devices), "model": len(self.devices[0])}
 
     @property
+    def size(self) -> int:
+        """The number of devices, and of training ranks."""
+        return len(self.devices) * len(self.devices[0])
+
+    @property
     def data_devices(self) -> Tuple[torch.device, ...]:
         """The device of each shard of the batch (model index 0)."""
         return tuple(row[0] for row in self.devices)
+
+    @property
+    def rank_devices(self) -> Tuple[torch.device, ...]:
+        """The device of each rank, in rank order (row-major)."""
+        return tuple(dev for row in self.devices for dev in row)
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        """(data index d, model index m) of ``rank``."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        return divmod(rank, len(self.devices[0]))
+
+    def rank_of(self, d: int, m: int) -> int:
+        return d * len(self.devices[0]) + m
 
 
 def make_mesh(config: Optional[MeshConfig] = None,

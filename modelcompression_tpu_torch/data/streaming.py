@@ -113,4 +113,9 @@ def prefetch_to_device(host_batches: Iterable[T], depth: int = 2,
                 return
             yield got
     finally:
-        stop.set()  # unblock and end the feeder on early exit
+        # unblock and end the feeder on early exit, and wait for the item
+        # it is making: a daemon thread still inside a torch op when the
+        # interpreter exits can abort the process (a training rank that
+        # returns while the loader prefetches)
+        stop.set()
+        t.join()

@@ -1,39 +1,85 @@
-"""One process per device: the ranks of data-parallel training.
+"""One process per device: the ranks of data- and tensor-parallel training.
 
-The JAX package trains data-parallel as one program that GSPMD
-partitions. PyTorch's idiom is one process per device joined by a process
-group; ``spawn`` starts them (``torch.multiprocessing``, rendezvous on
-``127.0.0.1`` at a free port) with backend ``nccl`` on ``cuda:r`` and
-``gloo`` on the CPU. Rank 0 keeps its standard output; the others write
-theirs to ``os.devnull``. The collectives the train step writes out are
-here: ``all_reduce_sum`` (with a gradient, for the BN statistics) and
-``all_reduce_sum_`` (in place, without one).
+The JAX package trains over a (data, model) mesh as one program that
+GSPMD partitions. PyTorch's idiom is one process per device joined by a
+process group; ``spawn`` starts one rank per device of a mesh
+(``torch.multiprocessing``), rank ``r = d * model + m`` on the mesh's
+r-th device, with backend ``nccl`` on CUDA and ``gloo`` on the CPU
+unless the caller names one. The ranks meet through a ``file://`` store
+in a fresh temporary directory that ``spawn`` creates and removes, so no
+port is chosen before it is bound. Rank 0 keeps its standard output; the
+others write theirs to ``os.devnull``.
+
+Each rank belongs to one data group (the ranks of its model index m:
+they hold the same filter slices and split the batch) and one model group
+(the ranks of its data index d: they hold one row of the batch and split
+the filters); ``grid()`` names them. The collectives the train step
+writes out are here, each over a group (default: every rank):
+``all_reduce_sum`` (with a gradient, for the BN statistics),
+``all_reduce_sum_`` (in place, without one), ``all_gather_rows`` (dim 0,
+for weights), and the two autograd functions of a sharded conv:
+``copy_to_model`` (identity; its backward sums the input gradient over
+the model group) and ``gather_channels`` (all-gathers the channels of an
+NCHW map over the model group; its backward keeps this rank's slice).
+
+Two ranks cannot share a card under NCCL (it refuses the second
+communicator on a card). ``spawn(..., backend="gloo")`` runs a mesh whose
+ranks share a card, what ``chip_smoke.py`` does on a one-card machine:
+gloo takes CUDA tensors in every collective here (all-reduce and
+all-gather into a tensor, float32, bfloat16, float64 and uint8, as a
+probe on an H100 with torch 2.11 showed), so nothing is staged by hand.
+A mesh of distinct cards runs NCCL unless the caller names a backend.
 
 A script that counts kernel launches (``chip_smoke.py``) cannot read a
 rank's counters: with ``LAUNCHES_DIR_ENV`` naming a directory, each rank
-writes its ``ops.KERNELS`` counts there as ``rank<r>.json`` when it ends.
+writes its ``ops.KERNELS`` counts and its ``COLLECTIVES`` there as
+``rank<r>.json`` when it ends.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import os
-import socket
+import shutil
 import sys
+import tempfile
+import time
 from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from modelcompression_tpu_torch.core.mesh import Mesh
 
 LAUNCHES_DIR_ENV = "MC_TORCH_RANK_LAUNCHES_DIR"
 
+# calls and host milliseconds of each collective in this process, by kind
+COLLECTIVES: dict = {}
 
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place on the mesh: its coordinates, its data group
+    (the ranks with model index ``m``) and model group (the ranks with
+    data index ``d``), and the backend."""
+
+    mesh: Mesh
+    rank: int
+    d: int
+    m: int
+    data_group: object
+    model_group: object
+    backend: str
+
+
+_GRID: Optional[Grid] = None
+
+
+def grid() -> Optional[Grid]:
+    """This rank's ``Grid``, or None outside ``spawn``'s ranks."""
+    return _GRID
 
 
 def rank() -> Optional[int]:
@@ -51,32 +97,110 @@ def is_primary() -> bool:
     return rank() in (None, 0)
 
 
+def _timed(kind: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    c = COLLECTIVES.setdefault(kind, {"calls": 0, "host_ms": 0.0})
+    c["calls"] += 1
+    c["host_ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+
+
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum of ``t`` over ``group``, outside autograd."""
+    _timed("all_reduce", dist.all_reduce, t, group=group)
+    return t
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """y = the sum of x over the ranks; dL/dx = the sum of dL/dy over the
-    ranks (each rank's loss depends on every rank's x through y)."""
+    """y = the sum of x over the group; dL/dx = the sum of dL/dy over the
+    group (each rank's loss depends on every rank's x through y)."""
 
     @staticmethod
-    def forward(ctx, x):
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
-        return y
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum_(
+            x.clone(memory_format=torch.contiguous_format), group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        return all_reduce_sum_(
+            g.clone(memory_format=torch.contiguous_format), ctx.group), None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum of ``t`` over the ranks, with a gradient."""
-    return _AllReduceSum.apply(t)
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of ``t`` over ``group`` (default: every rank), with a
+    gradient."""
+    return _AllReduceSum.apply(t, group)
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """In-place sum of ``t`` over the ranks, outside autograd."""
-    dist.all_reduce(t)
-    return t
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's ``t`` concatenated on dim 0 in group-rank order (each
+    rank's ``t`` of one shape), outside autograd. Bool tensors travel as
+    uint8."""
+    src = t.contiguous()
+    if src.dtype == torch.bool:
+        return all_gather_rows(src.view(torch.uint8), group).bool()
+    out = src.new_empty((dist.get_world_size(group) * src.shape[0],)
+                        + tuple(src.shape[1:]))
+    # all_gather_single is the newer name (torch 2.13 warns on the old)
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    _timed("all_gather", gather, out, src, group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's copy to the model-parallel region: the identity, whose
+    backward sums the input gradient over the model group (each rank's
+    filter slice contributes its part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(
+            g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToModel.apply(x, group)
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The channels of an NCHW map gathered over the model group, rank m's
+    slice at channels [m c, (m + 1) c). The gradient that reaches the
+    gather is the full map's and equal on every rank of the group (what
+    follows runs replicated), so the backward keeps this rank's slice
+    and reduces nothing."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        n = dist.get_world_size(group)
+        ctx.index, ctx.c = dist.get_rank(group), y.shape[1]
+        nb, c, h, w = y.shape
+        # NHWC rows (free for channels-last storage), gathered on dim 0,
+        # then the slices interleaved into each pixel's channels
+        rows = all_gather_rows(y.permute(0, 2, 3, 1), group)
+        full = rows.view(n, nb, h, w, c).permute(1, 2, 3, 0, 4) \
+            .reshape(nb, h, w, n * c)
+        return full.permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.index * ctx.c
+        return g[:, lo:lo + ctx.c], None
+
+
+def gather_channels(y: torch.Tensor, group) -> torch.Tensor:
+    return _GatherChannels.apply(y, group)
 
 
 def _determinism() -> dict:
@@ -89,8 +213,42 @@ def _determinism() -> dict:
                 torch.is_deterministic_algorithms_warn_only_enabled()}
 
 
-def _rank_main(r: int, target: str, argv: Sequence[str], world: int,
-               port: int, device: str, threads: int,
+def _groups(mesh: Mesh, r: int):
+    """(data group, model group) of rank r. Every rank creates every
+    group, in the same order, as ``dist.new_group`` requires."""
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    d, m = mesh.coords(r)
+    data = model = None
+    for j in range(tp):
+        g = dist.new_group([mesh.rank_of(i, j) for i in range(dp)])
+        data = g if j == m else data
+    for i in range(dp):
+        g = dist.new_group([mesh.rank_of(i, j) for j in range(tp)])
+        model = g if i == d else model
+    return data, model
+
+
+def init_grid(mesh: Mesh, r: int, backend: str, init_method: str) -> Grid:
+    """Join the process group of ``mesh``'s ranks as rank ``r`` and build
+    the data and model groups: what each of ``spawn``'s ranks does before
+    its target runs (a one-rank mesh may join in the calling process).
+    Returns the ``Grid``; ``destroy_grid`` leaves."""
+    global _GRID
+    dist.init_process_group(backend, init_method=init_method, rank=r,
+                            world_size=mesh.size)
+    data, model = _groups(mesh, r)
+    _GRID = Grid(mesh, r, *mesh.coords(r), data, model, backend)
+    return _GRID
+
+
+def destroy_grid() -> None:
+    global _GRID
+    _GRID = None
+    dist.destroy_process_group()
+
+
+def _rank_main(r: int, target: str, argv: Sequence[str], mesh: Mesh,
+               backend: str, store: str, threads: int,
                determinism: dict) -> None:
     if r > 0:
         sys.stdout = open(os.devnull, "w")
@@ -98,18 +256,17 @@ def _rank_main(r: int, target: str, argv: Sequence[str], world: int,
     torch.backends.cudnn.benchmark = determinism["cudnn_benchmark"]
     torch.use_deterministic_algorithms(determinism["algorithms"],
                                        warn_only=determinism["warn_only"])
-    if device == "cuda":
-        torch.cuda.set_device(r)
+    dev = mesh.rank_devices[r]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     else:
         torch.set_num_threads(threads)
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            init_method=f"tcp://127.0.0.1:{port}",
-                            rank=r, world_size=world)
+    init_grid(mesh, r, backend, f"file://{store}")
     try:
         mod, fn = target.split(":")
         rc = getattr(importlib.import_module(mod), fn)(list(argv))
     finally:
-        dist.destroy_process_group()
+        destroy_grid()
     out_dir = os.environ.get(LAUNCHES_DIR_ENV)
     if out_dir:
         from modelcompression_tpu_torch.ops import KERNELS
@@ -117,26 +274,35 @@ def _rank_main(r: int, target: str, argv: Sequence[str], world: int,
             json.dump({name: {"launches": w.LAUNCHES,
                               "at": {str(k): n for k, n
                                      in w.LAUNCHES_AT.items()}}
-                       for name, w in KERNELS}, f)
+                       for name, w in KERNELS}
+                      | {"collectives": COLLECTIVES}, f)
     if rc:
         sys.exit(rc)
 
 
-def spawn(target: str, argv: Sequence[str], world: int, device: str,
-          threads: Optional[int] = None) -> int:
-    """Run ``module:function`` (a CLI ``main``) with ``argv`` in ``world``
-    ranks on ``device`` ('cuda': rank r on ``cuda:r``; 'cpu': each rank
-    with ``threads`` intra-op threads, default this process's share), each
-    with this process's cuDNN and deterministic-algorithm settings.
-    Returns
-    0 when every rank returned 0, else the first failing rank's exit code
-    (1 for a rank that raised; its traceback goes to standard error)."""
+def spawn(target: str, argv: Sequence[str], mesh: Mesh,
+          threads: Optional[int] = None,
+          backend: Optional[str] = None) -> int:
+    """Run ``module:function`` (a CLI ``main``) with ``argv`` in one rank
+    per device of ``mesh``, rank r on ``mesh.rank_devices[r]`` (CUDA: that
+    card made current; CPU: each rank with ``threads`` intra-op threads,
+    default this process's share), each with this process's cuDNN and
+    deterministic-algorithm settings, and its data and model groups built
+    (``grid()``). ``backend`` defaults to ``nccl`` on CUDA and ``gloo`` on
+    the CPU. Returns 0 when every rank returned 0, else the first failing
+    rank's exit code (1 for a rank that raised; its traceback goes to
+    standard error)."""
     import torch.multiprocessing as mp
+    world = mesh.size
+    if backend is None:
+        backend = "nccl" if mesh.rank_devices[0].type == "cuda" else "gloo"
     if threads is None:
         threads = max(1, torch.get_num_threads() // world)
+    tmp = tempfile.mkdtemp(prefix="ranks-")
     try:
-        mp.spawn(_rank_main, args=(target, tuple(argv), world, free_port(),
-                                   device, threads, _determinism()),
+        mp.spawn(_rank_main,
+                 args=(target, tuple(argv), mesh, backend,
+                       os.path.join(tmp, "store"), threads, _determinism()),
                  nprocs=world, join=True)
     except mp.ProcessExitedException as e:
         print(f"error: rank {e.error_index} exited with code "
@@ -145,4 +311,6 @@ def spawn(target: str, argv: Sequence[str], world: int, device: str,
     except mp.ProcessRaisedException as e:
         print(f"error: rank {e.error_index} raised:\n{e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -22,6 +22,9 @@ from modelcompression_tpu_torch.compress import (
 from modelcompression_tpu_torch.models.cfg import NetworkSpec
 from modelcompression_tpu_torch.models.darknet import Params, params_to
 from modelcompression_tpu_torch.parallel.ranks import is_primary
+from modelcompression_tpu_torch.parallel.sharding import (
+    gather_params, gather_train_state,
+)
 from modelcompression_tpu_torch.train.loader import BatchLoader
 from modelcompression_tpu_torch.train.train_step import (
     TrainConfig, TrainState, make_optimizer, make_train_step,
@@ -52,12 +55,18 @@ def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
     numbering. ``distill`` (a ``train.distill.DistillPlan``) adds the
     teacher's loss to every step.
 
-    ``mesh`` (``core.mesh.Mesh``): data parallel over its 'data' axis, one
-    process per device (``parallel/ranks.py``; each rank calls ``train``
-    with the same loader stream). The state is placed on this rank's
-    device and the step all-reduces what the JAX package's sharded program
-    does (``make_train_step``). The loader's batch size must divide the
-    data axis."""
+    ``mesh`` (``core.mesh.Mesh``): one process per device of the mesh
+    (``parallel/ranks.py``; each rank calls ``train`` with the same loader
+    stream and the same full state). The state is placed on this rank's
+    device, with its filters of each sharded conv when the mesh has a
+    model axis (tensor parallel), and the step does what the JAX
+    package's sharded program does (``make_train_step``). The loader's
+    batch size must divide the data axis. Tensor parallel, ``eval_fn``
+    takes the params and ``checkpoint_fn`` the state gathered whole
+    (``parallel.sharding``), which every rank gathers when either is due:
+    so every rank passes the same functions (doing nothing off rank 0),
+    and the returned state is the rank's shard
+    (``gather_train_state`` makes it whole)."""
     if mesh is not None:
         from modelcompression_tpu_torch.parallel import (
             place_train_state, ranks,
@@ -68,6 +77,7 @@ def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
                 f"batch {loader.batch_size} not divisible by data-parallel "
                 f"size {dp}")
         state = place_train_state(state, mesh, spec,
+                                  tp=mesh.shape["model"] > 1,
                                   rank=ranks.rank() or 0)
     step_fn = make_train_step(spec, config, distill=distill, mesh=mesh)
     logger = logger or MetricsLogger()
@@ -86,12 +96,21 @@ def train(state: TrainState, spec: NetworkSpec, config: TrainConfig,
             host_metrics["img_per_sec"] = timer.images_per_sec
             logger.log(step, host_metrics, force=last)
         if eval_fn and eval_every and step % eval_every == 0:
-            logger.log(step, eval_fn(_detached(state["params"])),
+            logger.log(step, eval_fn(whole_params(state["params"], spec,
+                                                  mesh)),
                        prefix="eval")
         if checkpoint_fn and checkpoint_every and \
                 step % checkpoint_every == 0:
-            checkpoint_fn(step, state)
+            checkpoint_fn(step, gather_train_state(state, mesh, spec))
     return state
+
+
+def whole_params(params: Params, spec: NetworkSpec, mesh=None) -> Params:
+    """The params detached, gathered whole over the mesh's model axis
+    when it has one (a collective: every rank calls it)."""
+    if mesh is None:
+        return _detached(params)
+    return gather_params(params, mesh, spec)
 
 
 @dataclasses.dataclass
@@ -154,9 +173,12 @@ def iterative_prune_finetune(
     params and masks with its arch cfg; ``resume`` continues after the
     latest round.
 
-    ``mesh``: data parallel, one process per device (``train``); every
-    rank computes the same masks or keep-sets, and only the primary
-    process (rank 0) writes the round checkpoints.
+    ``mesh``: one process per device (``train``); every rank computes
+    the same masks or keep-sets on the full params, and only the primary
+    process (rank 0) writes the round checkpoints. With a model axis each
+    round's fine-tune runs on the shards of the pruned (repacked) model,
+    sharded again by its widths (a conv whose new width the axis no
+    longer divides runs replicated), and gathers them whole after it.
     """
     if tied not in ("protect", "group"):
         raise ValueError(f"tied must be 'protect' or 'group', got {tied!r}")
@@ -236,7 +258,7 @@ def iterative_prune_finetune(
             seen=seen_running)
         state = train(state, spec, config, loader, steps_per_round,
                       logger=logger, mesh=mesh, distill=distill)
-        params = _detached(state["params"])
+        params = whole_params(state["params"], spec, mesh)
         seen_running = state["seen"]
         metrics = eval_fn(spec, params)
         logger.log(state["step"], dict(metrics, fraction=frac),

@@ -280,13 +280,18 @@ def augment_batch(config: TrainConfig, x: torch.Tensor,
 
 
 def _conv_block_train(y: torch.Tensor, p: Dict[str, torch.Tensor],
-                      l: ConvLayer, precision: Precision, bn_reduce=None):
+                      l: ConvLayer, precision: Precision, bn_reduce=None,
+                      copy_in=None):
     """One conv + (batch-stat BN | bias) + activation on NCHW ``y``;
     returns (y, batch stats or None). The statistics are one pass over the
     conv output in fp32, E[y²] − µ², clamped at 0 (``torch.maximum``,
     whose gradient splits a tie as ``jnp.maximum``'s does). Data
     parallel, ``bn_reduce`` maps this rank's stacked (µ, E[y²]) to the
-    global micro-batch's, through a collective with a gradient."""
+    global micro-batch's, through a collective with a gradient. Tensor
+    parallel, ``copy_in`` takes the input into this rank's filter slice
+    (``TensorParallel.copy_in``)."""
+    if copy_in is not None:
+        y = copy_in(y)
     y = _conv(y, p["w"], l, precision)
     stats = None
     if l.batch_normalize:
@@ -310,7 +315,7 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                    precision: Precision,
                    channel_masks: Dict[int, torch.Tensor],
                    freeze: frozenset = frozenset(), remat: bool = False,
-                   qat=None, bn_reduce=None):
+                   qat=None, bn_reduce=None, tp=None):
     """Training forward on NHWC ``x`` with batch statistics; returns the
     NHWC fp32 raw map and the per-conv batch (mean, var). Frozen convs run
     inference BN on detached params, so no backward reaches them. With
@@ -321,7 +326,12 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
     on ``out_scale`` (after the channel mask), the boundary placement of
     ``compress/quantize.forward_quantized``. ``bn_reduce`` (data
     parallel) makes the batch statistics the global micro-batch's
-    (``_conv_block_train``)."""
+    (``_conv_block_train``). With ``tp`` (``parallel.sharding.
+    TensorParallel``) each conv it shards runs on this rank's filters
+    (``params`` hold only those) with its BN moments reduced by
+    ``tp.bn_reduce``, masks and fake-quants its channel slice, and is
+    gathered to the full map; every other layer runs whole on every rank
+    of the model group."""
     if qat is not None:
         from modelcompression_tpu_torch.compress.qat import (
             fake_quant, fake_quant_weight,
@@ -334,6 +344,9 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
         if isinstance(l, ConvLayer):
             key = conv_key(i)
             p = params[key]
+            shard = tp is not None and key in tp.sharded
+            reduce, copy_in = ((tp.bn_reduce, tp.copy_in) if shard
+                               else (bn_reduce, None))
             q_out = None
             if qat is not None and i in qat.int8:
                 p = dict(p, w=fake_quant_weight(p["w"]))
@@ -344,20 +357,23 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
                                 l, precision)
             else:
                 if remat:
-                    # the recompute in the backward runs bn_reduce's
+                    # the recompute in the backward runs reduce's
                     # collective again, in the same order on every rank
                     y, stats = torch.utils.checkpoint.checkpoint(
-                        _conv_block_train, y, p, l, precision, bn_reduce,
-                        use_reentrant=False)
+                        _conv_block_train, y, p, l, precision, reduce,
+                        copy_in, use_reentrant=False)
                 else:
                     y, stats = _conv_block_train(y, p, l, precision,
-                                                 bn_reduce)
+                                                 reduce, copy_in)
                 if stats is not None:
                     batch_stats[key] = stats
             if i in channel_masks:
-                y = y * _per_channel(channel_masks[i], y.dtype)
+                cm = channel_masks[i]
+                y = y * _per_channel(tp.local(cm) if shard else cm, y.dtype)
             if q_out is not None:
                 y = fake_quant(y, q_out)
+            if shard:
+                y = tp.gather(y)
         elif isinstance(l, MaxPoolLayer):
             y = maxpool(y, l)
         elif isinstance(l, RouteLayer):
@@ -377,6 +393,17 @@ def _forward_train(params: Params, x: torch.Tensor, spec: NetworkSpec,
     if heads:
         return tuple(heads), batch_stats
     return _nhwc_out(y), batch_stats
+
+
+def _gmp_shards(params: Params, tp):
+    """GMP under tensor parallelism, on a due step: (every conv's full
+    weights, a sharded one's gathered over the model group; a function
+    giving this rank's rows of a conv's full mask)."""
+    from modelcompression_tpu_torch.parallel import ranks
+    full = {k: {"w": (ranks.all_gather_rows(p["w"].detach(), tp.model_group)
+                      if k in tp.sharded else p["w"])}
+            for k, p in params.items()}
+    return full, lambda k, m: tp.local(m) if k in tp.sharded else m
 
 
 def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
@@ -403,18 +430,28 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
     ``config.gmp`` the metrics gain ``sparsity``, the achieved sparsity
     over the state's weight masks.
 
-    ``mesh`` (a ``core.mesh.Mesh``): data parallel over its 'data' axis,
-    one process per device in a process group of that size
+    ``mesh`` (a ``core.mesh.Mesh``): one process per device of the mesh
     (``parallel/ranks.py``), each rank given the same global batch. The
-    step does what the JAX package's sharded program does: every rank
-    augments the global batch with the same draws and keeps its rows, the
-    r-th contiguous chunk of each (strided) micro-batch; the BN statistics
-    and the loss sums are all-reduced per micro-batch, so the running
-    statistics and every metric are the global batch's; the gradients are
-    averaged with one flat all-reduce before the update, so the params,
-    the masks (GMP recomputes them on every rank), the EMA and ``seen``
-    stay equal on every rank. A mesh of one device outside a process
-    group is the plain step."""
+    step does what the JAX package's sharded program does. Over the
+    'data' axis: every rank augments the global batch with the same draws
+    and keeps the rows of its data index d, the d-th contiguous chunk of
+    each (strided) micro-batch; the BN statistics and the loss sums are
+    all-reduced per micro-batch, so the running statistics and every
+    metric are the global batch's; the gradients are averaged before the
+    update, so the params, the masks (GMP recomputes them on every rank),
+    the EMA and ``seen`` stay equal on every rank. Over the 'model' axis
+    (tensor parallel), each conv whose filters the axis divides
+    (``parallel.sharding.param_specs``) holds only the filters of the
+    rank's model index m in the state (``place_train_state(tp=True)``):
+    it convolves the full input with them, takes its BN moments over the
+    data group, and all-gathers its channels over the model group; every
+    other layer and the loss run whole on each rank of the model group.
+    A replicated conv's BN moments and gradients are averaged over every
+    rank (its copies in a model group are equal), a sharded conv's over
+    its data group. With GMP the masks are recomputed on the weights
+    gathered over the model group, as one device computes them, and each
+    rank keeps its rows. A mesh of one device outside a process group is
+    the plain step."""
     spec.head_indices()  # every spec has [region]/[yolo]
     # BITMATCH trains with TF32 off for cuDNN convs and cuBLAS matmuls
     config.precision.apply_backend_flags()
@@ -429,26 +466,61 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
     freeze_keys = frozenset(
         conv_key(i) for i in conv_indices[:config.freeze_prefix])
 
-    world, rank, bn_reduce, metric_reduce = 1, 0, None, None
+    dp, row, bn_reduce, metric_reduce, tp = 1, 0, None, None, None
+    grad_group = None  # conv key -> (the group, its size) of its gradient
     if mesh is not None:
         from modelcompression_tpu_torch.parallel import ranks
-        world = mesh.shape["data"]
-        if ranks.rank() is None and world > 1:
+        from modelcompression_tpu_torch.parallel.sharding import (
+            TensorParallel, sharded_keys,
+        )
+        dp = mesh.shape["data"]
+        world = mesh.size
+        grid = ranks.grid()
+        if grid is None and world > 1:
             raise ValueError(
-                f"a data-parallel train step over {world} devices runs one "
+                f"a parallel train step over {world} devices runs one "
                 f"process per device: start the ranks with "
-                f"parallel.ranks.spawn (finetune / train --dp)")
-        if ranks.rank() is not None:
-            if ranks.world_size() != world:
+                f"parallel.ranks.spawn (finetune / train --dp / --tp)")
+        if grid is not None:
+            if grid.mesh.shape != mesh.shape:
                 raise ValueError(
-                    f"mesh data axis {world} != process group size "
-                    f"{ranks.world_size()}")
-            rank = ranks.rank()
+                    f"mesh {mesh.shape} != the process group's mesh "
+                    f"{grid.mesh.shape}")
+            row = grid.d
 
-            def bn_reduce(t):
+            def bn_reduce(t):  # replicated convs: every rank
                 return ranks.all_reduce_sum(t) / world
 
-            metric_reduce = ranks.all_reduce_sum_
+            def metric_reduce(t):
+                return ranks.all_reduce_sum_(t, grid.data_group)
+
+            sharded = sharded_keys(spec, mesh.shape["model"])
+            if sharded:
+                tp = TensorParallel(
+                    grid.m, mesh.shape["model"], sharded, grid.model_group,
+                    lambda t: ranks.all_reduce_sum(t, grid.data_group) / dp)
+
+            def grad_group(key):
+                return ((grid.data_group, dp) if key in sharded
+                        else (None, world))
+
+    def full_sum(sums: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The sum of {conv key: this rank's sum over a tensor of it} over
+        the full tensors: a sharded conv's slices summed over the model
+        group."""
+        total = sum(sums.values())
+        local = [v for k, v in sums.items() if tp is not None
+                 and k in tp.sharded]
+        if not local:
+            return total
+        part = sum(local)
+        return total - part + ranks.all_reduce_sum_(
+            part.reshape(1).clone(), tp.model_group)[0]
+
+    def full_numel(tensors: Dict[str, torch.Tensor]) -> int:
+        return sum(t.numel() * (tp.size if tp is not None
+                                and k in tp.sharded else 1)
+                   for k, t in tensors.items())
 
     teacher = {}  # device -> the teacher params there
 
@@ -466,7 +538,7 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
         raw, batch_stats = _forward_train(params, x, spec, config.precision,
                                           channel_masks, freeze=freeze_keys,
                                           remat=config.remat, qat=config.qat,
-                                          bn_reduce=bn_reduce)
+                                          bn_reduce=bn_reduce, tp=tp)
         metrics = detection_loss(raw, targets, spec, seen,
                                  reduce=metric_reduce)
         md = metrics.as_dict()
@@ -477,17 +549,20 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
                                        obj_scale=distill.obj_scale,
                                        class_scale=distill.class_scale)
             md["loss_distill"] = d.detach()
-            if metric_reduce is not None:  # the mean over the ranks
+            if metric_reduce is not None:  # the mean over the rows
                 md["loss_distill"] = metric_reduce(
-                    d.detach().reshape(1).clone())[0] / world
+                    d.detach().reshape(1).clone())[0] / dp
             loss = loss + distill.weight * d
         if config.bn_l1 > 0:
-            # slimming penalty; gamma_l1 (the MEAN |gamma|) is reported
-            gammas = [p["gamma"].float() for p in params.values()
-                      if "gamma" in p]
-            total_abs = sum(torch.sum(torch.abs(g)) for g in gammas)
-            n = sum(g.numel() for g in gammas)
-            md["gamma_l1"] = total_abs.detach() / max(n, 1)
+            # slimming penalty; gamma_l1 (the MEAN |gamma|) is reported.
+            # Tensor parallel, each rank's penalty holds its own gamma
+            # slices (their gradient), the metric every gamma
+            part = {k: torch.sum(torch.abs(p["gamma"].float()))
+                    for k, p in params.items() if "gamma" in p}
+            total_abs = sum(part.values())
+            md["gamma_l1"] = full_sum({k: v.detach()
+                                       for k, v in part.items()}) \
+                / max(full_numel({k: params[k]["gamma"] for k in part}), 1)
             loss = loss + config.bn_l1 * total_abs
         md["loss"] = md["loss"].detach()
         return loss, md, batch_stats
@@ -520,14 +595,14 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
             x, targets = augment_batch(config, x, targets, gen)
         if mesh is not None:
             # this rank's rows of the global batch: the contiguous chunk
-            # whose strided micro-batches are the r-th chunks of the
+            # whose strided micro-batches are the d-th chunks of the
             # global ones
-            if (b // subdivisions) % world:
+            if (b // subdivisions) % dp:
                 raise ValueError(
                     f"micro-batch {b // subdivisions} not divisible by "
-                    f"data-parallel size {world}")
-            lo = rank * (b // world)
-            x, targets = x[lo:lo + b // world], targets[lo:lo + b // world]
+                    f"data-parallel size {dp}")
+            lo = row * (b // dp)
+            x, targets = x[lo:lo + b // dp], targets[lo:lo + b // dp]
 
         # the teacher on the same augmented batch, whole: no gradient, so
         # one layer's activations live at a time
@@ -563,14 +638,23 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
             for v in trainable:
                 if v.grad is not None:
                     v.grad.mul_(inv_s)
-        if metric_reduce is not None:
-            # the ranks' mean gradient, through one flat all-reduce
-            grads = [v.grad for v in trainable if v.grad is not None]
-            flat = metric_reduce(torch.cat([g.reshape(-1) for g in grads]))
-            flat.div_(world)
-            for g, part in zip(grads, flat.split([g.numel()
-                                                  for g in grads])):
-                g.copy_(part.view_as(g))
+        if grad_group is not None:
+            # the mean gradient, one flat all-reduce per group (in the
+            # same order on every rank): a sharded conv's over its data
+            # group, the rest over every rank
+            owner = {id(v): k for k, p in params.items() for v in p.values()}
+            by_group = {}
+            for v in trainable:
+                if v.grad is not None:
+                    by_group.setdefault(grad_group(owner[id(v)]),
+                                        []).append(v.grad)
+            for (group, n), grads in by_group.items():
+                flat = ranks.all_reduce_sum_(
+                    torch.cat([g.reshape(-1) for g in grads]), group)
+                flat.div_(n)
+                for g, part in zip(grads, flat.split([g.numel()
+                                                      for g in grads])):
+                    g.copy_(part.view_as(g))
         with torch.no_grad():
             # frozen convs have no gradient: a zero one lets SGD move their
             # momentum as optax does (decay acts on it), and the saved
@@ -593,7 +677,8 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
             if config.gmp is not None:
                 state["weight_masks"] = gmp_mask_update(
                     config.gmp, spec, params, state["weight_masks"],
-                    state["step"])
+                    state["step"], shards=None if tp is None
+                    else functools.partial(_gmp_shards, params, tp))
             # keep pruned weights exactly zero (with GMP, the application
             # of a fresh mask): momentum and decay would move them off zero
             for k, m in state["weight_masks"].items():
@@ -620,11 +705,10 @@ def make_train_step(spec: NetworkSpec, config: TrainConfig, distill=None,
                    else torch.stack([m[k] for m in mets]).mean())
                for k in mets[0]}
         out["lr"] = lr
-        if config.gmp is not None:
-            masks = state["weight_masks"].values()
-            n_total = sum(m.numel() for m in masks)
-            n_kept = sum(m.sum() for m in masks)
-            out["sparsity"] = 1.0 - n_kept.float() / n_total
+        if config.gmp is not None:  # over the full masks
+            masks = state["weight_masks"]
+            n_kept = full_sum({k: m.sum() for k, m in masks.items()})
+            out["sparsity"] = 1.0 - n_kept.float() / full_numel(masks)
         state["step"] += 1
         state["seen"] += b
         return state, out

@@ -480,19 +480,18 @@ def test_eval_cli_recall_equals_jax(cli_model, capsys):
         [l for l in want.splitlines() if l.startswith("recall@")]
 
 
-# the flags this test refused: --tp still (now ROADMAP item 11); the
-# weight-sharing flags (item 6e) and --dp (item 7) were ported since and
-# now run (item None; the test keeps its name). {tmp} is the test's
+# the flags this test refused, naming their ROADMAP items until they were
+# ported: the weight-sharing flags (item 6e), --dp (item 7) and --tp (item
+# 11). Each now runs; the test keeps its name. {tmp} is the test's
 # tmp_path.
 NOT_PORTED = {
-    "cmodel": (["--cmodel", "{tmp}/j.npz"], None),  # in place of --weights
-    "cluster_bits": (["--cluster-bits", "4"], None),
-    "save_cmodel": (["--cluster-bits", "4", "--save-cmodel",
-                     "{tmp}/c.npz"], None),
-    "pack": (["--cluster-bits", "4", "--save-cmodel", "{tmp}/c.npz",
-              "--pack"], None),
-    "dp": (["--dp", "2"], None),
-    "tp": (["--tp", "2"], 11),
+    "cmodel": ["--cmodel", "{tmp}/j.npz"],  # in place of --weights
+    "cluster_bits": ["--cluster-bits", "4"],
+    "save_cmodel": ["--cluster-bits", "4", "--save-cmodel", "{tmp}/c.npz"],
+    "pack": ["--cluster-bits", "4", "--save-cmodel", "{tmp}/c.npz",
+             "--pack"],
+    "dp": ["--dp", "2"],
+    "tp": ["--tp", "2"],
 }
 
 
@@ -510,25 +509,20 @@ def _jax_cmodel(cfg, weights, bits=4):
 def test_eval_cli_not_ported_flags_exit_2_naming_their_item(cli_model,
                                                             capsys, tmp_path,
                                                             case):
-    """--tp exits 2 naming item 11. --dp 2 evaluates over two CPU shards
-    with the single-device run's mAP line, and the JAX CLI's --dp 2 (its
+    """--dp 2 evaluates over two CPU shards, and --tp 2 on a (1, 2) mesh
+    (the model replicated over its model axis), each with the
+    single-device run's mAP line, and the JAX CLI's --dp 2 / --tp 2 (its
     forced CPU devices) prints the same. The weight-sharing flags run
     (BITMATCH): --cluster-bits prints the JAX CLI's mAP; --save-cmodel
     (packed or not) writes an artifact the JAX package loads to its own
     clustering; --cmodel serves a JAX-written artifact with the summary of
     --cluster-bits on the same weights."""
     cfg, weights, data = cli_model
-    extra, item = NOT_PORTED[case]
-    extra = [a.format(tmp=tmp_path) for a in extra]
+    extra = [a.format(tmp=tmp_path) for a in NOT_PORTED[case]]
     source = [] if case == "cmodel" else ["--weights", weights]
     argv = ["--cfg", cfg, *source, "--data", data, "--device", "cpu", *extra]
-    if item is not None:
-        assert teval_cli.main(argv) == 2
-        err = capsys.readouterr().err
-        assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
-        return
     bm = ["--precision", "bitmatch", "--map-iou", "0.1", "--batch", "2"]
-    if case == "dp":
+    if case in ("dp", "tp"):
         lines = []
         for main, a in ((teval_cli.main, argv + bm),
                         (teval_cli.main, argv[:-2] + bm),
@@ -538,6 +532,8 @@ def test_eval_cli_not_ported_flags_exit_2_naming_their_item(cli_model,
         assert lines[0] == lines[1] and len(lines[0]) == 1
         (g,), (w,) = lines[0], lines[2]
         assert abs(float(g.split()[-1]) - float(w.split()[-1])) <= 1e-6
+        if case == "tp":  # the data axis is 1: any batch divides it
+            return
         assert teval_cli.main(argv + bm[:-1] + ["3"]) == 2
         assert "--batch 3 must be divisible by --dp 2" in \
             capsys.readouterr().err

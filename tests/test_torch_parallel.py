@@ -22,10 +22,11 @@ on the CPU against the JAX package's mesh and single-device runs.
   written params are held to the single-device CLI's within 0.3 of each
   tensor's largest update (measured ≤ 0.13; an update from one rank's
   half of the batch alone would be off by about its own size). The
-  BITMATCH equality is the train step's, above.
+  BITMATCH equality is the train step's, above. ``finetune --dp 1 --tp
+  2`` (two ranks splitting the filters) is held to the same bound.
 
 Spawned ranks import this module: JAX is imported inside the tests only.
-Worker time: ~45 s (one spawn of the train-step ranks, two CLI spawns)."""
+Worker time: ~55 s (one spawn of the train-step ranks, five CLI spawns)."""
 
 import json
 import os
@@ -343,8 +344,9 @@ def dp_runs(tmp_path_factory):
         pickle.dump({"text": text, "params": np_params, "images": images,
                      "targets": targets}, f)
     out = str(tmp / "out")
-    assert ranks.spawn("tests.test_torch_parallel:_dp_rank", [inp, out], 2,
-                       "cpu", threads=1) == 0
+    assert ranks.spawn("tests.test_torch_parallel:_dp_rank", [inp, out],
+                       make_mesh(MeshConfig(data=2), device="cpu"),
+                       threads=1) == 0
     runs = []
     for r in (0, 1):
         with open(f"{out}.{r}", "rb") as f:
@@ -485,9 +487,10 @@ def test_finetune_cli_dp_matches_single_device(cli_fixture, capsys,
     single-device CLI, 2 steps at batch 4 / subdivisions 2: one rank bit
     for bit, two within the FAST bound of the module docstring; the
     header's seen counts the global batches. A micro-batch the ranks do
-    not divide fails in the ranks (exit 2); --tp 2 exits 2 naming its
-    ROADMAP item. Each rank writes its kernel launch counts where
-    LAUNCHES_DIR_ENV says (none on the CPU)."""
+    not divide fails in the ranks (exit 2); --dp 1 --tp 2 writes what the
+    single-device CLI writes within the FAST bound. Each rank writes its
+    kernel launch counts (none on the CPU) and its collectives where
+    LAUNCHES_DIR_ENV says."""
     from modelcompression_tpu_torch.cli import finetune
     from modelcompression_tpu_torch.models import load_weights
     from modelcompression_tpu_torch.ops import KERNELS
@@ -515,14 +518,22 @@ def test_finetune_cli_dp_matches_single_device(cli_fixture, capsys,
     assert sorted(os.listdir(counts_dir)) == ["rank0.json", "rank1.json"]
     with open(counts_dir / "rank1.json") as fh:
         counts = json.load(fh)
-    assert sorted(counts) == sorted(n for n, _ in KERNELS)
-    assert all(c == {"launches": 0, "at": {}} for c in counts.values())
+    # each kernel's counts, and the rank's collectives by kind
+    assert sorted(counts) == sorted([n for n, _ in KERNELS]
+                                    + ["collectives"])
+    assert all(counts[n] == {"launches": 0, "at": {}} for n, _ in KERNELS)
+    assert counts["collectives"]["all_reduce"]["calls"] > 0
     assert finetune.main(base + ["--dp", "2", "--subdivisions", "4",
                                  "--out", out]) == 2
     assert "exited with code 2" in capsys.readouterr().err
-    assert finetune.main(base + ["--tp", "2", "--out", out]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue 1 item 11" in err and "not ported" in err
+    # --tp (rejected naming item 11 until it was ported) trains on a (1, 2)
+    # mesh: the filters split over two ranks, the same FAST bound
+    out = str(f["tmp"] / "ft_tp2.weights")
+    assert finetune.main(base + ["--dp", "1", "--tp", "2", "--out",
+                                 out]) == 0
+    p_tp, seen_tp = load_weights(out, f["spec"])
+    assert seen_tp == 100 + 2 * 4
+    _assert_update_close(p_tp, p0, init)
 
 
 def test_train_cli_dp2_checkpoint_matches_single_device(cli_fixture):

@@ -429,45 +429,40 @@ def test_finetune_usage_errors_worded_as_jax(fixture, capsys, case):
         assert message in capsys.readouterr().err
 
 
-# the options this test rejected: --tp still (now item 11); gmp, pack,
-# distill and lamp (item 6) and --dp (item 7) were ported since and now
-# run (item None; the test keeps its name). {tmp} is the test's tmp_path.
+# the options this test rejected, naming their ROADMAP items until they
+# were ported: gmp, pack, distill and lamp (item 6), --dp (item 7) and
+# --tp (item 11). Each now runs; the test keeps its name. {tmp} is the
+# test's tmp_path.
 NOT_PORTED = {
-    "gmp": (["--gmp", "0.5", "--gmp-freq", "1", "--steps", "2"], None),
-    "pack": (["--qat", "--save-qmodel", "{tmp}/q.npz", "--pack"], None),
-    "distill": (["--distill", "{weights}"], None),
-    "dp": (["--dp", "2", "--out", "{tmp}/dp.weights"], None),
-    "tp": (["--tp", "2"], 11),
-    "lamp": (["--iterate", "0.5", "--iterate-mode", "lamp"], None),
+    "gmp": ["--gmp", "0.5", "--gmp-freq", "1", "--steps", "2"],
+    "pack": ["--qat", "--save-qmodel", "{tmp}/q.npz", "--pack"],
+    "distill": ["--distill", "{weights}"],
+    "dp": ["--dp", "2", "--out", "{tmp}/dp.weights"],
+    "tp": ["--tp", "2", "--out", "{tmp}/tp.weights"],
+    "lamp": ["--iterate", "0.5", "--iterate-mode", "lamp"],
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_finetune_not_ported_exit_2_naming_item(fixture, capsys, tmp_path,
                                                 case):
-    extra, item = NOT_PORTED[case]
     extra = [a.format(tmp=tmp_path, weights=fixture["weights"])
-             for a in extra]
-    if case == "dp":  # rank 0 prints in its own process
+             for a in NOT_PORTED[case]]
+    if case in ("dp", "tp"):  # rank 0 prints in its own process
         assert ft_cli.main(_ft(fixture, *extra)) == 0
-        params, seen = load_weights(str(tmp_path / "dp.weights"),
+        params, seen = load_weights(str(tmp_path / f"{case}.weights"),
                                     parse_cfg(fixture["text"]))
         assert seen == 100 + 2 and all(
             bool(torch.isfinite(v).all()) for p in params.values()
             for v in p.values())
         return
-    if item is None:
-        assert ft_cli.main(_ft(fixture, *extra)) == 0
-        assert "mAP@50" in capsys.readouterr().out
-        if case == "pack":
-            from modelcompression_tpu.compress import load_qmodel
-            with np.load(tmp_path / "q.npz") as z:
-                assert any(f.endswith("/wq_payload") for f in z.files)
-            load_qmodel(str(tmp_path / "q.npz"))  # the JAX package reads it
-        return
-    assert ft_cli.main(_ft(fixture, *extra)) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP Queue 1 item {item}" in err and "not ported" in err
+    assert ft_cli.main(_ft(fixture, *extra)) == 0
+    assert "mAP@50" in capsys.readouterr().out
+    if case == "pack":
+        from modelcompression_tpu.compress import load_qmodel
+        with np.load(tmp_path / "q.npz") as z:
+            assert any(f.endswith("/wq_payload") for f in z.files)
+        load_qmodel(str(tmp_path / "q.npz"))  # the JAX package reads it
 
 
 _MAP_LINE = "mAP@50 (11-point): "
@@ -652,10 +647,10 @@ def test_train_cli_resume_rules(fixture, tmp_path, capsys):
             "2", "--batch", "2", "--resume", "--device", "cpu"]
     assert train_cli.main(argv) == 2
     assert "--resume requires --checkpoint-dir" in capsys.readouterr().err
-    # --dp (rejected naming item 7 until it was ported) trains in two ranks
+    # --dp (rejected naming item 7 until it was ported) trains in two ranks,
+    # and so does --tp (item 11), splitting the filters
     assert train_cli.main(argv[:-3] + ["--dp", "2", "--device", "cpu"]) == 0
-    assert train_cli.main(argv[:-3] + ["--tp", "2", "--device", "cpu"]) == 2
-    assert "item 11" in capsys.readouterr().err
+    assert train_cli.main(argv[:-3] + ["--tp", "2", "--device", "cpu"]) == 0
 
 
 def test_train_cli_multi_scale_and_eval(fixture, tmp_path, capsys):
