@@ -2,8 +2,8 @@
 fine-tune, YOLOv3 / YOLOv4 serving, YOLOv3 / YOLOv4 fine-tune and
 structured-prune, int8 (PTQ and QAT), the other compression axes' (GMP,
 LAMP, distillation, low-rank, weight sharing and packing), data-parallel,
-export, deploy and tensor-parallel paths on one NVIDIA GPU and check
-them.
+export, deploy and tensor-parallel paths and the user tools on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -285,6 +285,35 @@ Phases, each printing JSON lines on stdout:
             a step's collectives by kind with their host ms, the backend
             named. Two ranks on one card measure the code path's host and
             gloo cost, not NVLink.
+15. tools   the user tools (``modelcompression_tpu_torch/tools``,
+            ``cli/profile_train``) on the card: (a) sensitivity_scan on
+            YOLOv2-VOC 416 (phase 6's weights, phase 7's fixture, batch
+            64), conv 0, a mid and the last prunable conv at 0.25 / 0.5 /
+            0.75: the mma input stage 3 times an evaluation, at C=32 for
+            the baseline and the other convs' cuts and at C=24 / 16 / 8
+            for conv 0's; then the input stages against their plain
+            versions at the new widths (C=24 and C=12, bf16 and fp32, at
+            batch 64 and 416), at the sweeps' evaluation shape (batch 8,
+            96x96, C=16 / 12 / 8 / 4, bf16) and at the BITMATCH check's
+            (batch 4, 128x128, C=16, fp32); (b) sweep_fixture --criterion
+            magnitude, global and lamp at 40 base and 10 fine-tune steps:
+            15 / 0 / 3 / 3 radix / count / tie / apply launches (at S=7,
+            the fixture's 6 convs and the padding, per layer; at S=2
+            global and LAMP), every mask equal to prune_flat's plain
+            version on the same trained weights, floor(s n) zeros or
+            more (per layer for magnitude), the mma input stage at C=16
+            in each evaluation; the top-k kernels held and timed at the
+            fixture's S=7 and S=2; (c) sweep_l1_iterative --family v2 at
+            40 / 10 steps: conv 0 at 12, 8, 4 after the rounds, the
+            input stage launched at each width; (d) profile_train, one
+            stage table (75%-pruned, batch 64) and a trace's top device
+            operations; (e) bitmatch_check: raw maps card vs CPU within
+            1e-4 max rel, the same detection count on both, the fp32
+            input stage 3 times at C=16; (f) gen_anchors, partial_weights
+            (Darknet-19's 18 convs, equal to the source's) and
+            lowrank_scan on phase 6's weights and phase
+            7's fixture; (g) one perf_ledger line to a temporary path,
+            read back with the card's name and power limit.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 exits non-zero without the last line; so does a machine without CUDA or a
@@ -361,19 +390,11 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call over ``iters`` calls, CUDA events, after warm-up
-    and a synchronize."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean ms per call over one window of ``iters`` calls, CUDA events,
+    after warm-up and a synchronize: the port's ``utils.timing.time_fn``
+    with one window."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
+    return time_fn(fn, iters=iters, windows=1, warmup=warmup) * 1e3
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
@@ -457,15 +478,19 @@ def phase_build(kernels):
           "sass_mix": {FP32_INPUT_STAGE: sass_mix(paths[FP32_INPUT_STAGE])}})
 
 
-def input_stage_case(torch, c_out: int, dtype, gen):
-    """Kernel vs plain version at the main path's input-stage shape: bf16
-    on the tensor-core kernel, fp32 on the fp32 CUDA-core kernel, each
-    with the yardstick kernel's time and error in the same dtype beside
-    it (``prev_ms``, ``prev_max_abs_err``)."""
+def input_stage_case(torch, c_out: int, dtype, gen, batch=BATCH, net=NET,
+                     device_times=False):
+    """Kernel vs plain version at a path's input-stage shape (``batch`` x
+    ``net`` x ``net``; the main path's by default): bf16 on the
+    tensor-core kernel, fp32 on the fp32 CUDA-core kernel, each with the
+    yardstick kernel's time and error in the same dtype beside it
+    (``prev_ms``, ``prev_max_abs_err``). ``device_times``: the kernel's,
+    the yardstick's and the library call's device time as well
+    (``device_ms``), for launches shorter than their host cost."""
     import torch.nn.functional as F
     from modelcompression_tpu_torch.ops import input_stage as tis
     dev = torch.device("cuda")
-    x = torch.rand((BATCH, NET, NET, 3), generator=gen, device=dev) \
+    x = torch.rand((batch, net, net, 3), generator=gen, device=dev) \
         .to(dtype)
     w = (torch.randn((c_out, 3, 3, 3), generator=gen, device=dev) * 0.2) \
         .to(dtype)
@@ -483,7 +508,7 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     got = kernel()
     want = tis.fused_conv1_pool_plain(x, w, b, dtype)
     torch.cuda.synchronize()
-    check(got.shape == want.shape == (BATCH, NET // 2, NET // 2, c_out),
+    check(got.shape == want.shape == (batch, net // 2, net // 2, c_out),
           f"input_stage shape {tuple(got.shape)}")
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
@@ -511,9 +536,12 @@ def input_stage_case(torch, c_out: int, dtype, gen):
     library_ms = time_ms(torch, library, iters=20)
     elt = x.element_size()
     n_bytes = (x.numel() + w.numel() + got.numel()) * elt + b.numel() * 4
-    n_ops = 2 * 27 * c_out * BATCH * NET * NET  # 4 phases x 27 taps x C
+    n_ops = 2 * 27 * c_out * batch * net * net  # 4 phases x 27 taps x C
     name = str(dtype).split(".")[1]
-    return {"c_out": c_out, "dtype": name,
+    if device_times:
+        extra.update(device_ms=device_ms(kernel), prev_device_ms=device_ms(
+            prev), library_device_ms=device_ms(library))
+    return {"c_out": c_out, "dtype": name, "batch": batch, "net": net,
             "kernel": "input_stage_mma" if bf16 else FP32_INPUT_STAGE,
             "max_abs_err": err, "tolerance": tol, "ms": ms, **extra,
             "plain_ms": plain_ms, "library_ms": library_ms,
@@ -586,13 +614,16 @@ def radix_pass_ms(torch, bits, seg, k, S, iters=10):
     return [t / iters for t in total]
 
 
-def device_ms(fn, calls=10) -> float:
+def device_ms(fn, calls=10):
     """Device time per call of ``fn``: its kernels' device time summed
     over a torch.profiler window of ``calls`` calls, ms. Where launches
     are shorter than the host's time to issue them, CUDA events around a
-    run of calls measure the host; this does not."""
+    run of calls measure the host; this does not. None (not measured)
+    where the window recorded no device time at all: late in a long run
+    the profiler has dropped the short ctypes launches."""
     from modelcompression_tpu_torch.cli._profiling import profile_window
-    return profile_window(fn, steps=calls)[0]["device_busy_ms_per_step"]
+    busy = profile_window(fn, steps=calls)[0]["device_busy_ms_per_step"]
+    return busy if busy > 0 else None
 
 
 def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
@@ -2063,7 +2094,7 @@ def phase_families(torch, kernels, card, tmp, data):
 # its cfg's size (416, 20 classes, batch 64 in 8 micro-batches, CIoU), and
 # YOLOv3-tiny-VOC fine-tuned (its evals through the tensor-core input stage)
 V3_TINY_VOC_CFG = "yolov3-tiny-voc.cfg"
-FAMILY_TIMED_STEPS = 3
+FAMILY_TIMED_STEPS = 2
 FILTER_FRACTION = 0.5
 FLOP_TARGET = 0.5
 TAYLOR_BATCHES, TAYLOR_BATCH = 2, 8
@@ -3752,7 +3783,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
     n_coll = 2 * n_bn * sub + sub + 1
     ranks.init_grid(mesh1, 0, "nccl", f"file://{out_path('pg_store')}")
     try:
-        timing = [train_step_timing(torch, spec, params, sub, timed=3,
+        timing = [train_step_timing(torch, spec, params, sub, timed=2,
                                     mesh=m)
                   for m in (None, mesh1, mesh1, None)]
         moments = torch.zeros(2, 1024, device="cuda")
@@ -3994,17 +4025,17 @@ def _tp_step_rank(argv):
                           "tp_vs_float64": _worst(p_tp, p64)}}
     # the FAST step at the cfg's batch 64 / subdivisions 8, in turns: the
     # plain step on rank 0 alone, the TP step on both ranks; the TP
-    # turns' collectives counted over their 2 warm-up and 2 timed steps
+    # turns' collectives counted over their 2 warm-up and 1 timed step
     timing = []
     ranks.reset_collectives()
     for m in (None, mesh, mesh, None):
         dist.barrier()
         if m is not None or primary:
             timing.append(train_step_timing(
-                torch, spec, params, spec.net.subdivisions, timed=2,
+                torch, spec, params, spec.net.subdivisions, timed=1,
                 mesh=m))
     if primary:
-        steps = 2 * (2 + 2)
+        steps = 2 * (2 + 1)
         res["step_ms"] = _in_turns(timing)
         res["enqueue_ms"] = [t["host_enqueue_ms_per_step"] for t in timing]
         res["peak_gib"] = [t["max_memory_allocated_gib"] for t in timing]
@@ -4132,6 +4163,265 @@ def phase_tensor_parallel(torch, kernels, card, tmp, data, weights):
     return widths
 
 
+TOOL_FRACTIONS = (0.25, 0.5, 0.75)
+# the sweeps at cut step counts (the tools' own: 600 base steps, then 200
+# a sparsity or 400 a round; run in full by tools/fixture_tables)
+SWEEP_BASE_STEPS = 40
+SWEEP_TUNE_STEPS = 10
+# the widths the sweeps' evals give the input stage: the fixture's 16
+# filters, and what each L1 round leaves of them (12, 8, 4)
+FIXTURE_WIDTHS = (16, 12, 8, 4)
+FIXTURE_EVAL_BATCH = 8
+BITMATCH_NET = 128
+BITMATCH_RAW_RTOL = 1e-4
+BACKBONE_CONVS = 18
+
+
+def _tool_layers(spec):
+    """conv 0, a mid and the last prunable conv of the spec."""
+    from modelcompression_tpu_torch.compress import prunable_conv_indices
+    prunable = prunable_conv_indices(spec)
+    return [prunable[0], prunable[len(prunable) // 2], prunable[-1]]
+
+
+def _kept(filters, fraction):
+    return filters - int(fraction * filters)
+
+
+def phase_tools(torch, kernels, card, tmp, data, weights):
+    """Phase 15 (module docstring): the user tools on the card. Returns
+    (each path's launches by width, the input-stage cases at the tools'
+    widths and shapes, the top-k cases at the fixture's S)."""
+    from modelcompression_tpu_torch.cli import profile_train
+    from modelcompression_tpu_torch.data.fixtures import tiny_region_cfg
+    from modelcompression_tpu_torch.models import (
+        cfg_path, load_cfg, load_weights, parse_cfg,
+    )
+    from modelcompression_tpu_torch.ops import cuda_topk as ct
+    from modelcompression_tpu_torch.tools import (
+        bitmatch_check, gen_anchors, lowrank_scan, partial_weights,
+        sensitivity_scan, sweep_fixture, sweep_l1_iterative,
+    )
+    from modelcompression_tpu_torch.utils import perf_ledger
+    cfg = cfg_path("yolov2-voc.cfg")
+    spec = load_cfg(cfg)
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    widths, cases, topk = {}, {}, {}
+    t_part = [time.perf_counter()]
+
+    def done(part, **kw):
+        now = time.perf_counter()
+        emit({"phase": "tools", "part": part, "ok": True, "card": card,
+              "part_s": now - t_part[0], **kw})
+        t_part[0] = now
+
+    # (a) the sensitivity scan: each conv alone at each fraction, every
+    # evaluation through the tensor-core input stage at conv 0's width
+    layers = _tool_layers(spec)
+    c1 = spec.layers[0].filters
+    out, counts, at, secs = _run_cli(
+        torch, kernels, sensitivity_scan.main,
+        ["--cfg", cfg, "--weights", weights, "--data", data, "--batch",
+         str(BATCH), "--fractions", ",".join(map(str, TOOL_FRACTIONS)),
+         "--layers", ",".join(map(str, layers))], "sensitivity_scan")
+    rows = [ln for ln in out.splitlines() if ln.startswith("conv[")]
+    cells = [float(v) for r in rows for v in r.split(")", 1)[1].split()]
+    check(len(rows) == len(layers)
+          and len(cells) == len(layers) * len(TOOL_FRACTIONS)
+          and all(0.0 <= v <= 100.0 for v in cells),
+          f"sensitivity_scan: rows {rows}")
+    c_want = {c1: n_batches * (1 + (len(layers) - 1) * len(TOOL_FRACTIONS))}
+    for f in TOOL_FRACTIONS:
+        c_want[_kept(c1, f)] = c_want.get(_kept(c1, f), 0) + n_batches
+    n_evals = 1 + len(layers) * len(TOOL_FRACTIONS)
+    expect_launches(kernels, counts, at, "sensitivity_scan",
+                    {"input_stage_mma": n_batches * n_evals},
+                    {"input_stage_mma": c_want})
+    widths["sensitivity_scan"] = at
+    done("sensitivity_scan", seconds=secs, layers=layers,
+         evaluations=n_evals, input_stage_by_width=at["input_stage_mma"],
+         rows=rows)
+
+    # the new widths against the plain version: the scan's cuts of conv 0
+    # at the main path's shape, a width that is not a multiple of 8, the
+    # sweeps' evaluation shape at each width they give, and the BITMATCH
+    # check's fp32 shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = [(c, dt, BATCH, NET) for c in (24, 12)
+              for dt in (torch.bfloat16, torch.float32)]
+    shapes += [(c, torch.bfloat16, FIXTURE_EVAL_BATCH, sweep_fixture.NET)
+               for c in FIXTURE_WIDTHS]
+    shapes.append((16, torch.float32, 4, BITMATCH_NET))
+    for c, dt, b, net in shapes:
+        r = input_stage_case(torch, c, dt, gen, batch=b, net=net,
+                             device_times=(b, net) != (BATCH, NET))
+        cases[(c, r["dtype"], b, net)] = r
+        emit({"phase": "tools", "ok": True, **r})
+    done("input_stage_cases", cases=len(shapes))
+
+    # (b) the unstructured sweep: masks through the top-k kernels, each
+    # equal to prune_flat's plain version on the same trained weights
+    fx_spec = parse_cfg(tiny_region_cfg(num_classes=3,
+                                        width=sweep_fixture.NET,
+                                        height=sweep_fixture.NET))
+    s_layer = len(fx_spec.conv_indices()) + 1
+    n_sp = len(sweep_fixture.SPARSITIES)
+    fx_batches = -(-16 // FIXTURE_EVAL_BATCH)
+    for criterion in sweep_fixture.MASK_FNS:
+        s_want = s_layer if criterion == "magnitude" else 2
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        r = sweep_fixture.run(criterion, torch.device("cuda"),
+                              base_steps=SWEEP_BASE_STEPS,
+                              tune_steps=SWEEP_TUNE_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, at = read_counts(kernels), read_widths(kernels)
+        prune_want = {n: n_sp * k for n, k in PRUNE_LAUNCHES.items()}
+        evals = (1 + 2 * n_sp) * fx_batches
+        expect_launches(
+            kernels, counts, at, f"sweep_fixture {criterion}",
+            dict(prune_want, input_stage_mma=evals),
+            dict({n: {s_want: k} for n, k in prune_want.items()},
+                 input_stage_mma={FIXTURE_WIDTHS[0]: evals}))
+        widths[f"sweep_fixture_{criterion}"] = at
+        fn = sweep_fixture.MASK_FNS[criterion]
+        zeros_ok = []
+        for row in r["rows"]:
+            with plain_topk(), torch.no_grad():
+                want = fn(r["params"], r["spec"], row["sparsity"])
+            check(want.keys() == row["masks"].keys() and all(
+                torch.equal(row["masks"][k], want[k]) for k in want),
+                f"sweep_fixture {criterion} {row['sparsity']}: a mask "
+                "differs from prune_flat's plain version")
+            zeros = {k: int((~m).sum()) for k, m in row["masks"].items()}
+            n = {k: m.numel() for k, m in row["masks"].items()}
+            if criterion == "magnitude":
+                ok = all(zeros[k] >= int(row["sparsity"] * n[k])
+                         for k in n)
+            else:
+                ok = sum(zeros.values()) >= int(row["sparsity"]
+                                                * sum(n.values()))
+            check(ok, f"sweep_fixture {criterion}: fewer than floor(s n) "
+                  "zeros")
+            check(all(math.isfinite(row[k]) for k in ("pruned", "tuned")),
+                  f"sweep_fixture {criterion}: mAP {row}")
+            zeros_ok.append(sum(zeros.values()))
+        if criterion != "lamp":
+            per_layer = criterion == "magnitude"
+            layout = ct._prune_layout(r["params"], r["spec"], SPARSITY,
+                                      per_layer, ())
+            topk[criterion] = topk_case(torch, layout, "fixture",
+                                        device_times=True)
+            emit({"phase": "tools", "ok": True, "kernel": "topk",
+                  **topk[criterion]})
+        done(f"sweep_fixture_{criterion}", seconds=secs,
+             base_steps=SWEEP_BASE_STEPS, tune_steps=SWEEP_TUNE_STEPS,
+             segments=s_want, base_map50=r["base"],
+             rows=[{k: row[k] for k in ("sparsity", "achieved", "pruned",
+                                        "tuned")} for row in r["rows"]],
+             zeros=zeros_ok, masks_equal_plain=True)
+
+    # (c) the iterative L1 sweep on v2: the input stage at each round's
+    # first-conv width (16, then 12, 8, 4)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    r = sweep_l1_iterative.run("v2", "l1", base_steps=SWEEP_BASE_STEPS,
+                               round_steps=SWEEP_TUNE_STEPS,
+                               device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, at = read_counts(kernels), read_widths(kernels)
+    round_widths = [rd["spec"].layers[0].filters for rd in r["rounds"]]
+    check(round_widths == list(FIXTURE_WIDTHS[1:]),
+          f"sweep_l1_iterative: first-conv widths {round_widths}")
+    mma_want = {FIXTURE_WIDTHS[0]: fx_batches}
+    for c in round_widths:
+        mma_want[c] = 2 * fx_batches  # after the prune, after the tune
+    expect_launches(kernels, counts, at, "sweep_l1_iterative",
+                    {"input_stage_mma": sum(mma_want.values())},
+                    {"input_stage_mma": mma_want})
+    widths["sweep_l1_iterative_v2"] = at
+    check(all(math.isfinite(rd[k]) for rd in r["rounds"]
+              for k in ("pruned", "recovered")),
+          "sweep_l1_iterative: a non-finite mAP")
+    done("sweep_l1_iterative", seconds=secs, base_map50=r["base"],
+         rounds=[{"fraction": rd["fraction"], "conv0": w,
+                  "pruned": rd["pruned"], "recovered": rd["recovered"]}
+                 for rd, w in zip(r["rounds"], round_widths)])
+
+    # (d) one stage table of the train step (75%-pruned, batch 64) and the
+    # trace's top device operations
+    out, counts, at, secs = _run_cli(
+        torch, kernels, profile_train.main,
+        ["--inner", "3", "--trace", os.path.join(tmp, "train_trace")],
+        "profile_train")
+    stages = {m.group(1): float(m.group(2)) for m in (
+        re.match(r"(aug|fwd|loss|bwd|full)\s*:\s*([0-9.]+) ms/step", ln)
+        for ln in out.splitlines()) if m}
+    check(set(stages) == {"aug", "fwd", "loss", "bwd", "full"}
+          and all(v > 0 and math.isfinite(v) for v in stages.values()),
+          f"profile_train: stages {stages}")
+    check(os.path.exists(os.path.join(tmp, "train_trace", "trace.json")),
+          "profile_train --trace wrote no trace")
+    done("profile_train", seconds=secs, stage_ms=stages)
+
+    # (e) BITMATCH, card against CPU: raw maps, detections and mAP
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    r = bitmatch_check.run(torch.device("cuda"))
+    secs = time.perf_counter() - t0
+    counts, at = read_counts(kernels), read_widths(kernels)
+    # the raw forward and the eval's two batches of 4, on the card
+    expect_launches(kernels, counts, at, "bitmatch_check",
+                    {FP32_INPUT_STAGE: 3}, {FP32_INPUT_STAGE: {16: 3}})
+    widths["bitmatch_check"] = at
+    check(r["max_rel"] <= BITMATCH_RAW_RTOL,
+          f"bitmatch_check: raw maps max rel {r['max_rel']}")
+    check(r["mismatched"] == 0 and r["cpu_detections"] > 0,
+          f"bitmatch_check: detections {r}")
+    done("bitmatch_check", seconds=secs, **r)
+
+    # (f) the host tools on the phase's weights and fixture
+    out, *_ = _run_cli(torch, kernels, gen_anchors.main,
+                       ["--data", data, "--num", "5"], "gen_anchors")
+    line = [ln for ln in out.splitlines() if ln.startswith("anchors = ")]
+    vals = [float(v) for v in line[0][len("anchors = "):].split(",")] \
+        if line else []
+    check(len(vals) == 10 and all(v > 0 for v in vals),
+          f"gen_anchors: {line}")
+    # Darknet-19's 18 convs: the backbone prefix a detector trains from
+    backbone = os.path.join(tmp, f"darknet19.conv.{BACKBONE_CONVS}")
+    out, *_ = _run_cli(torch, kernels, partial_weights.main,
+                       ["--cfg", cfg, "--weights", weights, "--n-convs",
+                        str(BACKBONE_CONVS), "--out", backbone],
+                       "partial_weights")
+    loaded, seen = load_weights(backbone, spec, partial=True)
+    full, _ = load_weights(weights, spec)
+    check(len(loaded) == BACKBONE_CONVS and seen == 0 and all(
+        torch.equal(loaded[k][n], full[k][n]) for k in loaded
+        for n in loaded[k]), f"partial_weights: the backbone holds "
+          f"{len(loaded)} convs, seen {seen}, or differs from the source")
+    out, *_ = _run_cli(torch, kernels, lowrank_scan.main,
+                       ["--cfg", cfg, "--weights", weights],
+                       "lowrank_scan")
+    table = [ln for ln in out.splitlines() if ln[:5].strip().isdigit()]
+    check(len(table) == len(spec.conv_indices()) and "E=0.99:" in out,
+          f"lowrank_scan: {len(table)} rows")
+    done("host_tools", anchors=line[0], backbone_bytes=os.path.getsize(
+        backbone), lowrank_rows=len(table))
+
+    # (g) one perf-ledger line to a temporary path, read back
+    path = os.path.join(tmp, "perf_ledger.jsonl")
+    entry = perf_ledger.append({"mode": "chip_smoke", "phase": "tools"},
+                               path=path)
+    back = perf_ledger.read(path)
+    check(len(back) == 1 and back[0]["device"] == card == entry["device"],
+          f"perf_ledger: read back {back}")
+    done("perf_ledger", entry=back[0])
+    return widths, cases, topk
+
+
 TOPK_ENTRIES = (
     ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
     ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
@@ -4143,7 +4433,8 @@ TOPK_ENTRIES = (
 def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                    ft_widths, fam_widths, fam_topk, train_widths,
                    train_topk, int8_widths, quantile_select, cmp_widths,
-                   par_widths, tp_widths):
+                   par_widths, tp_widths, tool_widths, tool_cases,
+                   tool_topk):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -4195,7 +4486,14 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     C=32 and C=16), and on the tensor-parallel phase's
     (``tensor_parallel_launches``: each rank of finetune --tp 2 --gmp,
     GMP's recompute on the gathered weights at S=24 in each, rank 0's
-    eval at C=32)."""
+    eval at C=32), and on the tools phase's (``tools_launches``: the
+    sensitivity scan's evals at C=32 / 24 / 16 / 8, the sweeps' at C=16
+    / 12 / 8 / 4 and their masks at S=7 and S=2, the BITMATCH check's
+    fp32 stage at C=16). The tools phase adds its own cases: the input
+    stages at each new width and shape it holds (``batch``, ``net``;
+    ``launches`` the phase's at that width, whatever the shape) and the
+    top-k kernels at the fixture's S=7 (per layer) and S=2 (global),
+    with each kernel's device time (``device_ms``)."""
     def on(widths, source, width):
         return {path: at[source].get(width, 0)
                 for path, at in widths.items()}
@@ -4231,7 +4529,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "int8_launches": on(int8_widths, source, c_out),
             "compress_launches": on(cmp_widths, source, c_out),
             "parallel_launches": on(par_widths, source, c_out),
-            "tensor_parallel_launches": on(tp_widths, source, c_out)})
+            "tensor_parallel_launches": on(tp_widths, source, c_out),
+            "tools_launches": on(tool_widths, source, c_out)})
     for dtype, name, path in (
             ("bfloat16", "input_stage_mma[C=16]", "yolov3_tiny"),
             ("float32", "input_stage_f32[C=16]", "yolov3_tiny_fp32")):
@@ -4252,7 +4551,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "int8_launches": on(int8_widths, source, 16),
             "compress_launches": on(cmp_widths, source, 16),
             "parallel_launches": on(par_widths, source, 16),
-            "tensor_parallel_launches": on(tp_widths, source, 16)})
+            "tensor_parallel_launches": on(tp_widths, source, 16),
+            "tools_launches": on(tool_widths, source, 16)})
     r = cases[(32, "float32")]
     entries.append({
         "name": f"{YARDSTICK}[fp32]", "route": "cuda",
@@ -4269,7 +4569,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "int8_launches": on(int8_widths, YARDSTICK, 32),
         "compress_launches": on(cmp_widths, YARDSTICK, 32),
         "parallel_launches": on(par_widths, YARDSTICK, 32),
-        "tensor_parallel_launches": on(tp_widths, YARDSTICK, 32)})
+        "tensor_parallel_launches": on(tp_widths, YARDSTICK, 32),
+        "tools_launches": on(tool_widths, YARDSTICK, 32)})
 
     def topk_entry(r, key, source, body, name, launches, widths, library):
         k = r[key]
@@ -4312,7 +4613,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                  "int8_launches": on(int8_widths, source, s),
                  "compress_launches": on(cmp_widths, source, s),
                  "parallel_launches": on(par_widths, source, s),
-                 "tensor_parallel_launches": on(tp_widths, source, s)},
+                 "tensor_parallel_launches": on(tp_widths, source, s),
+                 "tools_launches": on(tool_widths, source, s)},
                 None if s == 24 else
                 "torch.kthvalue: the k-th |w| of the one real segment"))
     s = fam_topk["S"]
@@ -4325,7 +4627,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
              "int8_launches": on(int8_widths, source, s),
              "compress_launches": on(cmp_widths, source, s),
              "parallel_launches": on(par_widths, source, s),
-             "tensor_parallel_launches": on(tp_widths, source, s)},
+             "tensor_parallel_launches": on(tp_widths, source, s),
+             "tools_launches": on(tool_widths, source, s)},
             "torch.topk of the 128 best scores per image: the whole "
             "selection"))
     s = train_topk["S"]
@@ -4337,7 +4640,8 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
              "int8_launches": on(int8_widths, source, s),
              "compress_launches": on(cmp_widths, source, s),
              "parallel_launches": on(par_widths, source, s),
-             "tensor_parallel_launches": on(tp_widths, source, s)}, None))
+             "tensor_parallel_launches": on(tp_widths, source, s),
+             "tools_launches": on(tool_widths, source, s)}, None))
     q = quantile_select
     entries.append({
         "name": f"topk_radix_select[S={q['S']},quantile]", "route": "cuda",
@@ -4352,7 +4656,34 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         "compress_launches": on(cmp_widths, "topk_radix_select", q["S"]),
         "parallel_launches": on(par_widths, "topk_radix_select", q["S"]),
         "tensor_parallel_launches": on(tp_widths, "topk_radix_select",
-                                       q["S"])})
+                                       q["S"]),
+        "tools_launches": on(tool_widths, "topk_radix_select", q["S"])})
+    for (c_out, dtype, b, net), r in sorted(tool_cases.items()):
+        source = r["kernel"]
+        where = "" if (b, net) == (BATCH, NET) else f",B={b},{net}px"
+        entries.append({
+            "name": f"{source}[C={c_out}{where}]", "route": "cuda",
+            "source": f"modelcompression_tpu_torch/csrc/{source}.cu",
+            "replaces": "modelcompression_tpu/ops/input_stage.py:159",
+            "launches": sum(n for n in on(tool_widths, source,
+                                          c_out).values()),
+            "batch": b, "net": net,
+            "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "prev_ms": r["prev_ms"],
+            "prev_max_abs_err": r["prev_max_abs_err"],
+            **{k: r[k] for k in ("device_ms", "prev_device_ms",
+                                 "library_device_ms") if k in r},
+            "tools_launches": on(tool_widths, source, c_out)})
+    for mode, r in tool_topk.items():
+        s = r["S"]
+        for key, source, body_ in TOPK_ENTRIES:
+            entries.append(topk_entry(
+                r, key, source, body_, f"{source}[S={s},fixture]",
+                sum(on(tool_widths, source, s).values()),
+                {"tools_launches": on(tool_widths, source, s),
+                 "device_ms": r[key].get("device_ms")}, None))
     return entries
 
 
@@ -4405,12 +4736,16 @@ def main() -> int:
                                                data, weights)
             tp_widths = phase_tensor_parallel(torch, KERNELS, card, tmp,
                                               data, weights)
+            tool_widths, tool_cases, tool_topk = phase_tools(
+                torch, KERNELS, card, tmp, data, weights)
         emit({"kernels": kernel_entries(cases, launches, topk,
                                         prune_launches, eval_widths,
                                         ft_widths, fam_widths, fam_topk,
                                         train_widths, train_topk,
                                         int8_widths, quantile_select,
-                                        cmp_widths, par_widths, tp_widths)})
+                                        cmp_widths, par_widths, tp_widths,
+                                        tool_widths, tool_cases,
+                                        tool_topk)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -7,21 +7,13 @@ import time
 
 import torch
 
+from modelcompression_tpu_torch.utils.timing import time_fn
+
 
 def time_ms(fn, iters=10, warmup=2):
-    """Mean ms per call of ``fn`` over ``iters`` calls, CUDA events, after
-    warm-up and a synchronize."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean ms per call of ``fn`` over one window of ``iters`` calls, CUDA
+    events, after warm-up and a synchronize (``utils.timing.time_fn``)."""
+    return time_fn(fn, iters=iters, windows=1, warmup=warmup) * 1e3
 
 
 def profile_window(fn, steps=3):

@@ -226,8 +226,11 @@ def test_abs_quantiles_equal_jnp_quantile(n):
     the port reproduces it, and the interpolation's rounding."""
     rng = np.random.default_rng(n % 97)
     a = (rng.standard_normal(n) * 3.0).astype(np.float32)
+    # jnp.quantile sorts its input; handing it |a| sorted already (the
+    # same multiset, so the same quantile) halves its time at 2^24
+    abs_sorted = jnp.asarray(np.sort(np.abs(a)))
     for q in ((0.999,) if n > 2 ** 24 else (0.5, 0.9, 0.999, 0.1234567)):
-        want = np.float32(jnp.quantile(jnp.abs(jnp.asarray(a)), q))
+        want = np.float32(jnp.quantile(abs_sorted, q))
         got = tq.abs_quantiles([torch.from_numpy(a)], q)[0]
         assert got == want, (n, q)
 

@@ -65,12 +65,22 @@ def _torch_run(raw, t, region, seen):
             r.grad.numpy())
 
 
+_JAX_STEPS = {}  # repr(region) -> the jitted loss and gradient
+
+
 def _jax_run(raw, t, region, seen):
-    def f(r):
-        return jax_loss(r, jnp.asarray(t), region, jnp.asarray(seen)).loss
-    m = jax_loss(jnp.asarray(raw), jnp.asarray(t), region, jnp.asarray(seen))
-    g = jax.grad(f)(jnp.asarray(raw))
-    return {k: float(v) for k, v in m.as_dict().items()}, np.asarray(g)
+    """The JAX loss's metrics and d(loss)/d(raw), jitted once per region
+    config (the region closed over; raw, targets and seen traced)."""
+    key = repr(region)
+    if key not in _JAX_STEPS:
+        def both(r, tt, s):
+            m = jax_loss(r, tt, region, s)
+            g = jax.grad(lambda r_: jax_loss(r_, tt, region, s).loss)(r)
+            return m.as_dict(), g
+        _JAX_STEPS[key] = jax.jit(both)
+    m, g = _JAX_STEPS[key](jnp.asarray(raw), jnp.asarray(t),
+                           jnp.asarray(seen))
+    return {k: float(v) for k, v in m.items()}, np.asarray(g)
 
 
 def _check(got, want):
