@@ -1,0 +1,14 @@
+"""Pytest settings for the benchmark's own tests (``python -m pytest
+h100_bench``): the ``cuda`` marker for tests that need the card."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
