@@ -615,8 +615,8 @@ def radix_pass_ms(torch, bits, seg, k, S, iters=10):
 
 
 def device_ms(fn, calls=10):
-    """Device time per call of ``fn``: its kernels' device time summed
-    over a torch.profiler window of ``calls`` calls, ms. Where launches
+    """Device time per call of ``fn``: the union of its kernels' device
+    intervals over a torch.profiler window of ``calls`` calls, ms. Where launches
     are shorter than the host's time to issue them, CUDA events around a
     run of calls measure the host; this does not. None (not measured)
     where the window recorded no device time at all: late in a long run

@@ -13,8 +13,14 @@ frames letterboxed on the device. Prints one JSON line per model:
   each timed alone with CUDA events;
 * ``profile``: a ``torch.profiler`` window over 3 steady steps: device
   time by kernel (top 12), device operations per step, the device's busy
-  and idle share of the wall time, and the input-stage kernel's share of
-  device time (the tensor-core kernel on this bf16 path).
+  and idle share of the wall time, the input-stage kernel's share of
+  device time (the tensor-core kernel on this bf16 path), and for each of
+  the step's spans (``serve.step`` and its ``serve.letterbox``,
+  ``serve.forward`` and ``serve.postprocess``) its host ms and the device
+  idle ms under it.
+
+A first line gives the card's name and power limit, a second what a span
+costs the host (``span_cost_us``): with no profiler, and under one.
 
 Needs a CUDA device; fails without one.
 """
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import json
 import sys
+import time
 
 import torch
 
@@ -48,6 +55,37 @@ def _profile(fn):
     return summary
 
 
+def span_cost_us(n=100_000):
+    """Host microseconds one ``utils.profiling.span`` adds, entered and
+    left in a loop, against the same loop without it: ``off`` over ``n``
+    with no profiler, ``on`` over ``n // 10`` under a CPU and CUDA
+    profiler (the ``record_function`` range and the log record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modelcompression_tpu_torch.utils.profiling import (
+        clear_span_log, span,
+    )
+
+    def per_loop(count, with_span):
+        t = time.perf_counter()
+        if with_span:
+            for _ in range(count):
+                with span("cost"):
+                    pass
+        else:
+            for _ in range(count):
+                pass
+        return (time.perf_counter() - t) / count * 1e6
+
+    base = per_loop(n, False)
+    off = per_loop(n, True) - base
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        on = per_loop(n // 10, True) - base
+    clear_span_log()
+    return {"off": off, "on": on, "n_off": n, "n_on": n // 10}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA device", file=sys.stderr)
@@ -69,6 +107,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
+    print(json.dumps({"span_cost_us": span_cost_us()}), flush=True)
     spec = yolov2_voc()
     params = init_params(spec, seed=0)
     keep = uniform_filter_fraction_keep_sets(spec, params, 0.75)

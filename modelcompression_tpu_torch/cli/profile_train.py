@@ -16,14 +16,15 @@ subdivisions 1, batch 64; ``--unpruned`` for the dense model;
 ``--jitter`` / ``--hsv`` / ``--mosaic`` switch the augment chain on to
 price it.
 
-``--trace DIR`` also records 10 full steps with ``utils.profiling.trace``
-(a Chrome trace in DIR) and prints the top device operations by total
-time. The first line is the card's name and power limit.
+``--trace DIR`` also records 10 full steps with ``torch.profiler`` (a
+Chrome trace, ``DIR/trace.json``) and prints the top device operations by
+total time. The first line is the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -91,7 +92,6 @@ def main(argv=None) -> int:
         _forward_train, _trainable_list,
     )
     from modelcompression_tpu_torch.utils.perf_ledger import device_tag
-    from modelcompression_tpu_torch.utils.profiling import trace
     from modelcompression_tpu_torch.utils.timing import time_fn
 
     device = resolve_device(args.device)
@@ -203,10 +203,16 @@ def main(argv=None) -> int:
               f"effective TFLOPS (fwd+bwd as 3x fwd)")
 
     if args.trace:
-        with trace(args.trace) as prof:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
             for _ in range(TRACE_STEPS):
                 step(state, images, targets)
             sync()
+        os.makedirs(args.trace, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace, "trace.json"))
         what = "device" if device.type == "cuda" else "cpu (self)"
         print(f"trace written to {args.trace}; top {what} ops:")
         print(f"{'op':<40s} {'us/step':>9s} {'calls':>6s}")

@@ -10,6 +10,9 @@ blocking the host, on the consumer's own stream (the current stream when
 ``prefetch_to_device`` is called): every kernel the consumer queues after
 it sees a batch is ordered behind that batch's copies, so no copy is read
 before it lands.
+
+Spans (``utils.profiling``): ``feed.wait``, the consumer's wait for the
+next item, and ``feed.put``, the producer's ``put`` of that item.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from modelcompression_tpu_torch.core.device import resolve_device
+from modelcompression_tpu_torch.utils.profiling import log_span, now_ns, span
 
 T = TypeVar("T")
 
@@ -93,9 +97,17 @@ def prefetch_to_device(host_batches: Iterable[T], depth: int = 2,
             return put(item)
 
     def feeder():
+        # each put goes with its stamps, which the consumer logs as a
+        # ``feed.put`` span: a thread started before the profiler is
+        # outside it
+        thread = threading.get_native_id()
         try:
             for item in host_batches:
-                if stop.is_set() or not q_put(put_on_consumer_stream(item)):
+                if stop.is_set():
+                    return
+                start = now_ns()
+                item = put_on_consumer_stream(item)
+                if not q_put((item, start, now_ns(), thread)):
                     return
         except BaseException as e:  # surface in the consumer
             err.append(e)
@@ -106,12 +118,16 @@ def prefetch_to_device(host_batches: Iterable[T], depth: int = 2,
     t.start()
     try:
         while True:
-            got = q.get()
+            with span("feed.wait") as traced:
+                got = q.get()
             if got is _STOP:
                 if err:
                     raise err[0]
                 return
-            yield got
+            item, start, end, thread = got
+            if traced is not None:
+                log_span("feed.put", start, end, thread)
+            yield item
     finally:
         # unblock and end the feeder on early exit, and wait for the item
         # it is making: a daemon thread still inside a torch op when the

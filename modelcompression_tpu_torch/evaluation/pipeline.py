@@ -55,6 +55,7 @@ from modelcompression_tpu_torch.models.cfg import NetworkSpec
 from modelcompression_tpu_torch.models.darknet import (
     Params, fold_batchnorm, forward, forward_folded, params_to,
 )
+from modelcompression_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -189,28 +190,31 @@ def _network(spec: NetworkSpec, config: EvalConfig,
                                          and p_dev != device):
             raise ValueError(f"params live on {p_dev}, the step runs on "
                              f"{device}")
-        images = torch.as_tensor(images, device=p_dev)
-        # the int8 canvas lands on the pytree's own input grid, so a
-        # recalibration changes producer and consumer together
-        qs = params["__net__"]["input_scale"] if config.int8_input \
-            else None
-        if src_hw is not None:
-            if tuple(images.shape[1:3]) != tuple(src_hw):
-                raise ValueError(f"step built for {src_hw} sources, "
-                                 f"got {tuple(images.shape[1:3])}")
-            resize = (letterbox_device if config.letterbox
-                      else stretch_resize_device)
-            x = resize(images, net_h, net_w, dtype=rs_dtype, quant_scale=qs)
-        else:
-            x = images.to(rs_dtype) / 255.0
-            if qs is not None:
-                x = quantize_canvas(x, qs)
-        if config.forward_fn is not None:
-            return config.forward_fn(params, x, spec)
-        if config.fold_bn:
-            return forward_folded(params, x, spec, config.precision,
-                                  fuse_input_stage=fuse)
-        return forward(params, x, spec, config.precision)
+        with span("serve.letterbox"):
+            images = torch.as_tensor(images, device=p_dev)
+            # the int8 canvas lands on the pytree's own input grid, so a
+            # recalibration changes producer and consumer together
+            qs = params["__net__"]["input_scale"] if config.int8_input \
+                else None
+            if src_hw is not None:
+                if tuple(images.shape[1:3]) != tuple(src_hw):
+                    raise ValueError(f"step built for {src_hw} sources, "
+                                     f"got {tuple(images.shape[1:3])}")
+                resize = (letterbox_device if config.letterbox
+                          else stretch_resize_device)
+                x = resize(images, net_h, net_w, dtype=rs_dtype,
+                           quant_scale=qs)
+            else:
+                x = images.to(rs_dtype) / 255.0
+                if qs is not None:
+                    x = quantize_canvas(x, qs)
+        with span("serve.forward"):
+            if config.forward_fn is not None:
+                return config.forward_fn(params, x, spec)
+            if config.fold_bn:
+                return forward_folded(params, x, spec, config.precision,
+                                      fuse_input_stage=fuse)
+            return forward(params, x, spec, config.precision)
 
     return raw_map
 
@@ -235,44 +239,50 @@ def make_eval_step(spec: NetworkSpec, config: EvalConfig,
     raw_map = _network(spec, config, src_hw)
     net_h, net_w = spec.net.height, spec.net.width
 
+    def postprocess(raw, img_w, img_h):
+        """Decode, NMS and the map back to source-image pixels."""
+        boxes, obj, cls = decode_heads(raw, spec)
+        dev = boxes.device
+        img_w = torch.as_tensor(img_w, dtype=torch.float32, device=dev)
+        img_h = torch.as_tensor(img_h, dtype=torch.float32, device=dev)
+        class_scores = obj[..., None] * cls                # (B, N, C)
+        corners = center_to_corners(boxes)
+        n_cand = (class_scores > config.conf_thresh).sum(
+            dim=1, dtype=torch.int32)                      # (B, C)
+        n_any = (class_scores.amax(dim=-1) > config.conf_thresh).sum(
+            dim=-1, dtype=torch.int32)                     # (B,)
+        common = dict(iou_thresh=config.nms_thresh,
+                      score_thresh=config.conf_thresh,
+                      max_out=config.max_detections)
+        diou = dict(diou=config.diou_nms, diou_beta=config.diou_beta)
+        if config.soft_nms:
+            sel, scores, valid = batched_per_class_soft_nms(
+                corners, class_scores, **common,
+                sigma=config.soft_nms_sigma,
+                linear=(config.soft_nms == "linear"))
+        elif config.exact_nms:
+            sel, scores, valid = batched_per_class_nms_padded(
+                corners, class_scores, **common, **diou)
+        elif config.nms_prefilter > 0:
+            sel, scores, valid = batched_per_class_nms_prefiltered(
+                corners, class_scores, **common,
+                prefilter=config.nms_prefilter,
+                exact_prefilter=config.exact_nms_prefilter, **diou,
+                impl=config.nms_prefilter_impl)
+        else:
+            sel, scores, valid = batched_per_class_nms(
+                corners, class_scores, **common,
+                exact_prefilter=config.exact_nms_prefilter, **diou)
+        sel = corners_to_image(sel, img_w[:, None, None],
+                               img_h[:, None, None], net_w, net_h,
+                               config.letterbox)
+        return sel, scores, valid, n_cand, n_any
+
     def step(params: Params, images, img_w, img_h):
-        with torch.inference_mode():
-            boxes, obj, cls = decode_heads(raw_map(params, images), spec)
-            dev = boxes.device
-            img_w = torch.as_tensor(img_w, dtype=torch.float32, device=dev)
-            img_h = torch.as_tensor(img_h, dtype=torch.float32, device=dev)
-            class_scores = obj[..., None] * cls                # (B, N, C)
-            corners = center_to_corners(boxes)
-            n_cand = (class_scores > config.conf_thresh).sum(
-                dim=1, dtype=torch.int32)                      # (B, C)
-            n_any = (class_scores.amax(dim=-1) > config.conf_thresh).sum(
-                dim=-1, dtype=torch.int32)                     # (B,)
-            common = dict(iou_thresh=config.nms_thresh,
-                          score_thresh=config.conf_thresh,
-                          max_out=config.max_detections)
-            diou = dict(diou=config.diou_nms, diou_beta=config.diou_beta)
-            if config.soft_nms:
-                sel, scores, valid = batched_per_class_soft_nms(
-                    corners, class_scores, **common,
-                    sigma=config.soft_nms_sigma,
-                    linear=(config.soft_nms == "linear"))
-            elif config.exact_nms:
-                sel, scores, valid = batched_per_class_nms_padded(
-                    corners, class_scores, **common, **diou)
-            elif config.nms_prefilter > 0:
-                sel, scores, valid = batched_per_class_nms_prefiltered(
-                    corners, class_scores, **common,
-                    prefilter=config.nms_prefilter,
-                    exact_prefilter=config.exact_nms_prefilter, **diou,
-                    impl=config.nms_prefilter_impl)
-            else:
-                sel, scores, valid = batched_per_class_nms(
-                    corners, class_scores, **common,
-                    exact_prefilter=config.exact_nms_prefilter, **diou)
-            sel = corners_to_image(sel, img_w[:, None, None],
-                                   img_h[:, None, None], net_w, net_h,
-                                   config.letterbox)
-            return sel, scores, valid, n_cand, n_any
+        with span("serve.step"), torch.inference_mode():
+            raw = raw_map(params, images)
+            with span("serve.postprocess"):
+                return postprocess(raw, img_w, img_h)
 
     return step
 

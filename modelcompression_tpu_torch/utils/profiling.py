@@ -1,37 +1,135 @@
 """Tracing and profiling helpers, the port's copy of
 ``modelcompression_tpu/utils/profiling.py`` (whose module imports JAX):
-a ``torch.profiler`` trace context, a step timer reporting images per
-second, and a non-finite tripwire."""
+the program's spans, a step timer reporting images per second, and a
+non-finite tripwire.
+
+Spans. ``with span("serve.step"):`` marks a stretch of host work. With no
+``torch.profiler`` recording on the calling thread it costs one flag
+check and enters a shared no-op context. Under a profiler it enters
+``record_function("mc.<name>")``, so the stretch shows in the trace on
+the clock of the device's kernels and copies, and appends a
+``SpanRecord`` to a bounded in-memory log (``span_log``), stamped on that
+clock (``now_ns``: the Unix time the profiler stamps its events with).
+Nothing is written out on the way; readers take the log at the end.
+A thread started before the profiler is outside it (the flag reads False
+there): such a thread stamps its own work with ``now_ns`` and hands the
+stamps to one inside it, which logs them with ``log_span``.
+"""
 
 from __future__ import annotations
 
-import contextlib
-import os
+import threading
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+SPAN_PREFIX = "mc."
+# records the log keeps; later ones are counted as dropped
+SPAN_LOG_CAPACITY = 1 << 16
+
+now_ns = time.time_ns
 
 
-@contextlib.contextmanager
-def trace(trace_dir: Optional[str]):
-    """Profile the body with ``torch.profiler`` (CPU and, where a card is
-    present, CUDA activity) and write a Chrome trace
-    ``trace_dir/trace.json``; a no-op when ``trace_dir`` is unset. Yields
-    the profiler (``key_averages()`` for sums by operation), or None."""
-    if not trace_dir:
-        yield None
-        return
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+class SpanRecord(NamedTuple):
+    """One span: its name, the name of the span open around it on the same
+    thread (None at the top), the thread's native id, and its start and
+    end on ``now_ns``'s clock."""
+    name: str
+    parent: Optional[str]
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+class _SpanLog:
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.records: List[SpanRecord] = []
+        self.dropped = 0
+        self.lock = threading.Lock()
+
+    def add(self, record: SpanRecord) -> None:
+        with self.lock:
+            if len(self.records) < self.capacity:
+                self.records.append(record)
+            else:
+                self.dropped += 1
+
+
+_LOG = _SpanLog(SPAN_LOG_CAPACITY)
+_open = threading.local()  # each thread's stack of open span names
+
+
+class _Span:
+    __slots__ = ("name", "parent", "range", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _open.__dict__.setdefault("stack", [])
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.range = record_function(SPAN_PREFIX + self.name)
+        self.range.__enter__()
+        self.start = now_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = now_ns()
+        self.range.__exit__(*exc)
+        _open.stack.pop()
+        _LOG.add(SpanRecord(self.name, self.parent, threading.get_native_id(),
+                            self.start, end))
+        return False
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A context marking host work as span ``name`` (entered, it gives the
+    open span, or None where no profiler records on this thread)."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _Span(name)
+
+
+def log_span(name: str, start_ns: int, end_ns: int, thread: int) -> None:
+    """Log a span another thread stamped with ``now_ns`` (no parent: spans
+    nest on one thread)."""
+    _LOG.add(SpanRecord(name, None, thread, start_ns, end_ns))
+
+
+def span_log() -> List[SpanRecord]:
+    """The spans logged so far, in the order they ended."""
+    with _LOG.lock:
+        return list(_LOG.records)
+
+
+def span_log_dropped() -> int:
+    """Spans not logged because the log was full."""
+    return _LOG.dropped
+
+
+def clear_span_log() -> None:
+    """Empty the log and its count of drops."""
+    with _LOG.lock:
+        _LOG.records.clear()
+        _LOG.dropped = 0
 
 
 class StepTimer:

@@ -422,16 +422,3 @@ def test_nan_check_raises_on_non_finite(bad):
         nan_check(broken, "p")
     with pytest.raises(FloatingPointError):
         nan_check(torch.tensor([bad], dtype=torch.bfloat16))
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    from modelcompression_tpu_torch.utils.profiling import trace
-    with trace(None) as prof:
-        assert prof is None
-    d = tmp_path / "t"
-    with trace(str(d)) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert prof is not None and any(
-        "mm" in e.key for e in prof.key_averages())
-    with open(d / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
