@@ -16,8 +16,9 @@ frames letterboxed on the device. Prints one JSON line per model:
   and idle share of the wall time, the input-stage kernel's share of
   device time (the tensor-core kernel on this bf16 path), and for each of
   the step's spans (``serve.step`` and its ``serve.letterbox``,
-  ``serve.forward`` and ``serve.postprocess``) its host ms and the device
-  idle ms under it.
+  ``serve.forward`` and ``serve.postprocess``, the last over
+  ``serve.decode`` and ``serve.nms``) its host ms and the device idle ms
+  under it.
 
 A first line gives the card's name and power limit, a second what a span
 costs the host (``span_cost_us``): with no profiler, and under one.

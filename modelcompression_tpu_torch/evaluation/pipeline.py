@@ -220,7 +220,8 @@ def _network(spec: NetworkSpec, config: EvalConfig,
 
 
 def make_eval_step(spec: NetworkSpec, config: EvalConfig,
-                   src_hw: Optional[Tuple[int, int]] = None):
+                   src_hw: Optional[Tuple[int, int]] = None,
+                   raw_maps: bool = False):
     """Build the serving step.
 
     Returns fn(params, images_uint8, img_w (B,), img_h (B,)) ->
@@ -229,6 +230,9 @@ def make_eval_step(spec: NetworkSpec, config: EvalConfig,
       * n_cand — candidates above conf_thresh per (image, class);
       * n_any — candidates whose max class score clears conf_thresh per
         image (the class-agnostic prefilter's exactness budget).
+    With ``raw_maps`` the forward's raw maps follow those five, NHWC on
+    the device as decode read them (one a head), so that a caller can
+    hold the served detections and the maps they came from together.
 
     ``images_uint8`` is (B, net, net, 3) when ``src_hw is None``, else
     (B, src_h, src_w, 3) source frames. Inputs may be numpy arrays or
@@ -241,12 +245,13 @@ def make_eval_step(spec: NetworkSpec, config: EvalConfig,
 
     def postprocess(raw, img_w, img_h):
         """Decode, NMS and the map back to source-image pixels."""
-        boxes, obj, cls = decode_heads(raw, spec)
+        with span("serve.decode"):
+            boxes, obj, cls = decode_heads(raw, spec)
+            class_scores = obj[..., None] * cls            # (B, N, C)
+            corners = center_to_corners(boxes)
         dev = boxes.device
         img_w = torch.as_tensor(img_w, dtype=torch.float32, device=dev)
         img_h = torch.as_tensor(img_h, dtype=torch.float32, device=dev)
-        class_scores = obj[..., None] * cls                # (B, N, C)
-        corners = center_to_corners(boxes)
         n_cand = (class_scores > config.conf_thresh).sum(
             dim=1, dtype=torch.int32)                      # (B, C)
         n_any = (class_scores.amax(dim=-1) > config.conf_thresh).sum(
@@ -255,24 +260,25 @@ def make_eval_step(spec: NetworkSpec, config: EvalConfig,
                       score_thresh=config.conf_thresh,
                       max_out=config.max_detections)
         diou = dict(diou=config.diou_nms, diou_beta=config.diou_beta)
-        if config.soft_nms:
-            sel, scores, valid = batched_per_class_soft_nms(
-                corners, class_scores, **common,
-                sigma=config.soft_nms_sigma,
-                linear=(config.soft_nms == "linear"))
-        elif config.exact_nms:
-            sel, scores, valid = batched_per_class_nms_padded(
-                corners, class_scores, **common, **diou)
-        elif config.nms_prefilter > 0:
-            sel, scores, valid = batched_per_class_nms_prefiltered(
-                corners, class_scores, **common,
-                prefilter=config.nms_prefilter,
-                exact_prefilter=config.exact_nms_prefilter, **diou,
-                impl=config.nms_prefilter_impl)
-        else:
-            sel, scores, valid = batched_per_class_nms(
-                corners, class_scores, **common,
-                exact_prefilter=config.exact_nms_prefilter, **diou)
+        with span("serve.nms"):
+            if config.soft_nms:
+                sel, scores, valid = batched_per_class_soft_nms(
+                    corners, class_scores, **common,
+                    sigma=config.soft_nms_sigma,
+                    linear=(config.soft_nms == "linear"))
+            elif config.exact_nms:
+                sel, scores, valid = batched_per_class_nms_padded(
+                    corners, class_scores, **common, **diou)
+            elif config.nms_prefilter > 0:
+                sel, scores, valid = batched_per_class_nms_prefiltered(
+                    corners, class_scores, **common,
+                    prefilter=config.nms_prefilter,
+                    exact_prefilter=config.exact_nms_prefilter, **diou,
+                    impl=config.nms_prefilter_impl)
+            else:
+                sel, scores, valid = batched_per_class_nms(
+                    corners, class_scores, **common,
+                    exact_prefilter=config.exact_nms_prefilter, **diou)
         sel = corners_to_image(sel, img_w[:, None, None],
                                img_h[:, None, None], net_w, net_h,
                                config.letterbox)
@@ -282,7 +288,11 @@ def make_eval_step(spec: NetworkSpec, config: EvalConfig,
         with span("serve.step"), torch.inference_mode():
             raw = raw_map(params, images)
             with span("serve.postprocess"):
-                return postprocess(raw, img_w, img_h)
+                outs = postprocess(raw, img_w, img_h)
+            if raw_maps:
+                outs += tuple(raw) if isinstance(raw, (tuple, list)) \
+                    else (raw,)
+            return outs
 
     return step
 

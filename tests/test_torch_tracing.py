@@ -23,7 +23,18 @@ from modelcompression_tpu_torch.models import (
 from modelcompression_tpu_torch.utils import profiling
 
 NET, SRC = 64, (48, 80)
-CHILDREN = ["serve.letterbox", "serve.forward", "serve.postprocess"]
+# the step's spans in the order they end, each with the span it nests in
+CHILDREN = ["serve.letterbox", "serve.forward", "serve.decode", "serve.nms",
+            "serve.postprocess"]
+PARENT = {"serve.letterbox": "serve.step", "serve.forward": "serve.step",
+          "serve.decode": "serve.postprocess",
+          "serve.nms": "serve.postprocess",
+          "serve.postprocess": "serve.step", "serve.step": None}
+# the profiler stamps its ranges in whole microseconds on its own clock,
+# converted to the Unix clock the log uses by a linear fit; this covers
+# the rounding and the fit, never a stall between the two stamps (a
+# stall only widens the range around the logged span)
+CLOCK_US = 20
 
 
 @pytest.fixture(autouse=True)
@@ -73,17 +84,23 @@ def test_each_step_logs_one_step_span_over_three_children(src_hw):
         run()
         run()
     log = profiling.span_log()
+    per_call = len(CHILDREN) + 1
     assert [r.name for r in log] == (CHILDREN + ["serve.step"]) * 2
     thread = threading.get_native_id()
-    for call in (log[:4], log[4:]):
-        *children, step = call
-        assert step.parent is None
-        assert [c.parent for c in children] == ["serve.step"] * 3
+    for call in (log[:per_call], log[per_call:]):
+        by_name = {r.name: r for r in call}
         assert all(r.thread == thread for r in call)
-        assert step.start_ns <= children[0].start_ns
-        for a, b in zip(children, children[1:]):
-            assert a.end_ns <= b.start_ns
-        assert children[-1].end_ns <= step.end_ns
+        for r in call:
+            assert r.parent == PARENT[r.name]
+            assert r.start_ns <= r.end_ns
+            if r.parent is not None:
+                up = by_name[r.parent]
+                assert up.start_ns <= r.start_ns and r.end_ns <= up.end_ns
+        # siblings one after another, in the order they run
+        for parent in ("serve.step", "serve.postprocess"):
+            kids = [by_name[n] for n in CHILDREN if PARENT[n] == parent]
+            for a, b in zip(kids, kids[1:]):
+                assert a.end_ns <= b.start_ns
 
 
 def test_outputs_equal_with_and_without_spans():
@@ -110,12 +127,30 @@ def test_logged_spans_match_the_profilers_ranges():
                 (e.time_range.start, e.time_range.end))
     log = profiling.span_log()
     assert sorted(ranges) == sorted(CHILDREN + ["serve.step"])
+    # each logged span, on the profiler's clock, beside its range: a span
+    # stamps its start after entering the range and its end before leaving
+    # it, so the range holds the logged span (to the clocks' bound) however
+    # long the thread stalls between the two
+    pairs = []
     for name, got in ranges.items():
         mine = sorted(((r.start_ns - t0) / 1e3, (r.end_ns - t0) / 1e3)
                       for r in log if r.name == name)
         assert len(mine) == len(got) == 2
         for (ms, me), (ps, pe) in zip(mine, sorted(got)):
-            assert abs(ms - ps) < 100 and abs(me - pe) < 100, name
+            assert ps - CLOCK_US <= ms <= me <= pe + CLOCK_US, name
+            pairs.append((name, ms, me, ps, pe))
+    # order and nesting exactly as the profiler has them: a range nests in
+    # another's where its logged span does, and ends before the next
+    # logged span of its thread that it does not hold starts
+    for a, ams, ame, aps, ape in pairs:
+        for b, bms, bme, bps, bpe in pairs:
+            if (a, ams) == (b, bms):
+                continue
+            if bms <= ams and ame <= bme:
+                assert bps <= aps + CLOCK_US and ape <= bpe + CLOCK_US, \
+                    (a, b)
+            elif ame <= bms:
+                assert ape <= bms + CLOCK_US, (a, b)
 
 
 def test_feed_logs_the_producers_puts_and_the_consumers_waits():
