@@ -32,6 +32,18 @@ Phases, each printing JSON lines on stdout:
             bit-equal. The select is timed whole and per launch beside the
             31-round bisection through the count kernel; tie count and
             apply at the chunk prune_flat sizes to the input and at 16K.
+3b. epilogue  the conv epilogue kernel (bias + linear / leaky / mish in
+            place) on every conv output of one FAST forward of YOLOv4-VOC
+            416 at batch 64, recorded from the forward (110 launches, one a
+            conv, at each conv's width): linear and leaky equal to the
+            plain version, mish within one bf16 ulp; then timed over the
+            110 and alone at conv 0's 416x416x32 (CUDA events and the
+            profiler's device time) beside its bound, the plain version
+            and the eager chain it replaced (``library_ms``). Every later
+            path holds the epilogue's launches exactly, as the other
+            kernels': once a conv of each bf16 card forward that wants no
+            gradient, conv 0 left out where the input stage runs it; none
+            on BITMATCH, int8, training or traced forwards.
 4. main     YOLOv2-VOC 416 (random init, seed 0), FAST precision, the
             deployment config (conf 0.01, K 32, prefilter 128), the fused
             serving step with on-device letterbox from 384x512 frames at
@@ -348,6 +360,10 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SERVING_KERNELS = ("input_stage_mma",)
+# the conv epilogue kernel (ops/conv_epilogue.py): launched once a conv by
+# every bf16 card forward that wants no gradient, conv 0 left out where
+# the input stage runs it
+EPILOGUE = "conv_epilogue"
 # the fp32 (BITMATCH) route's input stage, never launched while serving
 FP32_INPUT_STAGE = "input_stage_f32"
 # the first CUDA-core input stage: timed as both routes' yardstick, never
@@ -425,9 +441,44 @@ def read_counts(kernels) -> dict:
 
 
 def read_widths(kernels) -> dict:
-    """Each kernel's launches by its width: C for the input stages, S for
-    the top-k kernels (the wrappers' ``LAUNCHES_AT``)."""
+    """Each kernel's launches by its width: C for the input stages and the
+    conv epilogue, S for the top-k kernels (the wrappers'
+    ``LAUNCHES_AT``)."""
     return {name: dict(wrapper.LAUNCHES_AT) for name, wrapper in kernels}
+
+
+def epilogue_convs(spec, fused=None) -> int:
+    """The conv epilogue's launches in one bf16 card forward of ``spec``
+    that wants no gradient: one a conv, less conv 0 where the tensor-core
+    input stage runs it (``fused``; by default where the serving step
+    fuses it, ``input_stage_match``)."""
+    from modelcompression_tpu_torch.models.cfg import ConvLayer
+    from modelcompression_tpu_torch.ops import input_stage_match
+    if fused is None:
+        fused = input_stage_match(spec)
+    return sum(isinstance(l, ConvLayer) for l in spec.layers) - int(fused)
+
+
+def epilogue_widths(spec) -> dict:
+    """``epilogue_convs``'s launches by the conv's output channels C."""
+    from modelcompression_tpu_torch.models.cfg import ConvLayer
+    from modelcompression_tpu_torch.ops import input_stage_match
+    convs = [l for l in spec.layers if isinstance(l, ConvLayer)]
+    by = {}
+    for l in convs[int(input_stage_match(spec)):]:
+        by[l.filters] = by.get(l.filters, 0) + 1
+    return by
+
+
+def forwards_want(spec, n=1) -> dict:
+    """The launches of ``n`` bf16 card forwards of ``spec`` through the
+    serving step: the tensor-core input stage once a forward where it
+    fuses conv 0, and the conv epilogue once a conv it leaves."""
+    from modelcompression_tpu_torch.ops import input_stage_match
+    want = {EPILOGUE: n * epilogue_convs(spec)}
+    if input_stage_match(spec):
+        want["input_stage_mma"] = n
+    return want
 
 
 def sass_mix(path: str) -> dict:
@@ -796,6 +847,125 @@ def phase_topk_kernels(torch):
     return cases
 
 
+# the conv epilogue's shapes: every conv output of YOLOv4-VOC 416's FAST
+# forward at batch 64 (72 mish, 35 leaky, 3 linear convs)
+EPILOGUE_CFG = "yolov4-voc.cfg"
+
+
+def _epilogue_inputs(torch):
+    """One FAST ``forward_folded`` of YOLOv4-VOC 416 (random init, seed 0)
+    on a random batch, watching the epilogue's dispatch: a copy of each
+    conv's output before its epilogue, its bias and activation, in the
+    forward's order. Checks the forward launched the kernel once a conv."""
+    from modelcompression_tpu_torch.core.precision import FAST
+    from modelcompression_tpu_torch.models import (
+        cfg_path, conv_key, fold_batchnorm, forward_folded, init_params,
+        load_cfg, params_to,
+    )
+    from modelcompression_tpu_torch.models.cfg import ConvLayer
+    from modelcompression_tpu_torch.ops import conv_epilogue as ce
+    spec = load_cfg(cfg_path(EPILOGUE_CFG))
+    convs = [(i, l) for i, l in enumerate(spec.layers)
+             if isinstance(l, ConvLayer)]
+    folded = params_to(fold_batchnorm(init_params(spec, seed=SEED), spec),
+                       "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.rand((BATCH, NET, NET, 3), generator=gen, device="cuda")
+    outputs, real = [], ce.takes
+
+    def watching(y, kind):
+        took = real(y, kind)
+        if took:
+            outputs.append((y.clone(), kind))
+        return took
+
+    ce.takes, n0 = watching, ce.bias_act_cuda.LAUNCHES
+    try:
+        with torch.inference_mode():
+            forward_folded(folded, x, spec, FAST)
+    finally:
+        ce.takes = real
+    torch.cuda.synchronize()
+    n = ce.bias_act_cuda.LAUNCHES - n0
+    check(n == len(outputs) == len(convs), f"epilogue: {n} launches, "
+          f"{len(outputs)} taken, for {len(convs)} convs")
+    check([(y.shape[1], k) for y, k in outputs]
+          == [(l.filters, l.activation) for _, l in convs],
+          "epilogue: the outputs' widths and activations are not the convs'")
+    return [(y, folded[conv_key(i)]["bias"].float(), k)
+            for (y, k), (i, _) in zip(outputs, convs)]
+
+
+def phase_epilogue(torch):
+    """The conv epilogue kernel against its plain version on every conv
+    output of one YOLOv4-VOC forward at batch 64 (linear and leaky equal,
+    mish within one bf16 ulp), then timed over the forward's 110 launches
+    and alone at the largest output (conv 0, 416x416x32): kernel ms by
+    CUDA events and by the profiler's device time, its bound (the bytes
+    once over 3.35 TB/s), the plain version's ms and the eager chain the
+    folded forward ran before the kernel (``library_ms``: bias cast, add
+    and activation passes; the port no longer calls it there)."""
+    from modelcompression_tpu_torch.models import darknet
+    from modelcompression_tpu_torch.ops import conv_epilogue as ce
+    reset_counts((("conv_epilogue", ce.bias_act_cuda),))
+    records = _epilogue_inputs(torch)
+    forward_at = dict(ce.bias_act_cuda.LAUNCHES_AT)
+    worst = {}
+    for y, b, kind in records:
+        want = ce.bias_act_plain(y, b, kind)
+        got = ce.bias_act_cuda(y.clone(), b, kind)
+        ulp = torch.clamp(want.float().abs() * 2.0 ** -7, min=2.0 ** -133)
+        ulps = ((got.float() - want.float()).abs() / ulp).max().item()
+        worst[kind] = max(worst.get(kind, 0.0), ulps)
+        check(ulps <= 1.0 if kind == "mish" else torch.equal(got, want),
+              f"epilogue {kind} C={y.shape[1]}: {ulps} bf16 ulps from the "
+              f"plain version")
+        del want, got
+    torch.cuda.synchronize()
+
+    def n_bytes(rs):  # bf16 read and written once, the fp32 bias read once
+        return sum(4 * y.numel() + 4 * b.numel() for y, b, _ in rs)
+
+    def timed(rs, iters):
+        def kernel():
+            for y, b, kind in rs:
+                ce.bias_act_cuda(y, b, kind)
+
+        def plain():
+            for y, b, kind in rs:
+                ce.bias_act_plain(y, b, kind)
+
+        def library():
+            for y, b, kind in rs:
+                darknet._activate(y + darknet._per_channel(b, y.dtype), kind)
+
+        ms = time_ms(torch, kernel, iters=iters)
+        dev = device_ms(kernel, calls=3)
+        bound_ms = n_bytes(rs) / HBM_BYTES_PER_S * 1e3
+        return {"launches": len(rs),
+                "elements": sum(y.numel() for y, _, _ in rs),
+                "bytes": n_bytes(rs), "bound_ms": bound_ms,
+                "bound_by": "bytes", "ms": ms, "device_ms": dev,
+                "roofline_pct": (100 * bound_ms / dev if dev else None),
+                "plain_ms": time_ms(torch, plain, iters=max(1, iters // 5)),
+                "library_ms": time_ms(torch, library, iters=iters),
+                "library_device_ms": device_ms(library, calls=3)}
+
+    forward = timed(records, iters=10)
+    largest = timed(records[:1], iters=50)
+    kinds = {}
+    for _, _, kind in records:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    r = {"cfg": EPILOGUE_CFG, "batch": BATCH, "net": NET,
+         "convs_by_activation": kinds,
+         "vector_path_convs": sum(y.shape[1] % 8 == 0 for y, _, _ in records),
+         "max_ulps_from_plain": worst, "forward": forward,
+         "largest": {"shape": list(records[0][0].shape), **largest},
+         "forward_launches_by_width": forward_at}
+    emit({"phase": "epilogue", "ok": True, **r})
+    return r
+
+
 def _models(torch):
     from modelcompression_tpu_torch.compress import (
         repack, uniform_filter_fraction_keep_sets,
@@ -853,8 +1023,9 @@ def _agrees_with_cpu(torch, kernels, spec, params, n_frames=2):
                         (y if isinstance(y, (tuple, list)) else [y])]
     counts = read_counts(kernels)
     check(counts[FP32_INPUT_STAGE] == int(fp32_stage)
-          and counts["input_stage_mma"] == 0 and counts[YARDSTICK] == 0,
-          f"fp32 forward: input-stage launches {counts}")
+          and counts["input_stage_mma"] == 0 and counts[YARDSTICK] == 0
+          and counts[EPILOGUE] == 0,
+          f"fp32 forward: input-stage and epilogue launches {counts}")
     with torch.inference_mode():
         rels = [((a - b).abs().max() / b.abs().max()).item()
                 for a, b in zip(raw["cuda"], raw["cpu"])]
@@ -914,8 +1085,12 @@ def drive_serving(torch, kernels, spec, params, label, want=None,
     torch.cuda.synchronize()
     counts = read_counts(kernels)
     at = read_widths(kernels)
+    epilogue = epilogue_convs(spec)  # the step's one forward
+    check(counts[EPILOGUE] == epilogue, f"{label}: {counts[EPILOGUE]} conv "
+          f"epilogue launches, expected {epilogue}")
     if want is not None:
         want = {name: want.get(name, 0) for name, _ in kernels}
+        want[EPILOGUE] = epilogue
         check(counts == want, f"{label}: launches {counts}, expected {want}")
     for name in SERVING_KERNELS if want is None else ():
         check(counts[name] >= 1, f"{label}: kernel {name} launched "
@@ -973,7 +1148,8 @@ def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
     the serving path must launch, or with ``want`` (launches per batch)
     exactly those counts for every batch served; ``want_cfg`` holds the
     resolved EvalConfig's fields; with ``int8_convs`` the int8 conv's card
-    route runs that many times a batch. Returns the launches by width."""
+    route runs that many times a batch (and the conv epilogue never, else
+    once a conv of the float forward). Returns the launches by width."""
     import urllib.request
 
     import cv2
@@ -1034,9 +1210,15 @@ def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
         check(stats["images"] == n_req + n_post,
               f"/stats served {stats['images']}")
         counts, at = read_counts(kernels), read_widths(kernels)
+        epilogue = stats["batches"] * (
+            0 if int8_convs is not None else epilogue_convs(state.spec))
+        check(counts[EPILOGUE] == epilogue, f"server {label}: "
+              f"{counts[EPILOGUE]} conv epilogue launches over "
+              f"{stats['batches']} batches, expected {epilogue}")
         if want is not None:
             want = {name: stats["batches"] * want.get(name, 0)
                     for name, _ in kernels}
+            want[EPILOGUE] = epilogue
             check(counts == want, f"server {label}: launches {counts} over "
                   f"{stats['batches']} batches, expected {want}")
         for name in SERVING_KERNELS if want is None else ():
@@ -1218,8 +1400,10 @@ def _first_batch_equal(torch, kernels, spec, params, samples, names):
     folded = params_to(fold_batchnorm(params, spec), "cuda")
     reset_counts(kernels)
     outs = [t.cpu().numpy() for t in step(folded, *canvases)]
-    check(read_counts(kernels)["input_stage_mma"] == 1,
-          "the direct eval step did not launch the mma input stage")
+    counts = read_counts(kernels)
+    check(counts["input_stage_mma"] == 1
+          and counts[EPILOGUE] == epilogue_convs(spec),
+          f"the direct eval step's launches {counts}")
     boxes, scores, valid = outs[:3]
     want = {c: [] for c in names}
     for bi, s in enumerate(first):
@@ -1310,7 +1494,7 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
                                       base + ["--data", data], "eval FAST")
     widths["eval"] = at
     want = {name: 0 for name, _ in kernels}
-    want["input_stage_mma"] = n_batches
+    want.update(forwards_want(spec, n_batches))
     check(counts == want, f"eval FAST: launches {counts}, expected {want}")
     check(at["input_stage_mma"] == {c1: n_batches},
           f"eval FAST: mma input-stage launches by C {at['input_stage_mma']}")
@@ -1337,8 +1521,8 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
         "eval --precision bitmatch")
     widths["eval_bitmatch"] = at
     check(all(counts[n] == 0 for n in ("input_stage_mma", FP32_INPUT_STAGE,
-                                        YARDSTICK)),
-          f"eval bitmatch: input-stage launches {counts}")
+                                        YARDSTICK, EPILOGUE)),
+          f"eval bitmatch: input-stage and epilogue launches {counts}")
     m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
                   re.M)
     check(m and int(m.group(2)) == BATCH, "eval bitmatch printed no summary")
@@ -1363,13 +1547,15 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
     widths["sweep"] = at
     want = {name: len(SWEEP_POINTS) * PRUNE_LAUNCHES.get(name, 0)
             for name, _ in kernels}
-    want["input_stage_mma"] = len(SWEEP_POINTS) * n_batches
+    want.update(forwards_want(spec, len(SWEEP_POINTS) * n_batches))
     check(counts == want, f"prune --sweep --data: launches {counts}, "
           f"expected {want}")
     # each point prunes at the widths of phase 6's --mode magnitude call
     want_at = {name: {w: len(SWEEP_POINTS) * n for w, n in by.items()}
                for name, by in prune_widths["magnitude"].items()}
     want_at["input_stage_mma"] = {c1: len(SWEEP_POINTS) * n_batches}
+    want_at[EPILOGUE] = {c: len(SWEEP_POINTS) * n_batches * n
+                         for c, n in epilogue_widths(spec).items()}
     check(at == want_at, f"prune --sweep --data: launches by width {at}, "
           f"expected {want_at}")
     maps = [float(x) for x in re.findall(r"mAP@50 ([0-9.naif-]+)$", out,
@@ -1748,7 +1934,7 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
     widths["finetune"] = at
     c1 = spec.layers[0].filters
     expect_launches(kernels, counts, at, "finetune --preserve-sparsity",
-                    {"input_stage_mma": n_batches},
+                    forwards_want(spec, n_batches),
                     {"input_stage_mma": {c1: n_batches}})
     losses = [rec["loss"] for rec in _read_jsonl(log_a)]
     check(losses and all(math.isfinite(v) for v in losses),
@@ -1775,7 +1961,7 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
     n_r = len(ITER_FRACTIONS)
     r["iterate_magnitude"], widths["iterate_magnitude"] = iterate_magnitude(
         torch, kernels, base + ["--weights", weights, *iterate], spec, tmp,
-        "yolov2", {"input_stage_mma": n_r * n_batches})
+        "yolov2", forwards_want(spec, n_r * n_batches))
 
     # (c) filter iterate: the evals run the input stage at each width
     out, counts, at, secs = _run_cli(
@@ -1786,7 +1972,7 @@ def phase_finetune(torch, kernels, card, tmp, data, weights):
     widths["iterate_l1_filter"] = at
     c_rounds = [int(round(c1 * (1 - f))) for f in ITER_FRACTIONS]
     expect_launches(kernels, counts, at, "finetune --iterate l1_filter",
-                    {"input_stage_mma": n_r * n_batches},
+                    forwards_want(spec, n_r * n_batches),
                     {"input_stage_mma": {c: n_batches for c in c_rounds}})
     slim = load_cfg(os.path.join(tmp, "slim.cfg"))
     check(slim.layers[0].filters == c_rounds[-1],
@@ -2055,9 +2241,13 @@ def phase_families(torch, kernels, card, tmp, data):
         base + ["--dir", frames, "--out-dir", os.path.join(tmp, "drawn"),
                 "--batch", str(DETECT_IMAGES), "--deployment"],
         "detect --dir")
+    # one batch: the conv epilogue once a conv, no input stage
+    det_want = dict.fromkeys(counts, 0)
+    det_want.update(forwards_want(cli_spec, 1))
     check(f"over {DETECT_IMAGES} images" in out
           and len(os.listdir(os.path.join(tmp, "drawn"))) == DETECT_IMAGES
-          and not any(counts.values()), f"detect --dir: launches {counts}")
+          and counts == det_want, f"detect --dir: launches {counts}, "
+          f"expected {det_want}")
     widths["detect"] = at
     n_batches = -(-EVAL_IMAGES // BATCH)
     out, counts, at, ev_s = _run_cli(
@@ -2069,6 +2259,7 @@ def phase_families(torch, kernels, card, tmp, data):
         "eval --diou-nms --nms-prefilter-impl bisect")
     want = {name: n_batches * PRUNE_LAUNCHES.get(name, 0)
             for name, _ in kernels}
+    want.update(forwards_want(cli_spec, n_batches))
     check(counts == want, f"eval bisect: launches {counts}, expected {want}")
     check(at["topk_radix_select"] == {BATCH: n_batches * SELECT_LAUNCHES}
           and at[TOPK_YARDSTICK] == {},
@@ -2371,7 +2562,7 @@ def phase_families_train(torch, kernels, card, tmp, data):
         "finetune yolov3-tiny-voc")
     c1 = v3.layers[0].filters
     expect_launches(kernels, counts, at, "finetune yolov3-tiny-voc",
-                    {"input_stage_mma": n_batches},
+                    forwards_want(v3, n_batches),
                     {"input_stage_mma": {c1: n_batches}})
     widths["finetune_yolov3_tiny"] = at
     losses = [rec["loss"] for rec in _read_jsonl(log)]
@@ -2448,7 +2639,8 @@ def phase_families_train(torch, kernels, card, tmp, data):
             src, "--steps", str(ITER_STEPS), "--iterate",
             ",".join(map(str, ITER_FRACTIONS))]
     r, widths["iterate_magnitude_yolov4"] = iterate_magnitude(
-        torch, kernels, base, spec, tmp, "yolov4", {})
+        torch, kernels, base, spec, tmp, "yolov4",
+        forwards_want(spec, len(ITER_FRACTIONS) * n_batches))
     done("iterate_magnitude", **r)
     ck = os.path.join(tmp, "ck_l1_yolov4")
     _, counts, at, secs = _run_cli(
@@ -2458,7 +2650,8 @@ def phase_families_train(torch, kernels, card, tmp, data):
                 os.path.join(tmp, "v4_iter_l1.weights")],
         "finetune --iterate l1_filter --tied group")
     expect_launches(kernels, counts, at, "iterate l1_filter --tied group",
-                    {}, {})
+                    forwards_want(spec, len(ITER_FRACTIONS) * n_batches),
+                    {})
     rounds = []
     for ridx, frac in enumerate(ITER_FRACTIONS):
         rspec, saved, meta = load_checkpoint(os.path.join(
@@ -3072,7 +3265,7 @@ def phase_int8(torch, kernels, card, tmp, data, weights, bf16):
     widths["finetune_qat"] = at
     c1 = spec.layers[0].filters
     expect_launches(kernels, counts, at, "finetune --qat",
-                    {"input_stage_mma": n_batches},
+                    forwards_want(spec, n_batches),
                     {"input_stage_mma": {c1: n_batches}})
     check(int8.LAUNCHES == n_batches * n_int8,
           f"finetune --qat: {int8.LAUNCHES} int8 convs in the int8 eval")
@@ -3262,7 +3455,7 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
         widths[f"gmp_{mode}"] = at
         prune_want = {n: GMP_STEPS * k for n, k in PRUNE_LAUNCHES.items()}
         expect_launches(kernels, counts, at, label,
-                        dict(prune_want, input_stage_mma=n_batches),
+                        dict(prune_want, **forwards_want(spec, n_batches)),
                         dict({n: {S: k} for n, k in prune_want.items()},
                              input_stage_mma={c1: n_batches}))
         check(len(records) == GMP_STEPS
@@ -3342,7 +3535,7 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
     n_r = len(ITER_FRACTIONS)
     prune_want = {n_: n_r * k for n_, k in PRUNE_LAUNCHES.items()}
     expect_launches(kernels, counts, at, label,
-                    dict(prune_want, input_stage_mma=n_r * n_batches),
+                    dict(prune_want, **forwards_want(spec, n_r * n_batches)),
                     dict({n_: {2: k} for n_, k in prune_want.items()},
                          input_stage_mma={c1: n_r * n_batches}))
     it_w, _ = load_weights(out_path("lamp_it.weights"), spec)
@@ -3376,8 +3569,11 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
          str(DISTILL_STEPS), "--distill", weights, "--distill-cfg", cfg,
          "--out", out_path("distilled.weights"), "--log-jsonl", log], label)
     widths["finetune_distill"] = at
-    expect_launches(kernels, counts, at, label,
-                    {"input_stage_mma": n_batches},
+    # the student's eval, and the teacher's forward once a step (no
+    # gradient, bf16, without the input stage)
+    want = forwards_want(s_spec, n_batches)
+    want[EPILOGUE] += DISTILL_STEPS * epilogue_convs(spec, fused=False)
+    expect_launches(kernels, counts, at, label, want,
                     {"input_stage_mma": {s_c1: n_batches}})
     log_recs = _read_jsonl(log)
     check(log_recs and all(math.isfinite(r["loss_distill"])
@@ -3470,7 +3666,7 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
         eval_cli.reconstruct = orig_reconstruct
     widths["eval_cluster"] = at
     expect_launches(kernels, counts, at, label,
-                    {"input_stage_mma": n_batches},
+                    forwards_want(spec, n_batches),
                     {"input_stage_mma": {c1: n_batches}})
     check(load_huffcodec() is not None, "the native Huffman codec did not "
           "load (g++ build into modelcompression_tpu_torch/_build)")
@@ -3511,8 +3707,8 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
          str(DETECT_QMODEL_IMAGES), "--device", "cuda", "--deployment"],
         "detect --cmodel --dir")
     widths["detect_cmodel"] = at
-    expect_launches(kernels, counts, at, "detect --cmodel", {
-        "input_stage_mma": 1}, {"input_stage_mma": {c1: 1}})
+    expect_launches(kernels, counts, at, "detect --cmodel",
+                    forwards_want(spec, 1), {"input_stage_mma": {c1: 1}})
     widths["server_cmodel"] = phase_server(
         torch, kernels, card, extra=["--cmodel", cpath],
         want={"input_stage_mma": 1}, label="yolov2_voc_cmodel",
@@ -3526,7 +3722,7 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
          "--out", out_path("qat-packed.weights")], label)
     widths["finetune_qat_pack"] = at
     expect_launches(kernels, counts, at, label,
-                    {"input_stage_mma": n_batches},
+                    forwards_want(spec, n_batches),
                     {"input_stage_mma": {c1: n_batches}})
     with np.load(qpath) as z:
         n_packed = sum(f_.endswith("/wq_payload") for f_ in z.files)
@@ -3664,7 +3860,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
         out, counts, at, secs = _run_cli(torch, kernels, eval_cli.main,
                                          base + extra, tag)
         expect_launches(kernels, counts, at, tag,
-                        {"input_stage_mma": n_batches},
+                        forwards_want(spec, n_batches),
                         {"input_stage_mma": {c1: n_batches}})
         widths[tag] = at
         evals[tag] = {"seconds": secs, "summary": _summary_lines(out)}
@@ -3707,7 +3903,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
         check(stats["dp"] == 1 and health["dp"] == 1
               and stats["images"] == 3, f"serve --dp 1: /stats {stats}")
         expect_launches(kernels, counts, at, "serve --dp 1",
-                        {"input_stage_mma": stats["batches"]},
+                        forwards_want(spec, stats["batches"]),
                         {"input_stage_mma": {c1: stats["batches"]}})
         widths["serve_dp1"] = at
         direct_step = make_eval_step(spec, state.cfg)
@@ -3733,7 +3929,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
     ft = ["--cfg", cfg, "--weights", weights, "--data", data, "--steps",
           str(DP_STEPS), "--batch", str(BATCH), "--subdivisions", str(sub),
           "--device", "cuda"]
-    eval_want = ({"input_stage_mma": n_batches},
+    eval_want = (forwards_want(spec, n_batches),
                  {"input_stage_mma": {c1: n_batches}})
     runs = {}
     with deterministic_cudnn(torch):
@@ -3765,7 +3961,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
               out_path("ft_dp1_gmp.weights")],
         "finetune --dp 1 --gmp", out_path("launches_ft_dp1_gmp"))
     expect_launches(kernels, counts, at, "finetune --dp 1 --gmp",
-                    dict(prune_want, input_stage_mma=n_batches),
+                    dict(prune_want, **forwards_want(spec, n_batches)),
                     dict({n: {s_layer: k} for n, k in prune_want.items()},
                          input_stage_mma={c1: n_batches}))
     widths["finetune_dp1_gmp"] = at
@@ -3869,7 +4065,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
     # evals at C=32: the baseline; at the slim width: the round's, the
     # pruned stage's, QAT's float eval and the cmodel's (int8: none)
     expect_launches(kernels, counts, at, "deploy",
-                    {"input_stage_mma": 5 * n_batches},
+                    forwards_want(spec, 5 * n_batches),
                     {"input_stage_mma": {c1: n_batches,
                                          c_slim: 4 * n_batches}})
     widths["deploy"] = at
@@ -4142,7 +4338,7 @@ def phase_tensor_parallel(torch, kernels, card, tmp, data, weights):
         counts = {n: got[n]["launches"] for n, _ in kernels}
         at = {n: {int(k): c for k, c in got[n]["at"].items()}
               for n, _ in kernels}
-        eval_want = ({"input_stage_mma": n_batches} if r == 0 else {})
+        eval_want = forwards_want(spec, n_batches) if r == 0 else {}
         expect_launches(
             kernels, counts, at, f"finetune --tp rank {r}",
             dict(prune_want, **eval_want),
@@ -4235,7 +4431,7 @@ def phase_tools(torch, kernels, card, tmp, data, weights):
         c_want[_kept(c1, f)] = c_want.get(_kept(c1, f), 0) + n_batches
     n_evals = 1 + len(layers) * len(TOOL_FRACTIONS)
     expect_launches(kernels, counts, at, "sensitivity_scan",
-                    {"input_stage_mma": n_batches * n_evals},
+                    forwards_want(spec, n_batches * n_evals),
                     {"input_stage_mma": c_want})
     widths["sensitivity_scan"] = at
     done("sensitivity_scan", seconds=secs, layers=layers,
@@ -4281,7 +4477,7 @@ def phase_tools(torch, kernels, card, tmp, data, weights):
         evals = (1 + 2 * n_sp) * fx_batches
         expect_launches(
             kernels, counts, at, f"sweep_fixture {criterion}",
-            dict(prune_want, input_stage_mma=evals),
+            dict(prune_want, **forwards_want(fx_spec, evals)),
             dict({n: {s_want: k} for n, k in prune_want.items()},
                  input_stage_mma={FIXTURE_WIDTHS[0]: evals}))
         widths[f"sweep_fixture_{criterion}"] = at
@@ -4339,7 +4535,8 @@ def phase_tools(torch, kernels, card, tmp, data, weights):
     for c in round_widths:
         mma_want[c] = 2 * fx_batches  # after the prune, after the tune
     expect_launches(kernels, counts, at, "sweep_l1_iterative",
-                    {"input_stage_mma": sum(mma_want.values())},
+                    forwards_want(r["rounds"][0]["spec"],
+                                  sum(mma_want.values())),
                     {"input_stage_mma": mma_want})
     widths["sweep_l1_iterative_v2"] = at
     check(all(math.isfinite(rd[k]) for rd in r["rounds"]
@@ -4434,7 +4631,7 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                    ft_widths, fam_widths, fam_topk, train_widths,
                    train_topk, int8_widths, quantile_select, cmp_widths,
                    par_widths, tp_widths, tool_widths, tool_cases,
-                   tool_topk):
+                   tool_topk, epilogue):
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
@@ -4493,7 +4690,13 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     stages at each new width and shape it holds (``batch``, ``net``;
     ``launches`` the phase's at that width, whatever the shape) and the
     top-k kernels at the fixture's S=7 (per layer) and S=2 (global),
-    with each kernel's device time (``device_ms``)."""
+    with each kernel's device time (``device_ms``). The conv epilogue's
+    entry times phase 3b's 110 launches (YOLOv4-VOC 416's conv outputs at
+    batch 64) against its bound, the plain version and the eager chain it
+    replaced (``library_ms``); its ``launches`` are phase 4's serving step
+    of the unpruned YOLOv2-VOC (one a conv, less conv 0 in the input
+    stage), and every ``*_launches`` field counts its launches on each
+    path of that phase, over all widths."""
     def on(widths, source, width):
         return {path: at[source].get(width, 0)
                 for path, at in widths.items()}
@@ -4684,6 +4887,33 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
                 sum(on(tool_widths, source, s).values()),
                 {"tools_launches": on(tool_widths, source, s),
                  "device_ms": r[key].get("device_ms")}, None))
+
+    def all_widths(widths):
+        return {path: sum(at.get(EPILOGUE, {}).values())
+                for path, at in widths.items()}
+
+    f = epilogue["forward"]
+    entries.append({
+        "name": EPILOGUE, "route": "cuda",
+        "source": f"modelcompression_tpu_torch/csrc/{EPILOGUE}.cu",
+        "replaces": None,  # XLA fuses this epilogue for the JAX package
+        "launches": launches["unpruned"][EPILOGUE],
+        "main_launches": {m: c[EPILOGUE] for m, c in launches.items()},
+        "shape": f"{epilogue['cfg']} batch {epilogue['batch']}, "
+                 f"{f['launches']} conv outputs",
+        "max_ulps_from_plain": epilogue["max_ulps_from_plain"],
+        **{k: f[k] for k in ("ms", "device_ms", "bound_ms", "bound_by",
+                             "roofline_pct", "plain_ms", "library_ms",
+                             "library_device_ms")},
+        "eval_launches": all_widths(eval_widths),
+        "finetune_launches": all_widths(ft_widths),
+        "families_launches": all_widths(fam_widths),
+        "families_train_launches": all_widths(train_widths),
+        "int8_launches": all_widths(int8_widths),
+        "compress_launches": all_widths(cmp_widths),
+        "parallel_launches": all_widths(par_widths),
+        "tensor_parallel_launches": all_widths(tp_widths),
+        "tools_launches": all_widths(tool_widths)})
     return entries
 
 
@@ -4714,6 +4944,7 @@ def main() -> int:
         phase_build(KERNELS)
         cases = phase_kernels(torch)
         topk = phase_topk_kernels(torch)
+        epilogue = phase_epilogue(torch)
         launches, main_lines = phase_main(torch, KERNELS, card)
         phase_server(torch, KERNELS, card)
         with tempfile.TemporaryDirectory() as tmp:
@@ -4745,7 +4976,7 @@ def main() -> int:
                                         int8_widths, quantile_select,
                                         cmp_widths, par_widths, tp_widths,
                                         tool_widths, tool_cases,
-                                        tool_topk)})
+                                        tool_topk, epilogue)})
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -11,6 +11,10 @@ Port of ``modelcompression_tpu/models/darknet.py``. Layout:
 * Inside, the conv stack runs NCHW in ``torch.channels_last``: an NHWC
   tensor permuted to NCHW is already channels-last storage, so the input
   stage kernel's ``(B, H/2, W/2, C)`` output feeds conv 2 with no copy.
+* The BN-folded forward in bf16 on the card, when no gradient is wanted,
+  runs each conv's bias add and activation as one hand-written pass in
+  place on the conv's output (``ops/conv_epilogue.py``); every other
+  forward (CPU, BITMATCH, autograd) keeps the eager chain.
 
 Darknet quirks carried over: maxpool size-2/stride-1 pads bottom/right
 with -inf; ``reorg`` is TF ``space_to_depth`` order (channel-major over
@@ -179,9 +183,12 @@ def reorg(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
 
 
 def upsample_nearest(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
-    """Darknet [upsample] on NCHW: out[i, j] = in[i // s, j // s]."""
-    return x.repeat_interleave(stride, dim=2).repeat_interleave(stride,
-                                                                dim=3)
+    """Darknet [upsample] on NCHW: out[i, j] = in[i // s, j // s], written
+    in channels-last storage as the rest of the conv stack (repeated on
+    the NHWC view)."""
+    x = x.permute(0, 2, 3, 1)
+    x = x.repeat_interleave(stride, dim=1).repeat_interleave(stride, dim=2)
+    return x.permute(0, 3, 1, 2)
 
 
 def _nhwc_out(y: torch.Tensor) -> torch.Tensor:
@@ -194,6 +201,8 @@ def _forward_impl(params: Params, x: torch.Tensor, spec: NetworkSpec,
                   precision: Precision, folded: bool, channel_masks,
                   fuse_input_stage: bool = False, train_stats: bool = False):
     precision.apply_backend_flags()
+    if folded:
+        from modelcompression_tpu_torch.ops import conv_epilogue
     outputs: List[Optional[torch.Tensor]] = []
     heads: List[torch.Tensor] = []
     start = 0
@@ -225,8 +234,13 @@ def _forward_impl(params: Params, x: torch.Tensor, spec: NetworkSpec,
             p = params[conv_key(i)]
             if folded:
                 y = _conv(y, p["w"], l, precision)
-                y = _activate(y + _per_channel(p["bias"], y.dtype),
-                              l.activation)
+                if conv_epilogue.takes(y, l.activation):
+                    # bias + activation in one hand-written pass, in place
+                    y = conv_epilogue.launch(y, p["bias"].float(),
+                                             l.activation)
+                else:
+                    y = _activate(y + _per_channel(p["bias"], y.dtype),
+                                  l.activation)
             else:
                 y = conv_bn_act(y, p, l, precision, train_stats=train_stats)
             if channel_masks is not None and i in channel_masks:

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from modelcompression_tpu_torch.ops import conv_epilogue as tce
 from modelcompression_tpu_torch.ops import cuda_topk as ct
 from modelcompression_tpu_torch.ops import input_stage as tis
 from modelcompression_tpu_torch.ops import topk_mask as ttm
@@ -836,3 +837,212 @@ def test_int8_conv_card_route_equals_plain(cuda_device, b, hw, c, k, n,
     assert ti8.int8_conv_cuda.LAUNCHES_AT[n] == at0 + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, ti8.int8_conv_plain(x, w, stride, k // 2))
+
+
+# ---- the conv epilogue: bias + activation in place after a folded conv -----
+
+EPILOGUE_KINDS = ("linear", "leaky", "mish")
+
+
+def _epilogue_case(b, c, h, w, seed, device, misaligned=False):
+    """A bf16 conv output (B, C, H, W) in channels-last storage and an fp32
+    bias. ``misaligned``: y's storage starts 2 bytes past a 16-byte
+    boundary, so the kernel takes its scalar path whatever C is."""
+    g = torch.Generator().manual_seed(seed)
+    nhwc = (torch.randn((b, h, w, c), generator=g) * 4).to(torch.bfloat16)
+    bias = torch.randn((c,), generator=g)
+    buf = torch.empty(nhwc.numel() + int(misaligned), dtype=torch.bfloat16,
+                      device=device)
+    y = buf[int(misaligned):].view(b, h, w, c)
+    y.copy_(nhwc)
+    return y.permute(0, 3, 1, 2), bias.to(device)
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in units of want's bf16 ulp (2^-7 of its magnitude,
+    at least the smallest subnormal)."""
+    want = want.double()
+    ulp = torch.clamp(want.abs() * 2.0 ** -7, min=2.0 ** -133)
+    return ((got.double() - want).abs() / ulp).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned, entry", [
+    (False, "bias_act_cuda"), (True, "bias_act_cuda"), (False, "launch")],
+    ids=["aligned", "misaligned", "launch"])
+@pytest.mark.parametrize("kind", EPILOGUE_KINDS)
+@pytest.mark.parametrize("b, c, h, w", [
+    (3, 8, 7, 37),      # M = 777: ragged against any block of vectors
+    (3, 32, 7, 37),
+    (2, 75, 13, 13),    # YOLOv4's heads: the scalar path
+    (2, 1024, 5, 13),
+    (2, 128, 104, 104),  # a YOLOv4 shape (CSP stage 2 at 416)
+])
+def test_conv_epilogue_kernel_matches_plain(cuda_device, b, c, h, w, kind,
+                                            misaligned, entry):
+    """The kernel against its plain version: linear and leaky bit for bit
+    (the same fp32 add and multiply, one rounding), mish within one bf16
+    ulp (exp2f against torch.exp can move the one rounding); in place,
+    one launch counted at C. Through the checked wrapper aligned (the
+    vector path where C % 8 == 0) and misaligned (the scalar path), and
+    through the forward's unchecked ``launch``."""
+    y, bias = _epilogue_case(b, c, h, w, c + h, cuda_device, misaligned)
+    want = tce.bias_act_plain(y, bias, kind)
+    n0, at0 = tce.bias_act_cuda.LAUNCHES, tce.bias_act_cuda.LAUNCHES_AT[c]
+    ptr = y.data_ptr()
+    got = getattr(tce, entry)(y, bias, kind)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr and got.shape == want.shape
+    assert tce.bias_act_cuda.LAUNCHES == n0 + 1
+    assert tce.bias_act_cuda.LAUNCHES_AT[c] == at0 + 1
+    if kind == "mish":
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", EPILOGUE_KINDS)
+@pytest.mark.parametrize("c", [32, 75])
+def test_conv_epilogue_kernel_matches_eager_chain(cuda_device, kind, c):
+    """The kernel against the eager bf16 chain it replaces in the folded
+    forward (bias cast, add, activation passes), within 2 bf16 ulps of the
+    largest magnitude: the chain rounds after every pass."""
+    from modelcompression_tpu_torch.models import darknet
+    y, bias = _epilogue_case(4, c, 26, 26, 7 * c, cuda_device)
+    eager = darknet._activate(y + darknet._per_channel(bias, y.dtype), kind)
+    got = tce.bias_act_cuda(y, bias, kind)
+    torch.cuda.synchronize()
+    top = eager.float().abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert (got.float() - eager.float()).abs().max().item() <= 2 * ulp
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_mish_edges(cuda_device):
+    """Mish at the cut-off, far above it and far below it (exp(v)
+    subnormal in fp32) against the plain version, within one bf16 ulp."""
+    v = torch.tensor([-100.0, -88.0, -20.0, -1.0, 0.0, 1.0, 19.5, 20.0,
+                      21.0, 50.0, 88.0] * 8, dtype=torch.bfloat16)
+    y = v.reshape(1, 1, 1, -1).to(cuda_device)  # C=1: channels-last too
+    bias = torch.zeros(1, device=cuda_device)
+    want = tce.bias_act_plain(y, bias, "mish")
+    got = tce.bias_act_cuda(y.clone(), bias, "mish")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_folded_forward_launches_epilogue_per_conv(cuda_device):
+    """One FAST ``forward_folded`` of the YOLOv4-tiny fixture (mish, leaky
+    and linear convs) on the card launches the epilogue once a conv, at
+    each conv's width, and agrees with the eager chain on the same card
+    to within bf16's drift over the stack; BITMATCH, and FAST under
+    autograd, launch nothing."""
+    from modelcompression_tpu_torch.core.precision import BITMATCH, FAST
+    from modelcompression_tpu_torch.data.fixtures import tiny_yolo4_cfg
+    from modelcompression_tpu_torch.models import darknet
+    from modelcompression_tpu_torch.models.cfg import ConvLayer, parse_cfg
+    spec = parse_cfg(tiny_yolo4_cfg(num_classes=3))
+    convs = [l for l in spec.layers if isinstance(l, ConvLayer)]
+    assert {l.activation for l in convs} == set(EPILOGUE_KINDS)
+    folded = darknet.params_to(darknet.fold_batchnorm(
+        darknet.init_params(spec, seed=0), spec), cuda_device)
+    x = torch.rand((4, spec.net.height, spec.net.width, 3),
+                   generator=torch.Generator().manual_seed(0)).to(cuda_device)
+
+    def launches(fn):
+        n0 = tce.bias_act_cuda.LAUNCHES
+        at0 = dict(tce.bias_act_cuda.LAUNCHES_AT)
+        out = fn()
+        torch.cuda.synchronize()
+        at = {c: n - at0.get(c, 0)
+              for c, n in tce.bias_act_cuda.LAUNCHES_AT.items()
+              if n != at0.get(c, 0)}
+        return out, tce.bias_act_cuda.LAUNCHES - n0, at
+
+    with torch.inference_mode():
+        got, n, at = launches(lambda: darknet.forward_folded(
+            folded, x, spec, FAST))
+    assert n == len(convs)
+    want_at = {}
+    for l in convs:
+        want_at[l.filters] = want_at.get(l.filters, 0) + 1
+    assert at == want_at
+    real_takes = tce.takes
+    try:
+        tce.takes = lambda y, kind: False
+        with torch.inference_mode():
+            eager, n_eager, _ = launches(lambda: darknet.forward_folded(
+                folded, x, spec, FAST))
+    finally:
+        tce.takes = real_takes
+    assert n_eager == 0
+    for g, e in zip(got, eager):
+        scale = e.abs().max().item()
+        assert (g - e).abs().max().item() <= 0.03 * scale
+    with torch.inference_mode():
+        _, n_bitmatch, _ = launches(lambda: darknet.forward_folded(
+            folded, x, spec, BITMATCH))
+    assert n_bitmatch == 0
+    grad_params = {k: {n_: t.detach().clone().requires_grad_(True)
+                       for n_, t in p.items()} for k, p in folded.items()}
+    out, n_grad, _ = launches(lambda: darknet.forward_folded(
+        grad_params, x, spec, FAST))
+    assert n_grad == 0
+    sum(o.float().sum() for o in out).backward()
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_rejects_bad_inputs(cuda_device):
+    """fp32 y, a y in NCHW or in neither storage, a bias on another
+    device than y and a CPU y raise before any launch, y untouched."""
+    y, bias = _epilogue_case(2, 16, 4, 4, 0, cuda_device)
+    before = y.clone()
+    n0 = tce.bias_act_cuda.LAUNCHES
+    cases = [
+        (y.float(), bias, "bf16"),
+        (y.contiguous(), bias, "channels-last"),
+        (y.transpose(2, 3).contiguous().transpose(2, 3), bias,
+         "channels-last"),
+        (y, bias.cpu(), "fp32"),
+        (y.cpu(), bias.cpu(), "CUDA tensor"),
+    ]
+    for yy, bb, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            tce.bias_act_cuda(yy, bb, "mish")
+    torch.cuda.synchronize()
+    assert tce.bias_act_cuda.LAUNCHES == n0
+    assert torch.equal(y, before)
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_launch_is_a_host_op_under_the_profiler(cuda_device):
+    """Under ``torch.profiler`` each launch of one FAST forward of the
+    YOLOv4-tiny fixture is a ``conv_epilogue`` host op with exactly one
+    device kernel linked to it, the epilogue's: the trace counts it as it
+    counts PyTorch's own ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modelcompression_tpu_torch.core.precision import FAST
+    from modelcompression_tpu_torch.data.fixtures import tiny_yolo4_cfg
+    from modelcompression_tpu_torch.models import darknet
+    from modelcompression_tpu_torch.models.cfg import ConvLayer, parse_cfg
+    spec = parse_cfg(tiny_yolo4_cfg(num_classes=3))
+    n_convs = sum(isinstance(l, ConvLayer) for l in spec.layers)
+    folded = darknet.params_to(darknet.fold_batchnorm(
+        darknet.init_params(spec, seed=0), spec), cuda_device)
+    x = torch.rand((2, spec.net.height, spec.net.width, 3),
+                   generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.inference_mode():
+        darknet.forward_folded(folded, x, spec, FAST)  # built and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            darknet.forward_folded(folded, x, spec, FAST)
+            torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.name == "conv_epilogue"]
+    assert len(ops) == n_convs
+    assert all(len(e.kernels) == 1 and "conv_epilogue_" in e.kernels[0].name
+               for e in ops), [[k.name for k in e.kernels] for e in ops]
