@@ -18,20 +18,17 @@ Phases, each printing JSON lines on stdout:
             paths' shapes, with kernel, plain and library times from CUDA
             events and the roofline bound. Input stage: B=64, 416x416, C in
             {32, 8}, bf16 and fp32, tolerance stated per case; bf16 runs
-            the tensor-core (mma) kernel, fp32 the fp32 CUDA-core kernel,
-            each timed beside the first CUDA-core kernel (``input_stage``,
-            the yardstick no path launches) in the same dtype (``prev_ms``,
-            ``prev_max_abs_err``). Top-k/mask
-            (radix select, tie count, apply, and the count kernel, the
-            yardstick no path launches): the flat layout of YOLOv2-VOC's 23
-            convs (50,634,592 weights, padded), per-layer (S=24) and global
+            the tensor-core (mma) kernel, fp32 the fp32 CUDA-core kernel.
+            Top-k/mask (radix select, tie count, apply): the flat layout
+            of YOLOv2-VOC's 23 convs (50,634,592 weights, padded),
+            per-layer (S=24) and global
             (S=2), on the random weights, on bf16-valued weights (ties), and
             re-pruning pruned weights (0.5 then 0.75; 0.75 then 0.5, where
             the threshold is 0.0): the select's kth and n_below equal its
             plain version's and the bisection's, counts equal, outputs
-            bit-equal. The select is timed whole and per launch beside the
-            31-round bisection through the count kernel; tie count and
-            apply at the chunk prune_flat sizes to the input and at 16K.
+            bit-equal. The select is timed whole and per launch; tie count
+            and apply at the chunk prune_flat sizes to the input and at
+            16K.
 3b. epilogue  the conv epilogue kernel (bias + linear / leaky / mish in
             place) on every conv output of one FAST forward of YOLOv4-VOC
             416 at batch 64, recorded from the forward (110 launches, one a
@@ -53,7 +50,7 @@ Phases, each printing JSON lines on stdout:
             a CUDA-core one); outputs must be finite with the stated
             shapes, and a small fp32 (BITMATCH) batch must agree with the
             same forward on the CPU (through the fp32 input-stage kernel,
-            never the mma or the yardstick). Steady img/s from CUDA
+            never the mma). Steady img/s from CUDA
             events.
 5. server   the serve CLI's build_server on 127.0.0.1 (--deployment
             --batch 64 --device cuda, random weights): /healthz, a few
@@ -62,8 +59,8 @@ Phases, each printing JSON lines on stdout:
 6. prune    the prune CLI on full-width YOLOv2-VOC (random weights from seed
             0 written as .weights), --mode magnitude then --mode global at
             --sparsity 0.75 --device cuda. Each call must launch the radix
-            select exactly 5 times, the tie-count and apply kernels once,
-            and the count kernel never; the written masks must equal the
+            select exactly 5 times, the tie-count and apply kernels once;
+            the written masks must equal the
             reference (stable argsort) backend's on the card, with exactly
             floor(0.75 n) zeros per layer (global: of all N). The written
             .weights are reloaded and served at batch 64 as in phase 4,
@@ -79,8 +76,8 @@ Phases, each printing JSON lines on stdout:
             eval step's on the same 64 canvases. Then --precision bitmatch
             on the first 64 images (no input-stage launch), --recall (exit
             0), and prune --mode magnitude --sweep 0.5,0.75 --data at
-            --batch 64 (radix select / count / tie-count / apply launched
-            10 / 0 / 2 / 2 times; a finite mAP@50 per point). Reports
+            --batch 64 (radix select / tie-count / apply launched
+            10 / 2 / 2 times; a finite mAP@50 per point). Reports
             steady eval img/s (host PNG decode included), the mAP (random
             weights: a smoke value, not an accuracy figure), each path's
             launches by kernel width (C, S), and the host decode time of
@@ -103,7 +100,7 @@ Phases, each printing JSON lines on stdout:
             phase 6's magnitude-pruned .weights: finite losses, every zero
             still zero, seen grown by steps x 64, 3 input-stage launches in
             the final eval; (b) --iterate 0.5,0.75 --iterate-mode magnitude:
-            radix select / count / tie / apply launched 10 / 0 / 2 / 2 times
+            radix select / tie / apply launched 10 / 2 / 2 times
             at S=24, each round's masks with floor(s n) zeros per conv and
             its pruned weights zero after the round's steps, mask ms against
             the round's train seconds; (c) --iterate-mode l1_filter: the
@@ -119,8 +116,8 @@ Phases, each printing JSON lines on stdout:
             launched (conv1 feeds a conv, so no input stage), ms/batch,
             img/s, peak memory, a profiler window, the fp32 raw maps of one
             frame card vs CPU within 1e-4 max rel per head; (b) the same
-            step with the bisect prefilter: radix select / count / tie-count
-            / apply launched exactly 5 / 0 / 1 / 1 times at S=64, its
+            step with the bisect prefilter: radix select / tie-count
+            / apply launched exactly 5 / 1 / 1 times at S=64, its
             keep-set equal to the plain route's on the same scores, timed;
             the top-k kernels against their plain versions at this shape,
             timed as in phase 3 (torch.topk of the 128 best per image beside
@@ -130,13 +127,13 @@ Phases, each printing JSON lines on stdout:
             candidates: selections equal (soft-NMS scores within 1e-6
             relative), each timed. The serve CLI's server on yolov4-voc.cfg
             as in phase 5, with --diou-nms --diou-beta 0.6
-            --nms-prefilter-impl bisect: exactly 5 / 0 / 1 / 1 launches for
+            --nms-prefilter-impl bisect: exactly 5 / 1 / 1 launches for
             every batch it served. (d) YOLOv3-tiny 416 (80 classes) at batch
             64: exactly 1 tensor-core input-stage launch at C=16 a batch,
             and the fp32 card-vs-CPU forward through the fp32 input stage.
             (e) detect --dir on 8 fixture images and eval --diou-nms
             --nms-prefilter 128 --nms-prefilter-impl bisect on phase 7's
-            fixture (5 / 0 / 1 / 1 launches a batch), both on random-weight
+            fixture (5 / 1 / 1 launches a batch), both on random-weight
             YOLOv4-tiny-VOC 416, and summary of yolov4.cfg (608): each exits
             0.
 10. families_train  YOLOv4-VOC 416 (random init, seed 0, BN gammas drawn
@@ -153,7 +150,7 @@ Phases, each printing JSON lines on stdout:
             beside it). (b) finetune of YOLOv3-tiny-VOC for 3 steps: finite
             losses, exactly 3 tensor-core input-stage launches at C=16 in
             the final eval. (c) prune of YOLOv4-VOC: --mode magnitude
-            --sparsity 0.75 (exactly 5 / 0 / 1 / 1 radix / count / tie /
+            --sparsity 0.75 (exactly 5 / 1 / 1 radix / tie /
             apply at S=111, the 110 convs and the padding segment; masks
             equal to the reference backend's, floor(0.75 n) zeros per conv)
             and the top-k kernels against their plain versions at that
@@ -167,7 +164,7 @@ Phases, each printing JSON lines on stdout:
             batches of 2 card vs CPU within 1e-6 of the largest in float64,
             the fp32 distances and the keep-set changes at the 0.5 cut (fp32
             and float64) reported. (e) finetune --iterate 0.5,0.75
-            on YOLOv4-VOC: --iterate-mode magnitude (10 / 0 / 2 / 2 at
+            on YOLOv4-VOC: --iterate-mode magnitude (10 / 2 / 2 at
             S=111, each round's masks and zeros checked, mask ms against
             train seconds) and --iterate-mode l1_filter --tied group (each
             round's checkpoint: shortcut widths aligned, each tied group
@@ -220,15 +217,15 @@ Phases, each printing JSON lines on stdout:
             3 steps, per layer and --gmp-global: every due step's fresh
             masks equal to the same recompute through prune_flat's plain
             versions on the same weights, each segment's zeros at least
-            floor(f32(s) f32(n)); exactly 15 / 0 / 3 / 3 radix / count /
+            floor(f32(s) f32(n)); exactly 15 / 3 / 3 radix /
             tie / apply launches at S=24 (S=2 global) and 3 input-stage
             launches in the eval; each recompute's ms, and the step with a
             recompute every step beside the plain step, in turns. (b)
-            prune --mode lamp --sparsity 0.75 (5 / 0 / 1 / 1 at S=2; the
+            prune --mode lamp --sparsity 0.75 (5 / 1 / 1 at S=2; the
             cut through the kernels equal to the stable-argsort rank on
             the same scores, exactly int(0.75 n) zeros; lamp_masks ms
             against its plain route, the per-layer allocation), then
-            finetune --iterate 0.5,0.75 --iterate-mode lamp (10 / 0 / 2 /
+            finetune --iterate 0.5,0.75 --iterate-mode lamp (10 / 2 /
             2 at S=2). (c) finetune --distill: phase 6's unpruned weights
             teach a 75%-L1-pruned, repacked student (--distill-cfg) for 3
             steps: loss_distill finite and positive, 3 input-stage
@@ -259,7 +256,7 @@ Phases, each printing JSON lines on stdout:
             finetune --dp 1 (one NCCL rank, spawned) for 2 steps at the
             cfg's batch 64 / subdivisions 8, cuDNN deterministic: the
             written params bit-equal to finetune's; again with --gmp 0.75
-            --gmp-freq 1 (10 / 0 / 2 / 2 radix / count / tie / apply at
+            --gmp-freq 1 (10 / 2 / 2 radix / tie / apply at
             S=24 and 3 input-stage launches in rank 0, read from the file
             it writes; zeros at least floor(s n)); the step with the mesh
             (BN moments, loss sums and gradients all-reduced) beside the
@@ -288,7 +285,7 @@ Phases, each printing JSON lines on stdout:
             step's, TP and plain, largest relative gradient and parameter
             differences from each other and from the float64 step
             reported; (c) the finetune CLI's ranks with --tp 2 --gmp 0.75
-            --gmp-freq 1 for 2 steps: 10 / 0 / 2 / 2 radix / count / tie /
+            --gmp-freq 1 for 2 steps: 10 / 2 / 2 radix / tie /
             apply launches at S=24 in each rank (the recompute on the
             gathered weights), 3 input-stage launches at C=32 in rank 0's
             eval, read from each rank's file, zeros in the written weights
@@ -309,7 +306,7 @@ Phases, each printing JSON lines on stdout:
             96x96, C=16 / 12 / 8 / 4, bf16) and at the BITMATCH check's
             (batch 4, 128x128, C=16, fp32); (b) sweep_fixture --criterion
             magnitude, global and lamp at 40 base and 10 fine-tune steps:
-            15 / 0 / 3 / 3 radix / count / tie / apply launches (at S=7,
+            15 / 3 / 3 radix / tie / apply launches (at S=7,
             the fixture's 6 convs and the padding, per layer; at S=2
             global and LAMP), every mask equal to prune_flat's plain
             version on the same trained weights, floor(s n) zeros or
@@ -366,18 +363,11 @@ SERVING_KERNELS = ("input_stage_mma",)
 EPILOGUE = "conv_epilogue"
 # the fp32 (BITMATCH) route's input stage, never launched while serving
 FP32_INPUT_STAGE = "input_stage_f32"
-# the first CUDA-core input stage: timed as both routes' yardstick, never
-# launched by a path
-YARDSTICK = "input_stage"
 # launches of one magnitude prune: the radix select's 4 histogram passes
-# and its select launch, then the tie count and the apply; the count
-# kernel (the bisection's yardstick) never
+# and its select launch, then the tie count and the apply
 PRUNE_LAUNCHES = {"topk_radix_select": 5, "topk_tie_counts": 1,
                   "topk_apply": 1}
 SELECT_LAUNCHES = PRUNE_LAUNCHES["topk_radix_select"]
-# the count kernel: the PR 2 bisection's, timed as the radix select's
-# yardstick and never launched by a path
-TOPK_YARDSTICK = "topk_count_le"
 # the eval fixture: two full batches and a ragged one
 EVAL_IMAGES = 160
 SWEEP_POINTS = (0.5, 0.75)
@@ -405,14 +395,6 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call over one window of ``iters`` calls, CUDA events,
-    after warm-up and a synchronize: the port's ``utils.timing.time_fn``
-    with one window."""
-    from modelcompression_tpu_torch.utils.timing import time_fn
-    return time_fn(fn, iters=iters, windows=1, warmup=warmup) * 1e3
-
-
 def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over their peak rate."""
@@ -424,9 +406,8 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
 
 
 def reset_counts(kernels) -> None:
-    for _, wrapper in kernels:
-        wrapper.LAUNCHES = 0
-        wrapper.LAUNCHES_AT.clear()
+    for k in kernels:
+        k.reset()
 
 
 def int8_counter():
@@ -437,14 +418,13 @@ def int8_counter():
 
 
 def read_counts(kernels) -> dict:
-    return {name: wrapper.LAUNCHES for name, wrapper in kernels}
+    return {k.source: k.launches for k in kernels}
 
 
 def read_widths(kernels) -> dict:
     """Each kernel's launches by its width: C for the input stages and the
-    conv epilogue, S for the top-k kernels (the wrappers'
-    ``LAUNCHES_AT``)."""
-    return {name: dict(wrapper.LAUNCHES_AT) for name, wrapper in kernels}
+    conv epilogue, S for the top-k kernels (``ops/_build.Kernel.at``)."""
+    return {k.source: dict(k.at) for k in kernels}
 
 
 def epilogue_convs(spec, fused=None) -> int:
@@ -516,10 +496,10 @@ def sass_mix(path: str) -> dict:
 def phase_build(kernels):
     from modelcompression_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    paths = _build.build_all(name for name, _ in kernels)
+    paths = _build.build_all(k.source for k in kernels)
     seconds = time.perf_counter() - t0
-    for name, _ in kernels:  # load now, so no later phase pays for it
-        _build.load(name)
+    for k in kernels:  # load now, so no later phase pays for it
+        _build.load(k.source)
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in _build.BUILD_LOG.items()}
@@ -533,11 +513,10 @@ def input_stage_case(torch, c_out: int, dtype, gen, batch=BATCH, net=NET,
                      device_times=False):
     """Kernel vs plain version at a path's input-stage shape (``batch`` x
     ``net`` x ``net``; the main path's by default): bf16 on the
-    tensor-core kernel, fp32 on the fp32 CUDA-core kernel, each with the
-    yardstick kernel's time and error in the same dtype beside it
-    (``prev_ms``, ``prev_max_abs_err``). ``device_times``: the kernel's,
-    the yardstick's and the library call's device time as well
-    (``device_ms``), for launches shorter than their host cost."""
+    tensor-core kernel, fp32 on the fp32 CUDA-core kernel.
+    ``device_times``: the kernel's and the library call's device time as
+    well (``device_ms``), for launches shorter than their host cost."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     import torch.nn.functional as F
     from modelcompression_tpu_torch.ops import input_stage as tis
     dev = torch.device("cuda")
@@ -553,9 +532,6 @@ def input_stage_case(torch, c_out: int, dtype, gen, batch=BATCH, net=NET,
             return tis.fused_conv1_pool_mma(x, w, b)
         return tis.fused_conv1_pool_f32(x, w, b)
 
-    def prev():
-        return tis.fused_conv1_pool_cuda(x, w, b, dtype)
-
     got = kernel()
     want = tis.fused_conv1_pool_plain(x, w, b, dtype)
     torch.cuda.synchronize()
@@ -567,11 +543,6 @@ def input_stage_case(torch, c_out: int, dtype, gen, batch=BATCH, net=NET,
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
     check(err <= tol, f"input_stage C={c_out} {dtype}: max abs err {err} "
           f"> tolerance {tol}")
-    prev_err = (prev().float() - want.float()).abs().max().item()
-    check(prev_err <= tol, f"yardstick input_stage C={c_out} {dtype}: max "
-          f"abs err {prev_err} > tolerance {tol}")
-    extra = {"prev_max_abs_err": prev_err,
-             "prev_ms": time_ms(torch, prev, iters=20)}
 
     x_nchw = x.permute(0, 3, 1, 2)  # channels-last storage
     w_cl = w.contiguous(memory_format=torch.channels_last)
@@ -581,17 +552,18 @@ def input_stage_case(torch, c_out: int, dtype, gen, batch=BATCH, net=NET,
         return F.max_pool2d(F.leaky_relu(F.conv2d(x_nchw, w_cl, b_lib,
                                                   padding=1), 0.1), 2)
 
-    ms = time_ms(torch, kernel, iters=20)
-    plain_ms = time_ms(torch, lambda: tis.fused_conv1_pool_plain(
-        x, w, b, dtype), iters=5)
-    library_ms = time_ms(torch, library, iters=20)
+    ms = time_fn(kernel, iters=20, windows=1) * 1e3
+    plain_ms = time_fn(lambda: tis.fused_conv1_pool_plain(
+        x, w, b, dtype), iters=5, windows=1) * 1e3
+    library_ms = time_fn(library, iters=20, windows=1) * 1e3
     elt = x.element_size()
     n_bytes = (x.numel() + w.numel() + got.numel()) * elt + b.numel() * 4
     n_ops = 2 * 27 * c_out * batch * net * net  # 4 phases x 27 taps x C
     name = str(dtype).split(".")[1]
+    extra = {}
     if device_times:
-        extra.update(device_ms=device_ms(kernel), prev_device_ms=device_ms(
-            prev), library_device_ms=device_ms(library))
+        extra.update(device_ms=device_ms(kernel),
+                     library_device_ms=device_ms(library))
     return {"c_out": c_out, "dtype": name, "batch": batch, "net": net,
             "kernel": "input_stage_mma" if bf16 else FP32_INPUT_STAGE,
             "max_abs_err": err, "tolerance": tol, "ms": ms, **extra,
@@ -639,9 +611,8 @@ def _topk_layout(torch, spec, params, per_layer, variant):
 
 def radix_pass_ms(torch, bits, seg, k, S, iters=10):
     """Each of the radix select's 5 launches timed alone with CUDA events
-    (the wrapper's loop, outside its launch count), mean ms over
-    ``iters`` selects after one warm-up: the four histogram passes, then
-    the select launch."""
+    (the wrapper's loop), mean ms over ``iters`` selects after one
+    warm-up: the four histogram passes, then the select launch."""
     from modelcompression_tpu_torch.ops import cuda_topk as ct
     kk = k.to(torch.int64).contiguous()
     n_launch = len(ct.RADIX_SHIFTS) + 1
@@ -655,7 +626,7 @@ def radix_pass_ms(torch, bits, seg, k, S, iters=10):
               for _ in range(n_launch + 1)]
         ev[0].record()
         for p in range(n_launch):
-            ct._launch("topk_radix_select", (bits, seg, kk, hist, kth, below),
+            ct._launch(ct.RADIX_SELECT, (bits, seg, kk, hist, kth, below),
                        bits.numel(), S, p)
             ev[p + 1].record()
         ev[-1].synchronize()
@@ -683,18 +654,17 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
     a prune of this flat ``layout`` (``_prune_layout``'s tuple) feeds
     them, then timed: outputs equal (every output is a count, a bit
     pattern or a copy of an input). The radix select's kth and n_below
-    equal its plain version's and the bisection's rule; the count kernel
-    (the yardstick) equals its plain version at the bisection's pivots;
-    the tie-count and apply kernels run at the chunk ``prune_flat`` sizes
-    to the input (``ct.grid_chunk``), and are timed at 16K as well
-    (``chunk16k_ms``, PR 2's grid). The select is timed whole
-    (``select_ms``) and per launch (``pass_ms``) beside the 31-round
-    bisection through the count kernel (``prev_ms``). ``kth_library``:
+    equal its plain version's and the bisection's rule; the tie-count and
+    apply kernels run at the chunk ``prune_flat`` sizes to the input
+    (``ct.grid_chunk``), and are timed at the fixed 16K chunk as well
+    (``chunk16k_ms``). The select is timed whole (``select_ms``) and per
+    launch (``pass_ms``). ``kth_library``:
     time torch.kthvalue for the single real segment's k-th |w|;
     ``library``: another PyTorch call for the whole selection, timed
     instead; ``pad_segment``: the last segment is the padding;
     ``device_times``: each kernel's device time as well (``device_ms``,
     ``chunk16k_device_ms``), for launches shorter than their host cost."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     from modelcompression_tpu_torch.ops import cuda_topk as ct
     from modelcompression_tpu_torch.ops import topk_mask as tm
     keys, cat, sizes, seg, n_zero, S = layout
@@ -715,8 +685,7 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
     ones = torch.ones_like(cat)
     rest = (bits, seg, tau, budget, seg_start, chunk_off)
     label = f"top-k S={S} {variant}"
-    err = {"radix_select": 0.0, "count_le": 0.0, "tie_counts": 0.0,
-           "apply": 0.0}
+    err = {"radix_select": 0.0, "tie_counts": 0.0, "apply": 0.0}
 
     def compare(key, got, want, what):
         err[key] = max(err[key], (got.double() - want.double()).abs().max()
@@ -734,9 +703,6 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
     for got, want, what in zip(ct.radix_select_cuda(bits, seg, k, S),
                                plain_sel, ("kth", "n_below")):
         compare("radix_select", got, want, f"radix-select kernel {what}")
-    for mid in (kth, below):
-        compare("count_le", ct.count_le_cuda(bits, seg, mid, S),
-                ct.count_le_plain(bits, seg, mid, S), "count kernel")
     compare("tie_counts", ct.tie_counts_cuda(bits, seg, tau, S, chunk),
             per_chunk, "tie-count kernel")
     outs = []
@@ -751,9 +717,10 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
 
     def timed(key, kernel, plain, args, n_bytes, n_ops):
         return {"max_abs_err": err[key],
-                "ms": time_ms(torch, lambda: kernel(*args), iters=10),
-                "plain_ms": time_ms(torch, lambda: plain(*args), iters=2,
-                                    warmup=1),
+                "ms": time_fn(lambda: kernel(*args), iters=10,
+                              windows=1) * 1e3,
+                "plain_ms": time_fn(lambda: plain(*args), iters=2,
+                                    warmup=1, windows=1) * 1e3,
                 **bound(n_bytes, n_ops, PEAK_OPS_PER_S["float32"])}
 
     # the tie table and the apply's chunk offsets at 16K, PR 2's grid
@@ -761,8 +728,6 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
     off16 = torch.cumsum(pc16.sum(1), 0) - pc16.sum(1)
     chunks = per_chunk.shape[0]
     real = slice(0, S - 1) if pad_segment else slice(0, S)
-    bisection_ms = time_ms(torch, lambda: tm.segmented_kth_bits(
-        bits, seg, k, S, count_le=ct.count_le_cuda), iters=3, warmup=1)
     pass_ms = radix_pass_ms(torch, bits, seg, k, S)
     # each input read once (bits, seg: 8 B an element; k: 8 B a segment),
     # each output written once (kth, n_below); one pass reads bits and seg
@@ -773,32 +738,30 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
         "select_ms": select["ms"], "pass_ms": pass_ms,
         "pass_bound_ms": bound(8 * n, 2 * n,
                                PEAK_OPS_PER_S["float32"])["bound_ms"],
-        "four_pass_bound_ms": 4 * 8 * n / HBM_BYTES_PER_S * 1e3,
-        "prev_ms": bisection_ms})
+        "four_pass_bound_ms": 4 * 8 * n / HBM_BYTES_PER_S * 1e3})
     r = {"S": S, "variant": variant, "n": n, "weights": sum(sizes),
          "chunk": chunk, "blocks": chunks,
          "segments_at_threshold_zero": int((tau[real] == 0).sum()),
          "ties_at_threshold": int(pc[:, real].sum()),  # padding excluded
          # bytes: each input read once, each output written once
          "radix_select": select,
-         "count_le": timed("count_le", ct.count_le_cuda, ct.count_le_plain,
-                           (bits, seg, kth, S), 8 * n + 12 * S, 2 * n),
          "tie_counts": dict(
              timed("tie_counts", ct.tie_counts_cuda, ct.tie_counts_plain,
                    (bits, seg, tau, S, chunk),
                    8 * n + 4 * S + 4 * chunks * S, 2 * n),
-             chunk16k_ms=time_ms(torch, lambda: ct.tie_counts_cuda(
-                 bits, seg, tau, S), iters=10)),
+             chunk16k_ms=time_fn(lambda: ct.tie_counts_cuda(
+                 bits, seg, tau, S), iters=10, windows=1) * 1e3),
          "apply": dict(
              timed("apply", ct.apply_threshold_cuda,
                    ct.apply_threshold_plain, (ones,) + rest + (chunk,),
                    16 * n + 12 * S + 8 * chunks, 4 * n),
-             chunk16k_ms=time_ms(torch, lambda: ct.apply_threshold_cuda(
-                 ones, bits, seg, tau, budget, seg_start, off16), iters=10)),
-         "bisection_ms": bisection_ms,
+             chunk16k_ms=time_fn(lambda: ct.apply_threshold_cuda(
+                 ones, bits, seg, tau, budget, seg_start, off16), iters=10,
+                 windows=1) * 1e3),
          "kthvalue_ms": None}
     if library is not None:
-        r["kthvalue_ms"] = time_ms(torch, library, iters=3, warmup=1)
+        r["kthvalue_ms"] = time_fn(library, iters=3, warmup=1,
+                                   windows=1) * 1e3
     if kth_library:
         # the one PyTorch call for the select's job: the k-th |w|
         absw = cat[:sum(sizes)].abs()
@@ -807,14 +770,13 @@ def topk_case(torch, layout, variant, kth_library=False, pad_segment=True,
         check(int(tm.abs_bits(kv)[0]) == int(kth[0]),
               f"{label}: torch.kthvalue disagrees with the bisection")
         if variant == "random":  # the main path's case; ~0.4 s a call
-            r["kthvalue_ms"] = time_ms(
-                torch, lambda: torch.kthvalue(absw, kk), iters=3, warmup=1)
+            r["kthvalue_ms"] = time_fn(lambda: torch.kthvalue(absw, kk),
+                                       iters=3, warmup=1, windows=1) * 1e3
     select["library_ms"] = r["kthvalue_ms"]
     if device_times:
         for key, fn in (
                 ("radix_select", lambda: ct.radix_select_cuda(bits, seg, k,
                                                               S)),
-                ("count_le", lambda: ct.count_le_cuda(bits, seg, kth, S)),
                 ("tie_counts", lambda: ct.tie_counts_cuda(bits, seg, tau, S,
                                                           chunk)),
                 ("apply", lambda: ct.apply_threshold_cuda(ones, *rest,
@@ -879,14 +841,14 @@ def _epilogue_inputs(torch):
             outputs.append((y.clone(), kind))
         return took
 
-    ce.takes, n0 = watching, ce.bias_act_cuda.LAUNCHES
+    ce.takes, n0 = watching, ce.KERNEL.launches
     try:
         with torch.inference_mode():
             forward_folded(folded, x, spec, FAST)
     finally:
         ce.takes = real
     torch.cuda.synchronize()
-    n = ce.bias_act_cuda.LAUNCHES - n0
+    n = ce.KERNEL.launches - n0
     check(n == len(outputs) == len(convs), f"epilogue: {n} launches, "
           f"{len(outputs)} taken, for {len(convs)} convs")
     check([(y.shape[1], k) for y, k in outputs]
@@ -905,11 +867,12 @@ def phase_epilogue(torch):
     once over 3.35 TB/s), the plain version's ms and the eager chain the
     folded forward ran before the kernel (``library_ms``: bias cast, add
     and activation passes; the port no longer calls it there)."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     from modelcompression_tpu_torch.models import darknet
     from modelcompression_tpu_torch.ops import conv_epilogue as ce
-    reset_counts((("conv_epilogue", ce.bias_act_cuda),))
+    ce.KERNEL.reset()
     records = _epilogue_inputs(torch)
-    forward_at = dict(ce.bias_act_cuda.LAUNCHES_AT)
+    forward_at = dict(ce.KERNEL.at)
     worst = {}
     for y, b, kind in records:
         want = ce.bias_act_plain(y, b, kind)
@@ -939,7 +902,7 @@ def phase_epilogue(torch):
             for y, b, kind in rs:
                 darknet._activate(y + darknet._per_channel(b, y.dtype), kind)
 
-        ms = time_ms(torch, kernel, iters=iters)
+        ms = time_fn(kernel, iters=iters, windows=1) * 1e3
         dev = device_ms(kernel, calls=3)
         bound_ms = n_bytes(rs) / HBM_BYTES_PER_S * 1e3
         return {"launches": len(rs),
@@ -947,8 +910,9 @@ def phase_epilogue(torch):
                 "bytes": n_bytes(rs), "bound_ms": bound_ms,
                 "bound_by": "bytes", "ms": ms, "device_ms": dev,
                 "roofline_pct": (100 * bound_ms / dev if dev else None),
-                "plain_ms": time_ms(torch, plain, iters=max(1, iters // 5)),
-                "library_ms": time_ms(torch, library, iters=iters),
+                "plain_ms": time_fn(plain, iters=max(1, iters // 5),
+                                    windows=1) * 1e3,
+                "library_ms": time_fn(library, iters=iters, windows=1) * 1e3,
                 "library_device_ms": device_ms(library, calls=3)}
 
     forward = timed(records, iters=10)
@@ -1023,8 +987,7 @@ def _agrees_with_cpu(torch, kernels, spec, params, n_frames=2):
                         (y if isinstance(y, (tuple, list)) else [y])]
     counts = read_counts(kernels)
     check(counts[FP32_INPUT_STAGE] == int(fp32_stage)
-          and counts["input_stage_mma"] == 0 and counts[YARDSTICK] == 0
-          and counts[EPILOGUE] == 0,
+          and counts["input_stage_mma"] == 0 and counts[EPILOGUE] == 0,
           f"fp32 forward: input-stage and epilogue launches {counts}")
     with torch.inference_mode():
         rels = [((a - b).abs().max() / b.abs().max()).item()
@@ -1063,6 +1026,7 @@ def drive_serving(torch, kernels, spec, params, label, want=None,
     finite with the stated shapes), then steady img/s from CUDA events
     and the peak device memory of the timed steps; with ``profile`` a
     profiler window (device operations per step, busy and idle)."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     from modelcompression_tpu_torch.core.precision import FAST
     from modelcompression_tpu_torch.evaluation import (
         EvalConfig, make_eval_step,
@@ -1089,15 +1053,14 @@ def drive_serving(torch, kernels, spec, params, label, want=None,
     check(counts[EPILOGUE] == epilogue, f"{label}: {counts[EPILOGUE]} conv "
           f"epilogue launches, expected {epilogue}")
     if want is not None:
-        want = {name: want.get(name, 0) for name, _ in kernels}
+        want = {k.source: want.get(k.source, 0) for k in kernels}
         want[EPILOGUE] = epilogue
         check(counts == want, f"{label}: launches {counts}, expected {want}")
     for name in SERVING_KERNELS if want is None else ():
         check(counts[name] >= 1, f"{label}: kernel {name} launched "
               f"{counts[name]} times on the serving path")
-    for name in (FP32_INPUT_STAGE, YARDSTICK):
-        check(counts[name] == 0, f"{label}: the fp32 input stage {name} "
-              f"launched {counts[name]} times on the bf16 path")
+    check(counts[FP32_INPUT_STAGE] == 0, f"{label}: the fp32 input stage "
+          f"launched {counts[FP32_INPUT_STAGE]} times on the bf16 path")
     c, k = spec.classes, cfg.max_detections
     shapes = [(BATCH, c, k, 4), (BATCH, c, k), (BATCH, c, k),
               (BATCH, c), (BATCH,)]
@@ -1107,8 +1070,8 @@ def drive_serving(torch, kernels, spec, params, label, want=None,
               for o in outs[:2]), f"{label}: non-finite outputs")
     n_valid = int(outs[2].sum().item())
     torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(torch, lambda: step(folded, images, img_w, img_h),
-                 iters=10)
+    ms = time_fn(lambda: step(folded, images, img_w, img_h),
+                 iters=10, windows=1) * 1e3
     r = {"ms_per_batch": ms, "img_per_s": BATCH / ms * 1e3,
          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
          "conv_gflop_per_img": num_conv_flops(spec) / 1e9,
@@ -1216,17 +1179,16 @@ def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
               f"{counts[EPILOGUE]} conv epilogue launches over "
               f"{stats['batches']} batches, expected {epilogue}")
         if want is not None:
-            want = {name: stats["batches"] * want.get(name, 0)
-                    for name, _ in kernels}
+            want = {k.source: stats["batches"] * want.get(k.source, 0)
+                    for k in kernels}
             want[EPILOGUE] = epilogue
             check(counts == want, f"server {label}: launches {counts} over "
                   f"{stats['batches']} batches, expected {want}")
         for name in SERVING_KERNELS if want is None else ():
             check(counts[name] >= 1, f"server: kernel {name} launched "
                   f"{counts[name]} times")
-        for name in (FP32_INPUT_STAGE, YARDSTICK):
-            check(counts[name] == 0, f"server: the fp32 input stage {name} "
-                  f"launched {counts[name]} times")
+        check(counts[FP32_INPUT_STAGE] == 0, f"server: the fp32 input "
+              f"stage launched {counts[FP32_INPUT_STAGE]} times")
         int8_launches = int8.LAUNCHES
         if int8_convs is not None:
             check(int8_launches == stats["batches"] * int8_convs,
@@ -1250,7 +1212,7 @@ def phase_server(torch, kernels, card, cfg_name="yolov2-voc.cfg",
 def magnitude_prune_cli(torch, kernels, cfg, spec, src, dev_params, mode,
                         out, label):
     """``prune --mode {magnitude|global} --sparsity 0.75 --device cuda``
-    on ``src``: exactly 5 / 0 / 1 / 1 radix / count / tie / apply
+    on ``src``: exactly 5 / 1 / 1 radix / tie / apply
     launches; the written weights are the params times the reference
     (stable argsort) backend's masks on the card, which equal the kernel
     route's, with floor(0.75 n) zeros per conv (global: of all N). The
@@ -1258,6 +1220,7 @@ def magnitude_prune_cli(torch, kernels, cfg, spec, src, dev_params, mode,
     default launch rule for specs with the input stage, none without).
     Returns the phase line's fields with ``launches`` and
     ``launches_by_width``."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     from modelcompression_tpu_torch.cli import prune
     from modelcompression_tpu_torch.compress import criteria
     from modelcompression_tpu_torch.models import load_weights
@@ -1273,7 +1236,7 @@ def magnitude_prune_cli(torch, kernels, cfg, spec, src, dev_params, mode,
     counts = read_counts(kernels)
     widths = read_widths(kernels)
     check(rc == 0, f"{label}: prune --mode {mode} exited {rc}")
-    want = {name: PRUNE_LAUNCHES.get(name, 0) for name, _ in kernels}
+    want = {k.source: PRUNE_LAUNCHES.get(k.source, 0) for k in kernels}
     check(counts == want, f"{label}: prune --mode {mode}: launches "
           f"{counts}, expected {want}")
     per_layer = mode == "magnitude"
@@ -1305,10 +1268,12 @@ def magnitude_prune_cli(torch, kernels, cfg, spec, src, dev_params, mode,
             "weights": sum(sizes.values()), "convs": len(sizes),
             "launches": counts, "launches_by_width": widths,
             "cli_s": cli_s, "masks_equal_reference": True,
-            "masks_ms": time_ms(torch, lambda: fn(
-                dev_params, spec, SPARSITY), iters=3, warmup=1),
-            "reference_masks_ms": time_ms(torch, lambda: ref_fn(
-                dev_params, spec, SPARSITY), iters=2, warmup=1),
+            "masks_ms": time_fn(lambda: fn(
+                dev_params, spec, SPARSITY), iters=3, warmup=1,
+                windows=1) * 1e3,
+            "reference_masks_ms": time_fn(lambda: ref_fn(
+                dev_params, spec, SPARSITY), iters=2, warmup=1,
+                windows=1) * 1e3,
             "served": drive_serving(
                 torch, kernels, spec, written, f"{label} {mode}",
                 want=None if input_stage_match(spec) else {})}
@@ -1373,7 +1338,7 @@ def _run_cli(torch, kernels, main, argv, label):
 def expect_launches(kernels, counts, at, label, want, want_at):
     """Exactly ``want`` launches of each kernel (0 where not named), and
     ``want_at`` of the named kernels by width."""
-    full = {name: want.get(name, 0) for name, _ in kernels}
+    full = {k.source: want.get(k.source, 0) for k in kernels}
     check(counts == full, f"{label}: launches {counts}, expected {full}")
     for name, by in want_at.items():
         check(at[name] == by, f"{label}: {name} launches by width "
@@ -1493,7 +1458,7 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
     out, counts, at, cli_s = _run_cli(torch, kernels, eval_cli.main,
                                       base + ["--data", data], "eval FAST")
     widths["eval"] = at
-    want = {name: 0 for name, _ in kernels}
+    want = {k.source: 0 for k in kernels}
     want.update(forwards_want(spec, n_batches))
     check(counts == want, f"eval FAST: launches {counts}, expected {want}")
     check(at["input_stage_mma"] == {c1: n_batches},
@@ -1521,7 +1486,7 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
         "eval --precision bitmatch")
     widths["eval_bitmatch"] = at
     check(all(counts[n] == 0 for n in ("input_stage_mma", FP32_INPUT_STAGE,
-                                        YARDSTICK, EPILOGUE)),
+                                        EPILOGUE)),
           f"eval bitmatch: input-stage and epilogue launches {counts}")
     m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
                   re.M)
@@ -1545,8 +1510,8 @@ def phase_eval(torch, kernels, card, tmp, weights, prune_widths):
          "--batch", str(BATCH), "--device", "cuda", "--out", sweep_out],
         "prune --sweep --data")
     widths["sweep"] = at
-    want = {name: len(SWEEP_POINTS) * PRUNE_LAUNCHES.get(name, 0)
-            for name, _ in kernels}
+    want = {k.source: len(SWEEP_POINTS) * PRUNE_LAUNCHES.get(k.source, 0)
+            for k in kernels}
     want.update(forwards_want(spec, len(SWEEP_POINTS) * n_batches))
     check(counts == want, f"prune --sweep --data: launches {counts}, "
           f"expected {want}")
@@ -1816,7 +1781,7 @@ def _max_rel(a, b):
 
 def iterate_magnitude(torch, kernels, argv, spec, tmp, tag, eval_want):
     """``finetune ... --iterate-mode magnitude --ckpt-dir``: radix select /
-    count / tie / apply launched 5 / 0 / 1 / 1 times a round at S = the
+    tie / apply launched 5 / 1 / 1 times a round at S = the
     convs + the padding segment, with ``eval_want`` of the other kernels
     (the rounds' evals); each round's masks (read back from its
     checkpoint) with floor(s n) zeros per conv and its pruned weights zero
@@ -2098,6 +2063,7 @@ def _nms_variants_card_vs_cpu(torch, corners, scores):
     candidates and on the same candidates copied to the CPU: selections
     (valid, boxes) equal, scores equal (soft-NMS: within 1e-6 relative,
     its exp); each timed on the card."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     from modelcompression_tpu_torch.evaluation import nms
     args = (NMS_IOU, NMS_CONF, NMS_K)
     variants = {
@@ -2134,8 +2100,8 @@ def _nms_variants_card_vs_cpu(torch, corners, scores):
                 rel = 0.0
                 check(torch.equal(got[1], want[1]),
                       f"NMS {name}: the card's scores differ from the CPU's")
-            out[name] = {"ms": time_ms(torch, lambda: fn(corners, scores),
-                                       iters=3, warmup=1),
+            out[name] = {"ms": time_fn(lambda: fn(corners, scores),
+                                       iters=3, warmup=1, windows=1) * 1e3,
                          "cpu_s": cpu_s, "score_max_rel": rel,
                          "valid": int(want[2].sum())}
     return out
@@ -2170,10 +2136,9 @@ def phase_families(torch, kernels, card, tmp, data):
         rb = drive_serving(torch, kernels, spec, params, f"{label} bisect",
                            want=PRUNE_LAUNCHES, nms_prefilter_impl="bisect")
         widths[f"{label}_bisect"] = at = rb["launches_by_width"]
-        check(at["topk_radix_select"] == {BATCH: SELECT_LAUNCHES}
-              and at[TOPK_YARDSTICK] == {},
+        check(at["topk_radix_select"] == {BATCH: SELECT_LAUNCHES},
               f"{label} bisect: select launches by S "
-              f"{at['topk_radix_select']}, count {at[TOPK_YARDSTICK]}")
+              f"{at['topk_radix_select']}")
         corners, scores = _candidates_on_card(torch, spec, params)
         got = batched_bisect_prefilter(corners, scores, NMS_CONF,
                                        NMS_PREFILTER)
@@ -2199,7 +2164,7 @@ def phase_families(torch, kernels, card, tmp, data):
               "card": card, **r})
 
     # the serve CLI on YOLOv4-VOC-416 at the deployment preset, with DIoU
-    # from the flags and the bisect prefilter: 5 / 0 / 1 / 1 a batch
+    # from the flags and the bisect prefilter: 5 / 1 / 1 a batch
     widths["yolov4_voc_server"] = phase_server(
         torch, kernels, card, cfg_name=FAMILY_CFG, label="yolov4_voc",
         phase="families",
@@ -2257,14 +2222,12 @@ def phase_families(torch, kernels, card, tmp, data):
                 "--diou-beta", str(DIOU_BETA), "--nms-prefilter",
                 str(NMS_PREFILTER), "--nms-prefilter-impl", "bisect"],
         "eval --diou-nms --nms-prefilter-impl bisect")
-    want = {name: n_batches * PRUNE_LAUNCHES.get(name, 0)
-            for name, _ in kernels}
+    want = {k.source: n_batches * PRUNE_LAUNCHES.get(k.source, 0)
+            for k in kernels}
     want.update(forwards_want(cli_spec, n_batches))
     check(counts == want, f"eval bisect: launches {counts}, expected {want}")
-    check(at["topk_radix_select"] == {BATCH: n_batches * SELECT_LAUNCHES}
-          and at[TOPK_YARDSTICK] == {},
-          f"eval bisect: select launches by S {at['topk_radix_select']}, "
-          f"count {at[TOPK_YARDSTICK]}")
+    check(at["topk_radix_select"] == {BATCH: n_batches * SELECT_LAUNCHES},
+          f"eval bisect: select launches by S {at['topk_radix_select']}")
     m = re.search(r"^mAP@50 \(11-point\): ([0-9.]+)  \[(\d+) images", out,
                   re.M)
     check(m and int(m.group(2)) == EVAL_IMAGES, "eval printed no summary")
@@ -2919,6 +2882,7 @@ def quantile_select_case(torch, folded, spec, chunk):
     by its plain version on the same card tensors (equal), the thresholds
     equal either way; the select timed (CUDA events) beside its plain
     version, and its bound (bits and segment ids read once)."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     import numpy as np
     from modelcompression_tpu_torch.compress import quantize as tq
     from modelcompression_tpu_torch.ops import cuda_topk as ct
@@ -2947,10 +2911,10 @@ def quantile_select_case(torch, folded, spec, chunk):
         check(np.array_equal(got, want), "quantile thresholds differ from "
               "the plain computation's")
         kk = torch.from_numpy(low).cuda()
-        ms = time_ms(torch, lambda: ct.radix_select_cuda(bits, seg, kk, S),
-                     iters=10)
-        plain_ms = time_ms(torch, lambda: ct.radix_select_plain(
-            bits, seg, kk, S), iters=3, warmup=1)
+        ms = time_fn(lambda: ct.radix_select_cuda(bits, seg, kk, S),
+                     iters=10, windows=1) * 1e3
+        plain_ms = time_fn(lambda: ct.radix_select_plain(
+            bits, seg, kk, S), iters=3, warmup=1, windows=1) * 1e3
         pass_ms = radix_pass_ms(torch, bits, seg, kk, S)
     n = bits.numel()
     # one select call: bits and segment ids read once (8 B an element);
@@ -2972,6 +2936,7 @@ def drive_int8_serving(torch, kernels, spec, qparams, label):
     then ms per batch from CUDA events, peak memory, a profiler window and
     the int8 conv's share of device time (its GEMM alone, and with the
     im2col and padding copies)."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     from modelcompression_tpu_torch.cli._profiling import profile_window
     from modelcompression_tpu_torch.compress import forward_quantized
     from modelcompression_tpu_torch.core.precision import FAST
@@ -3011,7 +2976,8 @@ def drive_int8_serving(torch, kernels, spec, qparams, label):
     n_valid = int(outs[2].sum().item())
     by_width = dict(int8.LAUNCHES_AT)
     torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(torch, lambda: step(q, images, img_w, img_h), iters=10)
+    ms = time_fn(lambda: step(q, images, img_w, img_h), iters=10,
+                 windows=1) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof, _ = profile_window(lambda: step(q, images, img_w, img_h), steps=2)
     return {"model": label, "int8_convs": n_int8,
@@ -3394,6 +3360,7 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
     weight sharing and packing on full-width YOLOv2-VOC 416 (phase 6's
     weights and magnitude-pruned weights, phase 7's fixture; ``bf16``:
     phase 4's serving lines). Returns each path's launches by width."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     import numpy as np
     from modelcompression_tpu_torch.cli import detect
     from modelcompression_tpu_torch.cli import eval as eval_cli
@@ -3514,15 +3481,17 @@ def phase_compress(torch, kernels, card, tmp, data, weights, bf16):
               f"{label}: the written weights of {k} are not the masked "
               "params")
     alloc = lamp.lamp_layer_sparsities(masks)
-    lamp_ms = time_ms(torch, lambda: lamp.lamp_masks(
-        dev_params, spec, LAMP_SPARSITY), iters=3, warmup=1)
+    lamp_ms = time_fn(lambda: lamp.lamp_masks(
+        dev_params, spec, LAMP_SPARSITY), iters=3, warmup=1, windows=1) * 1e3
     with plain_topk():
-        lamp_plain_ms = time_ms(torch, lambda: lamp.lamp_masks(
-            dev_params, spec, LAMP_SPARSITY), iters=2, warmup=1)
-    cut_ms = time_ms(torch, lambda: ct.prune_flat(cat, seg, nz, 2,
-                                                  return_mask=True), iters=5)
-    cut_plain_ms = time_ms(torch, lambda: lamp.lamp_cut_plain(
-        cat[:n], n_zero), iters=2, warmup=1)
+        lamp_plain_ms = time_fn(lambda: lamp.lamp_masks(
+            dev_params, spec, LAMP_SPARSITY), iters=2, warmup=1,
+            windows=1) * 1e3
+    cut_ms = time_fn(lambda: ct.prune_flat(cat, seg, nz, 2,
+                                           return_mask=True),
+                     iters=5, windows=1) * 1e3
+    cut_plain_ms = time_fn(lambda: lamp.lamp_cut_plain(
+        cat[:n], n_zero), iters=2, warmup=1, windows=1) * 1e3
     del cat, seg, got
     label = "finetune --iterate lamp"
     out, counts, at, secs_it = _run_cli(
@@ -3789,9 +3758,9 @@ def _rank_cli(torch, kernels, main, argv, label, out_dir):
           f"launched {counts}")
     with open(os.path.join(out_dir, "rank0.json")) as f:
         rank0 = json.load(f)
-    return ({n: rank0[n]["launches"] for n, _ in kernels},
-            {n: {int(k): c for k, c in rank0[n]["at"].items()}
-             for n, _ in kernels}, secs)
+    return ({k.source: rank0[k.source]["launches"] for k in kernels},
+            {k.source: {int(w): c for w, c in rank0[k.source]["at"].items()}
+             for k in kernels}, secs)
 
 
 def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
@@ -3799,6 +3768,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
     through eval, serve and finetune, NCCL at world size 1), the export
     CLI and the deploy recipe on full-width YOLOv2-VOC 416 (phase 6's
     weights, phase 7's fixture). Returns each path's launches by width."""
+    from modelcompression_tpu_torch.utils.timing import time_fn
     import urllib.request
 
     import numpy as np
@@ -3993,7 +3963,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
         t0 = time.perf_counter()
         collectives()
         host_ms = (time.perf_counter() - t0) * 1e3
-        coll_ms = time_ms(torch, collectives, iters=3, warmup=1)
+        coll_ms = time_fn(collectives, iters=3, warmup=1, windows=1) * 1e3
     finally:
         ranks.destroy_grid()
     done("finetune_dp1", seconds=runs, bit_equal=max_diff == 0.0,
@@ -4041,7 +4011,7 @@ def phase_parallel_deploy(torch, kernels, card, tmp, data, weights):
             with torch.inference_mode():
                 program(images, wh, wh)
 
-        ms = [time_ms(torch, fn, EXPORT_TIMED) for fn in (
+        ms = [time_fn(fn, EXPORT_TIMED, windows=1) * 1e3 for fn in (
             lambda: live(folded, images, wh, wh), run_program, run_program,
             lambda: live(folded, images, wh, wh))]
         exports[b] = {"export_s": secs, "bytes": os.path.getsize(path),
@@ -4335,9 +4305,9 @@ def phase_tensor_parallel(torch, kernels, card, tmp, data, weights):
     for r in range(TP):
         with open(os.path.join(counts_dir, f"rank{r}.json")) as f:
             got = json.load(f)
-        counts = {n: got[n]["launches"] for n, _ in kernels}
-        at = {n: {int(k): c for k, c in got[n]["at"].items()}
-              for n, _ in kernels}
+        counts = {k.source: got[k.source]["launches"] for k in kernels}
+        at = {k.source: {int(w): c for w, c in got[k.source]["at"].items()}
+              for k in kernels}
         eval_want = forwards_want(spec, n_batches) if r == 0 else {}
         expect_launches(
             kernels, counts, at, f"finetune --tp rank {r}",
@@ -4621,7 +4591,6 @@ def phase_tools(torch, kernels, card, tmp, data, weights):
 
 TOPK_ENTRIES = (
     ("radix_select", "topk_radix_select", "pallas_topk.py:55"),
-    ("count_le", TOPK_YARDSTICK, "pallas_topk.py:55"),
     ("tie_counts", "topk_tie_counts", "pallas_topk.py:190"),
     ("apply", "topk_apply", "pallas_topk.py:124"),
 )
@@ -4635,26 +4604,18 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
     """The ``kernels`` line: one entry per main-path case of each kernel.
     The tensor-core input stage runs bf16 at C=32 in the unpruned model and
     at C=8 in the pruned one; the fp32 input stage runs on the card-vs-CPU
-    (BITMATCH) forward of each model (C=32 and C=8). Both carry the
-    yardstick kernel's time and error in their dtype (``prev_ms``,
-    ``prev_max_abs_err``); the yardstick (``input_stage``, the first
-    CUDA-core kernel) has an entry of its own at fp32 C=32, marked
-    ``yardstick``, with 0 launches: no path launches it. The top-k kernels
+    (BITMATCH) forward of each model (C=32 and C=8). The top-k kernels
     run per layer (S=24, the magnitude prune) and globally (S=2) on the
     random weights. ``launches`` is that path's count. The radix select's
     entries time the whole select (``ms`` = ``select_ms``, its 5
     launches; ``pass_ms`` each launch) against the bound of reading its
     inputs once (``bound_ms``; ``pass_bound_ms`` one pass,
-    ``four_pass_bound_ms`` the four passes), beside the PR 2 route to the
-    same kth, the 31-launch bisection through the count kernel
-    (``prev_ms``). Its ``library_ms`` is torch.kthvalue on the |w| vector
-    in global mode (S=2), the call that finds the same k-th |w|; no
-    single PyTorch call computes the per-layer select (S=24). The count
-    kernel (``topk_count_le``) is that bisection's yardstick, marked
-    ``yardstick`` with 0 launches, one launch's ``ms`` beside the whole
-    ``bisection_ms``. The tie-count and apply entries run at the chunk
-    ``prune_flat`` sizes to the input (``chunk``), with PR 2's 16K grid
-    beside them (``chunk16k_ms``); no single PyTorch call computes
+    ``four_pass_bound_ms`` the four passes). Its ``library_ms`` is
+    torch.kthvalue on the |w| vector in global mode (S=2), the call that
+    finds the same k-th |w|; no single PyTorch call computes the
+    per-layer select (S=24). The tie-count and apply entries run at the
+    chunk ``prune_flat`` sizes to the input (``chunk``), with the fixed
+    16K chunk beside them (``chunk16k_ms``); no single PyTorch call computes
     their functions. ``eval_launches``, ``finetune_launches`` and
     ``families_launches`` count each case's launches on each path of the
     eval, finetune and families phases, read from the wrappers' counts by
@@ -4723,8 +4684,6 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "prev_ms": r["prev_ms"],
-            "prev_max_abs_err": r["prev_max_abs_err"],
             "eval_launches": on_eval(source, c_out),
             "finetune_launches": on_finetune(source, c_out),
             "families_launches": on(fam_widths, source, c_out),
@@ -4747,8 +4706,6 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "prev_ms": r["prev_ms"],
-            "prev_max_abs_err": r["prev_max_abs_err"],
             "families_launches": on(fam_widths, source, 16),
             "families_train_launches": on(train_widths, source, 16),
             "int8_launches": on(int8_widths, source, 16),
@@ -4756,24 +4713,6 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "parallel_launches": on(par_widths, source, 16),
             "tensor_parallel_launches": on(tp_widths, source, 16),
             "tools_launches": on(tool_widths, source, 16)})
-    r = cases[(32, "float32")]
-    entries.append({
-        "name": f"{YARDSTICK}[fp32]", "route": "cuda",
-        "source": f"modelcompression_tpu_torch/csrc/{YARDSTICK}.cu",
-        "replaces": "modelcompression_tpu/ops/input_stage.py:159",
-        "launches": launches["unpruned_fp32"][YARDSTICK], "yardstick": True,
-        "max_abs_err": r["prev_max_abs_err"], "ms": r["prev_ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "eval_launches": on_eval(YARDSTICK, 32),
-        "finetune_launches": on_finetune(YARDSTICK, 32),
-        "families_launches": on(fam_widths, YARDSTICK, 32),
-        "families_train_launches": on(train_widths, YARDSTICK, 32),
-        "int8_launches": on(int8_widths, YARDSTICK, 32),
-        "compress_launches": on(cmp_widths, YARDSTICK, 32),
-        "parallel_launches": on(par_widths, YARDSTICK, 32),
-        "tensor_parallel_launches": on(tp_widths, YARDSTICK, 32),
-        "tools_launches": on(tool_widths, YARDSTICK, 32)})
 
     def topk_entry(r, key, source, body, name, launches, widths, library):
         k = r[key]
@@ -4788,16 +4727,10 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
         if key == "radix_select":
             entry.update({n: k[n] for n in (
                 "select_ms", "pass_ms", "pass_bound_ms",
-                "four_pass_bound_ms", "prev_ms")})
-            entry["prev_computes"] = (
-                "the PR 2 route: the 31-round bisection through the count "
-                "kernel (topk_count_le), the same kth")
+                "four_pass_bound_ms")})
             if library is not None:
                 entry["library_ms"] = k["library_ms"]
                 entry["library_computes"] = library
-        elif key == "count_le":
-            entry["yardstick"] = True
-            entry["bisection_ms"] = r["bisection_ms"]
         else:
             entry["chunk"] = r["chunk"]
             entry["chunk16k_ms"] = k["chunk16k_ms"]
@@ -4874,10 +4807,9 @@ def kernel_entries(cases, launches, topk, prune_launches, eval_widths,
             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "prev_ms": r["prev_ms"],
-            "prev_max_abs_err": r["prev_max_abs_err"],
-            **{k: r[k] for k in ("device_ms", "prev_device_ms",
-                                 "library_device_ms") if k in r},
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("device_ms", "library_device_ms")
+               if k in r},
             "tools_launches": on(tool_widths, source, c_out)})
     for mode, r in tool_topk.items():
         s = r["S"]

@@ -1,5 +1,5 @@
-"""Timing and profiler windows on the card, shared by the ``profile_*``
-command lines."""
+"""Profiler windows on the card, shared by the ``profile_*`` command
+lines."""
 
 from __future__ import annotations
 
@@ -9,15 +9,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 
 from modelcompression_tpu_torch.utils.profiling import SPAN_PREFIX
-from modelcompression_tpu_torch.utils.timing import time_fn
 
 WINDOW = "profile_window"
-
-
-def time_ms(fn, iters=10, warmup=2):
-    """Mean ms per call of ``fn`` over one window of ``iters`` calls, CUDA
-    events, after warm-up and a synchronize (``utils.timing.time_fn``)."""
-    return time_fn(fn, iters=iters, windows=1, warmup=warmup) * 1e3
 
 
 def merge_intervals(intervals: Iterable[Tuple[float, float]]

@@ -11,10 +11,8 @@ layer and global. Prints one JSON line per mode:
   kernels, twice) with CUDA events;
 * ``stages_ms``: the flat layout (HWIO flattening, concatenation, segment
   ids), the threshold by the radix select (``select``, the route
-  ``prune_flat`` takes: 5 launches), the same threshold by the 31-round
-  bisection through the count kernel (``bisection``, the yardstick no
-  path runs), the whole ``prune_flat`` and the unflattening, each timed
-  alone with CUDA events;
+  ``prune_flat`` takes: 5 launches), the whole ``prune_flat`` and the
+  unflattening, each timed alone with CUDA events;
 * ``profile``: a ``torch.profiler`` window over 3 mask computations:
   device time by kernel (top 12), device operations per computation and
   the device's busy and idle share of the wall time.
@@ -30,9 +28,8 @@ import sys
 
 import torch
 
-from modelcompression_tpu_torch.cli._profiling import (
-    profile_window, time_ms,
-)
+from modelcompression_tpu_torch.cli._profiling import profile_window
+from modelcompression_tpu_torch.utils.timing import time_fn
 
 SPARSITY = 0.75
 
@@ -60,26 +57,25 @@ def main() -> int:
                   "reference": lambda: reference(params, spec, SPARSITY)}
         ab = {"kernels": [], "reference": []}
         for name in ("kernels", "reference", "reference", "kernels") * 2:
-            ab[name].append(time_ms(routes[name], iters=5))
+            ab[name].append(time_fn(routes[name], iters=5, windows=1) * 1e3)
         keys, cat, sizes, seg, n_zero, S = ct._prune_layout(
             params, spec, SPARSITY, per_layer, ())
         bits = tm.abs_bits(cat)
         k = (n_zero - 1).clamp_min(0)
         stages = {
-            "layout": time_ms(lambda: ct._prune_layout(
-                params, spec, SPARSITY, per_layer, ()), iters=5),
-            "select": time_ms(lambda: ct.radix_select(
-                bits, seg, k, S), iters=5),
-            "bisection": time_ms(lambda: tm.segmented_kth_bits(
-                bits, seg, k, S, count_le=ct.count_le), iters=5),
-            "prune_flat": time_ms(lambda: ct.prune_flat(
-                cat, seg, n_zero, S, return_mask=True), iters=5),
-            "unflatten": time_ms(lambda: ct._unflatten(
-                params, keys, sizes, cat != 0), iters=5),
+            "layout": lambda: ct._prune_layout(
+                params, spec, SPARSITY, per_layer, ()),
+            "select": lambda: ct.radix_select(bits, seg, k, S),
+            "prune_flat": lambda: ct.prune_flat(
+                cat, seg, n_zero, S, return_mask=True),
+            "unflatten": lambda: ct._unflatten(
+                params, keys, sizes, cat != 0),
         }
+        stages_ms = {name: time_fn(fn, iters=5, windows=1) * 1e3
+                     for name, fn in stages.items()}
         prof, _ = profile_window(routes["kernels"])
         print(json.dumps({"mode": mode, "card": card, "segments": S,
-                          "ab_ms": ab, "stages_ms": stages,
+                          "ab_ms": ab, "stages_ms": stages_ms,
                           "profile": prof}), flush=True)
     return 0
 

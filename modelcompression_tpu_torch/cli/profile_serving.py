@@ -34,9 +34,8 @@ import time
 
 import torch
 
-from modelcompression_tpu_torch.cli._profiling import (
-    profile_window, time_ms,
-)
+from modelcompression_tpu_torch.cli._profiling import profile_window
+from modelcompression_tpu_torch.utils.timing import time_fn
 
 BATCH, SRC_H, SRC_W, NET = 64, 384, 512, 416
 # device kernel name of the FAST (bf16) path's input stage, the only one
@@ -130,7 +129,8 @@ def main() -> int:
             steps[fuse] = (lambda st=step: st(folded, images, img_w, img_h))
         ab = {"fused": [], "unfused": []}
         for fuse in (True, False, False, True) * 2:
-            ab["fused" if fuse else "unfused"].append(time_ms(steps[fuse]))
+            ab["fused" if fuse else "unfused"].append(
+                time_fn(steps[fuse], iters=10, windows=1) * 1e3)
         with torch.inference_mode():
             x = letterbox_device(images, NET, NET, dtype=torch.bfloat16)
             raw = forward_folded(folded, x, s, FAST, fuse_input_stage=True)
@@ -144,15 +144,17 @@ def main() -> int:
                                         img_h[:, None, None], NET, NET,
                                         True), sc, valid
             stages = {
-                "letterbox": time_ms(lambda: letterbox_device(
-                    images, NET, NET, dtype=torch.bfloat16)),
-                "forward": time_ms(lambda: forward_folded(
-                    folded, x, s, FAST, fuse_input_stage=True)),
-                "post": time_ms(post),
+                "letterbox": lambda: letterbox_device(
+                    images, NET, NET, dtype=torch.bfloat16),
+                "forward": lambda: forward_folded(
+                    folded, x, s, FAST, fuse_input_stage=True),
+                "post": post,
             }
+            stages_ms = {name: time_fn(fn, iters=10, windows=1) * 1e3
+                         for name, fn in stages.items()}
         print(json.dumps({"model": label, "card": card,
                           "conv1_filters": s.layers[0].filters,
-                          "ab_ms": ab, "stages_ms": stages,
+                          "ab_ms": ab, "stages_ms": stages_ms,
                           "profile": _profile(steps[True])}), flush=True)
     return 0
 

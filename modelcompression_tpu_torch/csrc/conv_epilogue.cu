@@ -50,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -204,31 +206,24 @@ cudaError_t sms_of(int device, int& sms) {
 // Plain C entry for ctypes. y: bf16, n elements in channels-last storage,
 // an (n / c, c) array, rewritten in place; bias: fp32 (c,), contiguous;
 // act_kind: 0 linear, 1 leaky (0.1), 2 mish; device: the CUDA device that
-// holds y and bias (made current for the launch, the caller's restored
-// after). Launches on `stream` and returns cudaGetLastError() after the
-// launch (0 = cudaSuccess).
+// holds y and bias (on_device.cuh). Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int mc_conv_epilogue(void* y, const void* bias, long long n,
                                 int c, int act_kind, int device,
                                 void* stream) {
-  if (n < 0 || c < 1 || n % c || act_kind < LINEAR || act_kind > MISH ||
-      device < 0)
+  if (n < 0 || c < 1 || n % c || act_kind < LINEAR || act_kind > MISH)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  int prev = -1;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return (int)err;
-  int sms = 0;
-  if ((err = sms_of(device, sms)) == cudaSuccess) {
+  return on_device(device, [&] {
+    int sms = 0;
+    cudaError_t err = sms_of(device, sms);
+    if (err != cudaSuccess) return (int)err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (act_kind) {
       case LINEAR: launch<LINEAR>(y, bias, n, c, sms, s); break;
       case LEAKY: launch<LEAKY>(y, bias, n, c, sms, s); break;
       default: launch<MISH>(y, bias, n, c, sms, s); break;
     }
-    err = cudaGetLastError();
-  }
-  if (prev != device) cudaSetDevice(prev);
-  return (int)err;
+    return (int)cudaGetLastError();
+  });
 }

@@ -59,6 +59,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int TH = 16;  // pooled rows per tile
@@ -332,11 +334,12 @@ cudaError_t launch_cp(bool vec, const float* x, const float* w,
 
 // Plain C entry for ctypes. x (B, H, W, 3) NHWC fp32 contiguous, w
 // (C, 3, 3, 3) OIHW fp32 contiguous, bias (C,) fp32; out (B, H/2, W/2, C)
-// fp32, allocated by the caller, 16-byte aligned. Launches on `stream` and
-// returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// fp32, allocated by the caller, 16-byte aligned; device: the CUDA device
+// that holds them (on_device.cuh). Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int mc_input_stage_f32(const void* x, const void* w,
                                   const void* bias, void* out, int B, int H,
-                                  int W, int C, void* stream) {
+                                  int W, int C, int device, void* stream) {
   if (B < 1 || H < 2 || W < 2 || (H & 1) || (W & 1) || C < 1 || C > 32 ||
       (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
@@ -346,12 +349,14 @@ extern "C" int mc_input_stage_f32(const void* x, const void* w,
   const float* bp = static_cast<const float*>(bias);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (C <= 8)
-    err = launch_cp<8>(vec, xp, wp, bp, op, B, H, W, C, s);
-  else if (C <= 16)
-    err = launch_cp<16>(vec, xp, wp, bp, op, B, H, W, C, s);
-  else
-    err = launch_cp<32>(vec, xp, wp, bp, op, B, H, W, C, s);
-  return (int)err;
+  return on_device(device, [&] {
+    cudaError_t err;
+    if (C <= 8)
+      err = launch_cp<8>(vec, xp, wp, bp, op, B, H, W, C, s);
+    else if (C <= 16)
+      err = launch_cp<16>(vec, xp, wp, bp, op, B, H, W, C, s);
+    else
+      err = launch_cp<32>(vec, xp, wp, bp, op, B, H, W, C, s);
+    return (int)err;
+  });
 }

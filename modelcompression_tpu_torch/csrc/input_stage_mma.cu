@@ -50,6 +50,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int TH = 16;  // pooled rows per block
@@ -247,20 +249,23 @@ cudaError_t launch(const void* x, const void* wpack, const void* bias,
 // Plain C entry for ctypes. x (B, H, W, 3) NHWC bf16 contiguous; wpack
 // (8*ceil(C/8), 32) bf16 contiguous, row n = output channel n's taps
 // k = (ky*3 + kx)*3 + ci, zero for k >= 27 and for n >= C; bias (C,) fp32;
-// out (B, H/2, W/2, C) bf16, allocated by the caller, 16-byte aligned.
-// Launches on `stream` and returns cudaGetLastError() after the launch
-// (0 = cudaSuccess).
+// out (B, H/2, W/2, C) bf16, allocated by the caller, 16-byte aligned;
+// device: the CUDA device that holds them (on_device.cuh). Launches on
+// `stream` and returns cudaGetLastError() after the launch (0 =
+// cudaSuccess).
 extern "C" int mc_input_stage_mma(const void* x, const void* wpack,
                                   const void* bias, void* out, int B, int H,
-                                  int W, int C, void* stream) {
+                                  int W, int C, int device, void* stream) {
   if (B < 1 || H < 2 || W < 2 || (H & 1) || (W & 1) || C < 1 || C > 32 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((C + 7) / 8) {
-    case 1: return (int)launch<1>(x, wpack, bias, out, B, H, W, C, s);
-    case 2: return (int)launch<2>(x, wpack, bias, out, B, H, W, C, s);
-    case 3: return (int)launch<3>(x, wpack, bias, out, B, H, W, C, s);
-    default: return (int)launch<4>(x, wpack, bias, out, B, H, W, C, s);
-  }
+  return on_device(device, [&] {
+    switch ((C + 7) / 8) {
+      case 1: return (int)launch<1>(x, wpack, bias, out, B, H, W, C, s);
+      case 2: return (int)launch<2>(x, wpack, bias, out, B, H, W, C, s);
+      case 3: return (int)launch<3>(x, wpack, bias, out, B, H, W, C, s);
+      default: return (int)launch<4>(x, wpack, bias, out, B, H, W, C, s);
+    }
+  });
 }

@@ -31,6 +31,7 @@
 
 #include <cub/block/block_scan.cuh>
 
+#include "on_device.cuh"
 #include "topk_tile.cuh"
 
 namespace {
@@ -96,23 +97,27 @@ apply_kernel(const float* __restrict__ w, const int* __restrict__ bits,
 // tau: int32 (S,); lim: int64 (S,), the ties before each segment plus its
 // budget; chunk_off: int64 (ceil(n / chunk),), the ties before each chunk.
 // Segments must be contiguous ascending blocks. One block per `chunk`
-// elements (a multiple of 1024). Launches on `stream` and returns
+// elements (a multiple of 1024); device: the CUDA device that holds the
+// tensors (on_device.cuh). Launches on `stream` and returns
 // cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int mc_topk_apply(const void* w, const void* bits, const void* seg,
                              const void* tau, const void* lim,
                              const void* chunk_off, void* out, long long n,
-                             int S, int chunk, void* stream) {
+                             int S, int chunk, int device, void* stream) {
   const int bad = check_shape(n, S, chunk);
   if (bad) return bad;
   const bool vec = aligned16(w) && aligned16(bits) && aligned16(seg) &&
                    aligned16(out);
   const unsigned grid = (unsigned)((n + chunk - 1) / chunk);
   const size_t shmem = (size_t)S * (sizeof(long long) + sizeof(int));
-  apply_kernel<<<grid, THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), static_cast<const int*>(bits),
-      static_cast<const int*>(seg), static_cast<const int*>(tau),
-      static_cast<const long long*>(lim),
-      static_cast<const long long*>(chunk_off), static_cast<float*>(out), n,
-      S, chunk, vec);
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    apply_kernel<<<grid, THREADS, shmem,
+                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(w), static_cast<const int*>(bits),
+        static_cast<const int*>(seg), static_cast<const int*>(tau),
+        static_cast<const long long*>(lim),
+        static_cast<const long long*>(chunk_off), static_cast<float*>(out),
+        n, S, chunk, vec);
+    return (int)cudaGetLastError();
+  });
 }

@@ -46,6 +46,7 @@
 
 #include <algorithm>
 
+#include "on_device.cuh"
 #include "topk_tile.cuh"
 
 namespace {
@@ -189,37 +190,39 @@ radix_final_kernel(const int* __restrict__ hist,
 // histogram pass, 4 the launch that writes kth and n_below. bits, seg:
 // int32 (n,), n < 2^31, segments contiguous ascending blocks; k: int64
 // (S,); hist: int32 (4, S, 256), zeroed by the caller before pass 0 (the
-// passes add to it); kth, n_below: int64 (S,), written by pass 4. Launches
-// on `stream` and returns cudaGetLastError() after the launch (0 =
+// passes add to it); kth, n_below: int64 (S,), written by pass 4; device:
+// the CUDA device that holds the tensors (on_device.cuh). Launches on
+// `stream` and returns cudaGetLastError() after the launch (0 =
 // cudaSuccess).
 extern "C" int mc_topk_radix_select(const void* bits, const void* seg,
                                     const void* k, void* hist, void* kth,
                                     void* n_below, long long n, int S,
-                                    int pass, void* stream) {
+                                    int pass, int device, void* stream) {
   if (n < 1 || n > 0x7FFFFFFFLL || S < 1 || S > MAX_SEGMENTS || pass < 0 ||
       pass > PASSES)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pass == PASSES) {
-    radix_final_kernel<<<(S + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-        static_cast<const int*>(hist), static_cast<const long long*>(k),
-        static_cast<long long*>(kth), static_cast<long long*>(n_below), S);
+  return on_device(device, [&] {
+    if (pass == PASSES) {
+      radix_final_kernel<<<(S + WARPS - 1) / WARPS, THREADS, 0, st>>>(
+          static_cast<const int*>(hist), static_cast<const long long*>(k),
+          static_cast<long long*>(kth), static_cast<long long*>(n_below), S);
+      return (int)cudaGetLastError();
+    }
+    int sms = 0;
+    const cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const long long tiles = (n + TILE - 1) / TILE;
+    const long long want = std::max(1LL, (long long)sms * BLOCKS_PER_SM);
+    const long long per_block = (tiles + std::min(tiles, want) - 1) /
+                                std::min(tiles, want);
+    const unsigned grid = (unsigned)((tiles + per_block - 1) / per_block);
+    const bool vec = aligned16(bits) && aligned16(seg);
+    radix_pass_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const int*>(bits), static_cast<const int*>(seg),
+        static_cast<const long long*>(k), static_cast<int*>(hist), n, S,
+        pass, (int)per_block, vec);
     return (int)cudaGetLastError();
-  }
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n + TILE - 1) / TILE;
-  const long long want = std::max(1LL, (long long)sms * BLOCKS_PER_SM);
-  const long long per_block = (tiles + std::min(tiles, want) - 1) /
-                              std::min(tiles, want);
-  const unsigned grid = (unsigned)((tiles + per_block - 1) / per_block);
-  const bool vec = aligned16(bits) && aligned16(seg);
-  radix_pass_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const int*>(bits), static_cast<const int*>(seg),
-      static_cast<const long long*>(k), static_cast<int*>(hist), n, S, pass,
-      (int)per_block, vec);
-  return (int)cudaGetLastError();
+  });
 }

@@ -17,6 +17,7 @@
 // The chunk is the port's (ops/cuda_topk.CHUNK), not the TPU's. Segment
 // ids outside [0, S) are not counted.
 
+#include "on_device.cuh"
 #include "topk_tile.cuh"
 
 namespace {
@@ -62,19 +63,24 @@ tie_counts_kernel(const int* __restrict__ bits, const int* __restrict__ seg,
 
 // Plain C entry for ctypes. bits, seg: int32 (n,); tau: int32 (S,); out:
 // int32 (ceil(n / chunk), S), every entry written by the kernel. One block
-// per `chunk` elements (a multiple of 1024). Launches on `stream` and
-// returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// per `chunk` elements (a multiple of 1024); device: the CUDA device that
+// holds the tensors (on_device.cuh). Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int mc_topk_tie_counts(const void* bits, const void* seg,
                                   const void* tau, void* out, long long n,
-                                  int S, int chunk, void* stream) {
+                                  int S, int chunk, int device,
+                                  void* stream) {
   const int bad = check_shape(n, S, chunk);
   if (bad) return bad;
   const bool vec = aligned16(bits) && aligned16(seg);
   const unsigned grid = (unsigned)((n + chunk - 1) / chunk);
   const size_t shmem = (size_t)S * 2 * sizeof(int);
-  tie_counts_kernel<<<grid, THREADS, shmem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(bits), static_cast<const int*>(seg),
-      static_cast<const int*>(tau), static_cast<int*>(out), n, S, chunk, vec);
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    tie_counts_kernel<<<grid, THREADS, shmem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(bits), static_cast<const int*>(seg),
+        static_cast<const int*>(tau), static_cast<int*>(out), n, S, chunk,
+        vec);
+    return (int)cudaGetLastError();
+  });
 }

@@ -9,16 +9,27 @@ unchanged one is reused. Nothing is built when a
 module is imported: the first launch builds, or a caller (``chip_smoke.py``)
 builds every kernel up front with ``build_all``, one ``nvcc`` per source,
 all started together.
+
+Every kernel is launched through one ``Kernel``, its C entry's seam: the
+entry is resolved and its argument types set on the first launch, the
+launch goes on PyTorch's current stream of its tensors' device, shows as a
+host op named after its source under a recording profiler, raises on a
+refused launch, and is counted, in total and by the kernel's width.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -94,3 +105,55 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build_all([name])[name])
         _LIBS[name] = lib
     return lib
+
+
+class Kernel:
+    """The C entry ``mc_<source>`` of ``csrc/<source>.cu`` and its launch
+    counts. Every entry takes its own arguments (``args``: pointers as
+    ``ctypes.c_void_p``, since ctypes would pass a bare Python int as a
+    32-bit int and cut a pointer), then the device that holds its tensors
+    (made current for the launch by the entry) and the stream, and returns
+    a CUDA error code, 0 on success.
+
+    ``launches`` counts every launch, ``at`` the same launches by the
+    kernel's width: the input stages' and the conv epilogue's output
+    channels C, the top-k kernels' segment count S."""
+
+    def __init__(self, source: str, args: Sequence):
+        self.source = source
+        self._types = [*args, ctypes.c_int, ctypes.c_void_p]
+        self._fn = None
+        self.launches = 0
+        self.at: collections.Counter = collections.Counter()
+
+    def _resolve(self):
+        fn = getattr(load(self.source), f"mc_{self.source}")
+        fn.argtypes = self._types
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+    def launch(self, width: int, device: int, *args) -> None:
+        """One launch on PyTorch's current stream of CUDA device
+        ``device`` (an index), counted at ``width``; under a recording
+        profiler inside a host op named after the source, so that the
+        trace links the kernel to it. Raises when the launch is refused,
+        counting nothing."""
+        fn = self._fn
+        if fn is None:
+            fn = self._resolve()
+        stream = torch._C._cuda_getCurrentRawStream(device)
+        if _profiler_enabled():
+            with _RecordFunctionFast(self.source):
+                err = fn(*args, device, stream)
+        else:
+            err = fn(*args, device, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.source} kernel launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+        self.at[width] += 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.at.clear()

@@ -20,29 +20,27 @@ Activations: ``linear``, ``leaky`` (slope 0.1) and ``mish``, computed as
 ``v * tanh(log1p(e))``, and as ``v`` itself above ``MISH_CUTOFF``, where
 ``tanh(softplus(v))`` is 1 in fp32.
 
-The kernel is bound with ctypes, its entry resolved once, and counts its
-launches in ``bias_act_cuda.LAUNCHES`` (and by output channels C in
-``LAUNCHES_AT``). Under a recording profiler each launch runs inside a
-``conv_epilogue`` host op, as Inductor marks its own kernels, so that the
-trace links the kernel to a host op as it links PyTorch's.
+The kernel launches through ``KERNEL`` (``ops/_build.Kernel``), which
+counts its launches by output channels C and, under a recording profiler,
+runs each inside a ``conv_epilogue`` host op.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
-import functools
 
 import torch
-from torch._C._profiler import _RecordFunctionFast
-from torch.autograd import _profiler_enabled
+
+from modelcompression_tpu_torch.ops._build import Kernel
 
 # the kernel's template parameter for each activation it takes
 ACTIVATIONS = {"linear": 0, "leaky": 1, "mish": 2}
 LEAKY_SLOPE = 0.1
 MISH_CUTOFF = 20.0
-_QUIET = contextlib.nullcontext()
+# y, bias, y's elements, C, the activation
+KERNEL = Kernel("conv_epilogue", (ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int))
 
 
 def _check_kind(kind: str) -> None:
@@ -81,38 +79,14 @@ def takes(y: torch.Tensor, kind: str) -> bool:
             and not (torch.is_grad_enabled() and y.requires_grad))
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    """``mc_conv_epilogue`` of ``csrc/conv_epilogue.cu`` (built on first
-    use), its argument types set once: y, bias, y's elements, C, the
-    activation, the device and the stream."""
-    from modelcompression_tpu_torch.ops import _build
-    fn = _build.load("conv_epilogue").mc_conv_epilogue
-    # pointers and the stream as c_void_p: ctypes would pass a bare Python
-    # int as a 32-bit int and cut the pointer
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def launch(y: torch.Tensor, bias: torch.Tensor, kind: str) -> torch.Tensor:
     """The kernel on PyTorch's current stream of y's device, y rewritten
     in place and returned, with no check of its inputs: y as ``takes``
     accepts it, bias its conv's fp32 (C,) contiguous bias on y's device.
     Raises when the launch is refused."""
-    c, dev = y.shape[1], y.get_device()
-    with _RecordFunctionFast("conv_epilogue") if _profiler_enabled() \
-            else _QUIET:
-        err = _entry()(y.data_ptr(), bias.data_ptr(), y.numel(), c,
-                       ACTIVATIONS[kind], dev,
-                       torch._C._cuda_getCurrentRawStream(dev))
-    if err != 0:
-        raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error "
-                           f"{err}")
-    bias_act_cuda.LAUNCHES += 1
-    bias_act_cuda.LAUNCHES_AT[c] += 1
+    c = y.shape[1]
+    KERNEL.launch(c, y.get_device(), y.data_ptr(), bias.data_ptr(),
+                  y.numel(), c, ACTIVATIONS[kind])
     return y
 
 
@@ -140,7 +114,3 @@ def bias_act_cuda(y: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"conv epilogue kernel needs a CUDA tensor, got "
                          f"{y.device}")
     return launch(y, bias, kind)
-
-
-bias_act_cuda.LAUNCHES = 0
-bias_act_cuda.LAUNCHES_AT = collections.Counter()  # by C

@@ -13,11 +13,6 @@ are pruned lowest index first. Each kernel has three functions:
   8-bit digits: four histogram passes and one select launch, with the
   digits chosen on the device. The threshold is bit-equal to the 31-round
   bisection's.
-* ``count_le_plain`` / ``count_le_cuda`` / ``count_le``
-  (``csrc/topk_count_le.cu``): per segment, the count of ``bits <=
-  mid[s]``, one bisection round. No path launches it: it drives the
-  bisection (``topk_mask.segmented_kth_bits``) that the radix select is
-  timed against, as its yardstick.
 * ``tie_counts_plain`` / ``tie_counts_cuda`` / ``tie_counts``
   (``csrc/topk_tie_counts.cu``): the (chunks, S) count of ``bits ==
   tau[s]``.
@@ -25,10 +20,12 @@ are pruned lowest index first. Each kernel has three functions:
   ``apply_threshold`` (``csrc/topk_apply.cu``): the fused mask + apply.
 
 The ``*_plain`` version is plain PyTorch; ``*_cuda`` launches the kernel
-or raises, and counts its launches in ``LAUNCHES`` (and by segment
-count S in ``LAUNCHES_AT``); the undecorated name
-sends CPU tensors to the plain version and CUDA tensors to the kernel,
-never one in place of the other. ``prune_flat`` drives the select, the
+through its ``ops/_build.Kernel`` (``RADIX_SELECT``, ``TIE_COUNTS``,
+``APPLY``; launches counted by segment count S) or raises; the undecorated
+name sends CPU tensors to the plain version and CUDA tensors to the
+kernel, never one in place of the other. ``count_le_plain`` is the
+31-round bisection's count (``topk_mask.segmented_kth_bits``), the rule the
+radix select's threshold equals. ``prune_flat`` drives the select, the
 tie count and the apply (the port of ``pallas_prune_flat``);
 ``magnitude_prune`` and ``magnitude_masks*`` run it on a network's conv
 kernels.
@@ -45,9 +42,7 @@ chunk.
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import functools
 from typing import Dict, Sequence
 
 import torch
@@ -55,6 +50,7 @@ import torch.nn.functional as F
 
 from modelcompression_tpu_torch.models.cfg import NetworkSpec
 from modelcompression_tpu_torch.models.darknet import Params
+from modelcompression_tpu_torch.ops._build import Kernel
 from modelcompression_tpu_torch.ops.topk_mask import (
     _prunable_keys, abs_bits, count_le_rule, hwio_flat, oihw_from_flat,
 )
@@ -66,6 +62,12 @@ BLOCKS_PER_SM = 4  # what grid_chunk aims for, as the radix select's grid
 # the radix select's digits, high to low: bits 24-30, 16-23, 8-15, 0-7
 RADIX_SHIFTS = (24, 16, 8, 0)
 RADIX_BINS = 256
+# each entry's pointers, then n, S and one int (the chunk; the radix
+# select's pass)
+_SIZES = (ctypes.c_longlong, ctypes.c_int, ctypes.c_int)
+RADIX_SELECT = Kernel("topk_radix_select", (ctypes.c_void_p,) * 6 + _SIZES)
+TIE_COUNTS = Kernel("topk_tie_counts", (ctypes.c_void_p,) * 4 + _SIZES)
+APPLY = Kernel("topk_apply", (ctypes.c_void_p,) * 7 + _SIZES)
 
 
 # ---- plain versions -------------------------------------------------------
@@ -186,33 +188,12 @@ def _check_chunk(chunk: int) -> None:
                          f"[{TILE}, {CHUNK}], got {chunk}")
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(source: str, n_tensors: int):
-    """``mc_<source>`` of ``csrc/<source>.cu`` (built on first use), its
-    argument types set once: ``n_tensors`` pointers, then n, S, one int
-    and the stream."""
-    from modelcompression_tpu_torch.ops import _build
-    fn = getattr(_build.load(source), f"mc_{source}")
-    # pointers and the stream as c_void_p: ctypes would pass a bare Python
-    # int as a 32-bit int and cut the pointer
-    fn.argtypes = [ctypes.c_void_p] * n_tensors + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(source: str, tensors, n: int, n_segments: int,
+def _launch(kernel: Kernel, tensors, n: int, n_segments: int,
             arg: int) -> None:
-    """Call ``mc_<source>`` of ``csrc/<source>.cu`` on PyTorch's current
-    stream: the tensors' pointers, then n, S and ``arg`` (the chunk; the
-    radix select's pass)."""
-    fn = _entry(source, len(tensors))
-    with torch.cuda.device(tensors[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), n, n_segments, arg,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
+    """``kernel`` on the tensors' pointers, then n, S and ``arg``, counted
+    at S."""
+    kernel.launch(n_segments, tensors[0].get_device(),
+                  *(t.data_ptr() for t in tensors), n, n_segments, arg)
 
 
 def radix_select_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
@@ -232,34 +213,9 @@ def radix_select_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
     kth = torch.empty(n_segments, dtype=torch.int64, device=dev)
     n_below = torch.empty_like(kth)
     for p in range(len(RADIX_SHIFTS) + 1):
-        _launch("topk_radix_select", (bits, seg_ids, k, hist, kth, n_below),
-                n, n_segments, p)
-        radix_select_cuda.LAUNCHES += 1
-        radix_select_cuda.LAUNCHES_AT[n_segments] += 1
+        _launch(RADIX_SELECT, (bits, seg_ids, k, hist, kth, n_below), n,
+                n_segments, p)
     return kth, n_below
-
-
-radix_select_cuda.LAUNCHES = 0
-radix_select_cuda.LAUNCHES_AT = collections.Counter()  # by S
-
-
-def count_le_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
-                  mid: torch.Tensor, n_segments: int) -> torch.Tensor:
-    """Launch ``csrc/topk_count_le.cu``. bits, seg_ids: contiguous (N,)
-    int32 on a CUDA device; mid (S,) with values in [0, 0x7FFFFFFF].
-    Returns int64 (S,)."""
-    _check_flat(bits, seg_ids, n_segments)
-    mid = _per_segment(mid, n_segments, torch.int32, bits.device, "mid")
-    out = torch.zeros(n_segments, dtype=torch.int64, device=bits.device)
-    _launch("topk_count_le", (bits, seg_ids, mid, out), bits.numel(),
-            n_segments, CHUNK)
-    count_le_cuda.LAUNCHES += 1
-    count_le_cuda.LAUNCHES_AT[n_segments] += 1
-    return out
-
-
-count_le_cuda.LAUNCHES = 0
-count_le_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 def tie_counts_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
@@ -273,15 +229,9 @@ def tie_counts_cuda(bits: torch.Tensor, seg_ids: torch.Tensor,
     n_chunks = -(-bits.numel() // chunk)
     out = torch.empty((n_chunks, n_segments), dtype=torch.int32,
                       device=bits.device)
-    _launch("topk_tie_counts", (bits, seg_ids, tau, out), bits.numel(),
+    _launch(TIE_COUNTS, (bits, seg_ids, tau, out), bits.numel(),
             n_segments, chunk)
-    tie_counts_cuda.LAUNCHES += 1
-    tie_counts_cuda.LAUNCHES_AT[n_segments] += 1
     return out
-
-
-tie_counts_cuda.LAUNCHES = 0
-tie_counts_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 def apply_threshold_cuda(w: torch.Tensor, bits: torch.Tensor,
@@ -310,15 +260,9 @@ def apply_threshold_cuda(w: torch.Tensor, bits: torch.Tensor,
     chunk_off = _per_segment(chunk_tie_off, -(-bits.numel() // chunk),
                              torch.int64, dev, "chunk_tie_off")
     out = torch.empty_like(w)
-    _launch("topk_apply", (w, bits, seg_ids, tau, lim, chunk_off, out),
+    _launch(APPLY, (w, bits, seg_ids, tau, lim, chunk_off, out),
             bits.numel(), n_segments, chunk)
-    apply_threshold_cuda.LAUNCHES += 1
-    apply_threshold_cuda.LAUNCHES_AT[n_segments] += 1
     return out
-
-
-apply_threshold_cuda.LAUNCHES = 0
-apply_threshold_cuda.LAUNCHES_AT = collections.Counter()  # by S
 
 
 # ---- dispatchers --------------------------------------------------------------
@@ -334,11 +278,6 @@ def _route(t: torch.Tensor, cuda_fn, plain_fn):
 def radix_select(bits, seg_ids, k, n_segments):
     return _route(bits, radix_select_cuda, radix_select_plain)(
         bits, seg_ids, k, n_segments)
-
-
-def count_le(bits, seg_ids, mid, n_segments):
-    return _route(bits, count_le_cuda, count_le_plain)(
-        bits, seg_ids, mid, n_segments)
 
 
 def tie_counts(bits, seg_ids, tau, n_segments, chunk=CHUNK):

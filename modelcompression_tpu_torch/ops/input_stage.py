@@ -1,8 +1,8 @@
 """Fused input stage: conv1 (3x3, stride 1, pad 1, C_in=3) + bias + leaky
 + maxpool (2x2, stride 2) as one op.
 
-Port of ``modelcompression_tpu/ops/input_stage.py``. Four functions with
-one semantics:
+Port of ``modelcompression_tpu/ops/input_stage.py``. Three functions with
+one semantics, and their dispatcher:
 
 * ``fused_conv1_pool_plain`` — plain PyTorch, the port of the JAX twin
   ``fused_conv1_pool_xla``: one matmul over the space-to-depth grid
@@ -17,16 +17,12 @@ one semantics:
   Hopper kernel ``csrc/input_stage_f32.cu`` on the CUDA cores: taps
   outside and pool phases inside, 8 channels per thread, persistent blocks
   with a ``cp.async`` double-buffered halo.
-* ``fused_conv1_pool_cuda`` — the first CUDA-core kernel
-  ``csrc/input_stage.cu`` (bf16 or fp32). No path of the port launches it;
-  ``chip_smoke.py`` times it beside both routes' kernels as their
-  yardstick.
 * ``fused_conv1_pool`` — the dispatcher: the plain version for CPU
   tensors; for CUDA tensors the mma kernel in bf16 and the fp32 kernel in
   fp32 (never a fallback between them).
 
-The kernels are bound with ctypes and count their launches in
-``LAUNCHES`` (and by output channels C in ``LAUNCHES_AT``).
+The kernels launch through ``MMA`` and ``F32`` (``ops/_build.Kernel``),
+which count their launches by output channels C.
 
 Exactness: maxpool(leaky(conv(x) + b)) == leaky(max_phases(conv) + b),
 since leaky is monotone increasing and b is constant per channel.
@@ -34,7 +30,6 @@ since leaky is monotone increasing and b is constant per channel.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
@@ -45,6 +40,7 @@ import torch.nn.functional as F
 from modelcompression_tpu_torch.models.cfg import (
     ConvLayer, MaxPoolLayer, NetworkSpec, RouteLayer,
 )
+from modelcompression_tpu_torch.ops._build import Kernel
 
 # pool phase (py, px) order; phase p lives in output columns [p*C, (p+1)*C)
 _PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -136,7 +132,6 @@ def fused_conv1_pool_plain(x: torch.Tensor, w_oihw: torch.Tensor,
     return y.to(compute_dtype)
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MMA_TAPS = 32  # K of the mma kernel: the 27 taps padded to two k16 steps
 
 
@@ -172,57 +167,25 @@ def _check_args(x: torch.Tensor, w_oihw: torch.Tensor,
                          f"{x.device}")
 
 
-def _launch(source: str, x: torch.Tensor, wk: torch.Tensor,
-            bias: torch.Tensor, *flags: int) -> torch.Tensor:
-    """Call ``mc_<source>`` of ``csrc/<source>.cu`` on PyTorch's current
-    stream: x, the kernel's weights, bias (fp32), a fresh (B, H/2, W/2, C)
-    output in x's dtype, then B, H, W, C and ``flags``. Raises when the
-    launch is refused."""
-    from modelcompression_tpu_torch.ops import _build
-    fn = getattr(_build.load(source), f"mc_{source}")
-    # pointers and the stream as c_void_p: ctypes would pass a bare Python
-    # int as a 32-bit int and cut the pointer
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(flags)) \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+# x, the kernel's weights, bias (fp32), the output, then B, H, W, C
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+MMA = Kernel("input_stage_mma", _ARGS)
+F32 = Kernel("input_stage_f32", _ARGS)
+
+
+def _launch(kernel: Kernel, x: torch.Tensor, wk: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    """``kernel`` on x, the kernel's weights ``wk`` and bias (cast to
+    fp32) into a fresh (B, H/2, W/2, C) output in x's dtype, returned."""
     b, h, w, _ = x.shape
     c_out = bias.shape[0]
     x = x.contiguous()
     bk = bias.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((b, h // 2, w // 2, c_out), dtype=x.dtype,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-                 b, h, w, c_out, *flags, stream)
-    if err != 0:
-        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
+    kernel.launch(c_out, x.get_device(), x.data_ptr(), wk.data_ptr(),
+                  bk.data_ptr(), out.data_ptr(), b, h, w, c_out)
     return out
-
-
-def fused_conv1_pool_cuda(x: torch.Tensor, w_oihw: torch.Tensor,
-                          bias: torch.Tensor,
-                          compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Launch ``csrc/input_stage.cu`` on PyTorch's current stream.
-
-    x (B, H, W, 3) on a CUDA device, H and W even, any float dtype (cast to
-    ``compute_dtype``); w (C, 3, 3, 3) OIHW with C <= 32; bias (C,).
-    Returns (B, H/2, W/2, C) in ``compute_dtype``. Raises on anything the
-    kernel does not take, and when the launch is refused."""
-    if compute_dtype not in _DTYPE_CODE:
-        raise ValueError(f"input-stage kernel takes bf16 or fp32, not "
-                         f"{compute_dtype}")
-    _check_args(x, w_oihw, bias)
-    wk = w_oihw.to(device=x.device, dtype=compute_dtype).contiguous()
-    out = _launch("input_stage", x.to(compute_dtype), wk, bias,
-                  _DTYPE_CODE[compute_dtype])
-    fused_conv1_pool_cuda.LAUNCHES += 1
-    fused_conv1_pool_cuda.LAUNCHES_AT[out.shape[3]] += 1
-    return out
-
-
-fused_conv1_pool_cuda.LAUNCHES = 0
-fused_conv1_pool_cuda.LAUNCHES_AT = collections.Counter()  # by C
 
 
 def fused_conv1_pool_mma(x: torch.Tensor, w_oihw: torch.Tensor,
@@ -239,14 +202,7 @@ def fused_conv1_pool_mma(x: torch.Tensor, w_oihw: torch.Tensor,
                          f"{x.dtype}")
     _check_args(x, w_oihw, bias)
     wp = pack_mma_weights(w_oihw.to(device=x.device, dtype=torch.bfloat16))
-    out = _launch("input_stage_mma", x, wp, bias)
-    fused_conv1_pool_mma.LAUNCHES += 1
-    fused_conv1_pool_mma.LAUNCHES_AT[out.shape[3]] += 1
-    return out
-
-
-fused_conv1_pool_mma.LAUNCHES = 0
-fused_conv1_pool_mma.LAUNCHES_AT = collections.Counter()  # by C
+    return _launch(MMA, x, wp, bias)
 
 
 def fused_conv1_pool_f32(x: torch.Tensor, w_oihw: torch.Tensor,
@@ -262,14 +218,7 @@ def fused_conv1_pool_f32(x: torch.Tensor, w_oihw: torch.Tensor,
                          f"{x.dtype}")
     _check_args(x, w_oihw, bias)
     wk = w_oihw.to(device=x.device, dtype=torch.float32).contiguous()
-    out = _launch("input_stage_f32", x, wk, bias)
-    fused_conv1_pool_f32.LAUNCHES += 1
-    fused_conv1_pool_f32.LAUNCHES_AT[out.shape[3]] += 1
-    return out
-
-
-fused_conv1_pool_f32.LAUNCHES = 0
-fused_conv1_pool_f32.LAUNCHES_AT = collections.Counter()  # by C
+    return _launch(F32, x, wk, bias)
 
 
 def fused_conv1_pool(x: torch.Tensor, w_oihw: torch.Tensor,

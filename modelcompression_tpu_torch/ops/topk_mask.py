@@ -8,14 +8,13 @@ PyTorch (port of ``abs_bits`` and ``segmented_kth_bits`` of
   [0, 0x7FFFFFFF], so int32 comparisons order them as |w| orders.
 * The k-th smallest value of each segment is found in 31 rounds of
   bisection over those 31 bits, each round one masked per-segment count
-  (``count_le``) and no sort. Nothing in the loop reads a device value on
+  (``count_le_rule``) and no sort. Nothing in the loop reads a device value on
   the host.
 
 ``segmented_kth_bits`` is the rule the JAX package defines and the tests'
-reference. ``ops/cuda_topk.prune_flat`` no longer runs it: it finds the
+reference. ``ops/cuda_topk.prune_flat`` does not run it: it finds the
 same k-th pattern with a radix select (``cuda_topk.radix_select``, four
-histogram passes). The bisection stays as the radix select's yardstick,
-driven on the card through the count kernel (``cuda_topk.count_le``).
+histogram passes).
 
 Flat order: the tie rule ranks ties by their index in the concatenation of
 the JAX package's HWIO-flattened kernels. The port stores kernels OIHW, so
@@ -26,7 +25,7 @@ ties in another order.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -70,10 +69,9 @@ def count_le_rule(bits: torch.Tensor, seg_ids: torch.Tensor,
 
 
 def segmented_kth_bits(bits: torch.Tensor, seg_ids: torch.Tensor,
-                       k: torch.Tensor, n_segments: int,
-                       count_le: Callable = count_le_rule) -> torch.Tensor:
+                       k: torch.Tensor, n_segments: int) -> torch.Tensor:
     """For each segment s, the bit pattern of its k[s]-th smallest element
-    (0-indexed, k[s] in [0, segment size)). 31 rounds of ``count_le``;
+    (0-indexed, k[s] in [0, segment size)). 31 rounds of ``count_le_rule``;
     bounds are int64, so ``mid + 1`` cannot wrap. Returns int64 (S,)."""
     k = k.long()
     lo = torch.zeros(n_segments, dtype=torch.int64, device=bits.device)
@@ -81,7 +79,7 @@ def segmented_kth_bits(bits: torch.Tensor, seg_ids: torch.Tensor,
                     device=bits.device)
     for _ in range(BISECT_ROUNDS):
         mid = lo + ((hi - lo) >> 1)
-        gt = count_le(bits, seg_ids, mid, n_segments) > k
+        gt = count_le_rule(bits, seg_ids, mid, n_segments) > k
         # count(<= mid) > k: the answer is <= mid, else it is > mid
         hi = torch.where(gt, mid, hi)
         lo = torch.where(gt, lo, mid + 1)

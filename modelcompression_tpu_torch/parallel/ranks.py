@@ -271,10 +271,9 @@ def _rank_main(r: int, target: str, argv: Sequence[str], mesh: Mesh,
     if out_dir:
         from modelcompression_tpu_torch.ops import KERNELS
         with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
-            json.dump({name: {"launches": w.LAUNCHES,
-                              "at": {str(k): n for k, n
-                                     in w.LAUNCHES_AT.items()}}
-                       for name, w in KERNELS}
+            json.dump({k.source: {"launches": k.launches,
+                                  "at": {str(w): n for w, n in k.at.items()}}
+                       for k in KERNELS}
                       | {"collectives": COLLECTIVES}, f)
     if rc:
         sys.exit(rc)

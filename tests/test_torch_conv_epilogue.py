@@ -14,6 +14,8 @@ an absolute 1e-38 where exp(v) is subnormal in fp32 (v < -87). Against the
 eager bf16 chain, which rounds after the bias cast, the add and each of
 mish's three passes: 2 bf16 ulps of the largest magnitude."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from modelcompression_tpu_torch.core.precision import BITMATCH, FAST
 from modelcompression_tpu_torch.data.fixtures import tiny_yolo4_cfg
 from modelcompression_tpu_torch.models import darknet
 from modelcompression_tpu_torch.models.cfg import ConvLayer, parse_cfg
+from modelcompression_tpu_torch.ops import _build
 from modelcompression_tpu_torch.ops import conv_epilogue as ce
 
 KINDS = ("linear", "leaky", "mish")
@@ -100,14 +103,17 @@ def test_plain_matches_eager_bf16_chain(kind, c):
 
 
 def _stub_library(monkeypatch, err=0):
-    """The kernel's C entry and the stream lookup replaced on the CPU: the
-    entry records its arguments and returns ``err``."""
+    """The kernel's C entry, as the seam's loader finds it, and the stream
+    lookup replaced on the CPU: the entry records its arguments and
+    returns ``err``."""
     calls = []
 
     def entry(*args):
         calls.append(args)
         return err
-    monkeypatch.setattr(ce, "_entry", lambda: entry)
+    monkeypatch.setattr(ce.KERNEL, "_fn", None)
+    monkeypatch.setattr(_build, "load", lambda name: types.SimpleNamespace(
+        **{f"mc_{name}": entry}))
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
                         lambda dev: 0, raising=False)
     return calls
@@ -116,13 +122,13 @@ def _stub_library(monkeypatch, err=0):
 @pytest.mark.parametrize("profiled", [False, True])
 def test_launch_counts_and_marks_under_a_profiler(monkeypatch, profiled):
     """One launch: the entry called once with y's elements, C and the
-    activation, ``LAUNCHES`` and ``LAUNCHES_AT[C]`` up by one, y returned;
+    activation, ``launches`` and ``at[C]`` up by one, y returned;
     under a recording profiler inside one ``conv_epilogue`` host op, and
     with none outside."""
     from torch.profiler import ProfilerActivity, profile
     calls = _stub_library(monkeypatch)
     y, b = _case(24, 10, seed=4)
-    n0, at0 = ce.bias_act_cuda.LAUNCHES, ce.bias_act_cuda.LAUNCHES_AT[24]
+    n0, at0 = ce.KERNEL.launches, ce.KERNEL.at[24]
     if profiled:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             out = ce.launch(y, b, "mish")
@@ -132,17 +138,17 @@ def test_launch_counts_and_marks_under_a_profiler(monkeypatch, profiled):
         out = ce.launch(y, b, "mish")
     assert out is y
     assert [c[2:5] for c in calls] == [(y.numel(), 24, ce.ACTIVATIONS["mish"])]
-    assert ce.bias_act_cuda.LAUNCHES == n0 + 1
-    assert ce.bias_act_cuda.LAUNCHES_AT[24] == at0 + 1
+    assert ce.KERNEL.launches == n0 + 1
+    assert ce.KERNEL.at[24] == at0 + 1
 
 
 def test_refused_launch_raises_uncounted(monkeypatch):
     _stub_library(monkeypatch, err=98)
     y, b = _case(8, 4, seed=5)
-    n0 = ce.bias_act_cuda.LAUNCHES
+    n0 = ce.KERNEL.launches
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         ce.launch(y, b, "leaky")
-    assert ce.bias_act_cuda.LAUNCHES == n0
+    assert ce.KERNEL.launches == n0
 
 
 def _cl(shape, dtype=torch.bfloat16):
@@ -169,14 +175,15 @@ def _cl(shape, dtype=torch.bfloat16):
 def test_kernel_wrapper_rejects(monkeypatch, y, bias, kind, msg):
     """Every input the kernel does not take raises before the library is
     loaded and before any launch is counted."""
-    def no_build():
+    def no_build(name):
         raise AssertionError("the wrapper reached the library")
-    monkeypatch.setattr(ce, "_entry", no_build)
-    n0, at0 = ce.bias_act_cuda.LAUNCHES, dict(ce.bias_act_cuda.LAUNCHES_AT)
+    monkeypatch.setattr(ce.KERNEL, "_fn", None)
+    monkeypatch.setattr(_build, "load", no_build)
+    n0, at0 = ce.KERNEL.launches, dict(ce.KERNEL.at)
     with pytest.raises(ValueError, match=msg):
         ce.bias_act_cuda(y, bias, kind)
-    assert ce.bias_act_cuda.LAUNCHES == n0
-    assert dict(ce.bias_act_cuda.LAUNCHES_AT) == at0
+    assert ce.KERNEL.launches == n0
+    assert dict(ce.KERNEL.at) == at0
 
 
 @pytest.mark.parametrize("stride", [2, 3])
@@ -258,9 +265,9 @@ def test_cpu_forward_never_reaches_kernel(monkeypatch, precision, folded):
 
 def test_cpu_forward_leaves_launch_count():
     spec, params, x = _spec_params()
-    n0, at0 = ce.bias_act_cuda.LAUNCHES, dict(ce.bias_act_cuda.LAUNCHES_AT)
+    n0, at0 = ce.KERNEL.launches, dict(ce.KERNEL.at)
     with torch.inference_mode():
         darknet.forward_folded(darknet.fold_batchnorm(params, spec), x, spec,
                                FAST)
-    assert ce.bias_act_cuda.LAUNCHES == n0
-    assert dict(ce.bias_act_cuda.LAUNCHES_AT) == at0
+    assert ce.KERNEL.launches == n0
+    assert dict(ce.KERNEL.at) == at0

@@ -11,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from modelcompression_tpu_torch.ops import KERNELS
 from modelcompression_tpu_torch.ops import conv_epilogue as tce
 from modelcompression_tpu_torch.ops import cuda_topk as ct
 from modelcompression_tpu_torch.ops import input_stage as tis
 from modelcompression_tpu_torch.ops import topk_mask as ttm
 
 FP32_ATOL = 1e-5
+# the magnitude prune's kernels, in the order it launches them
+TOPK_KERNELS = (ct.RADIX_SELECT, ct.TIE_COUNTS, ct.APPLY)
 
 
 @pytest.fixture
@@ -47,18 +50,16 @@ def test_input_stage_kernel_matches_plain(cuda_device, c_out, h, w, dtype):
     output (2**-7 relative), since a summation-order difference can move
     the single final rounding by one ulp."""
     x, wt, bt = _case(c_out, h, w, 3, c_out, cuda_device)
-    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_f32,
-                tis.fused_conv1_pool_cuda)
-    n0 = [k.LAUNCHES for k in wrappers]
-    at0 = [k.LAUNCHES_AT[c_out] for k in wrappers]
+    kernels = (tis.MMA, tis.F32)
+    n0 = [k.launches for k in kernels]
+    at0 = [k.at[c_out] for k in kernels]
     got = tis.fused_conv1_pool(x, wt, bt, dtype)
     torch.cuda.synchronize()
-    # bf16 runs on the tensor cores, fp32 on the fp32 CUDA-core kernel;
-    # the first CUDA-core kernel (the yardstick) never
-    want_launches = [1, 0, 0] if dtype == torch.bfloat16 else [0, 1, 0]
-    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == want_launches
-    assert [k.LAUNCHES_AT[c_out] - n
-            for k, n in zip(wrappers, at0)] == want_launches
+    # bf16 runs on the tensor cores, fp32 on the fp32 CUDA-core kernel
+    want_launches = [1, 0] if dtype == torch.bfloat16 else [0, 1]
+    assert [k.launches - n for k, n in zip(kernels, n0)] == want_launches
+    assert [k.at[c_out] - n
+            for k, n in zip(kernels, at0)] == want_launches
     want = tis.fused_conv1_pool_plain(x, wt, bt, dtype)
     assert got.dtype == want.dtype == dtype
     assert got.shape == want.shape == (3, h // 2, w // 2, c_out)
@@ -69,20 +70,15 @@ def test_input_stage_kernel_matches_plain(cuda_device, c_out, h, w, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["mma", "cuda"])
 @pytest.mark.parametrize("c_out, h, w", [(32, 64, 96), (8, 64, 96),
                                          (13, 34, 70), (1, 2, 2)])
-def test_input_stage_bf16_kernels_match_plain(cuda_device, c_out, h, w,
-                                              kernel):
-    """Each bf16 kernel called directly (the mma kernel: the serving
-    route; the CUDA-core kernel: the yardstick) against the plain version,
-    within one bf16 ulp of the largest output."""
+def test_input_stage_bf16_kernels_match_plain(cuda_device, c_out, h, w):
+    """The bf16 kernel called directly (the mma kernel, the serving
+    route) against the plain version, within one bf16 ulp of the largest
+    output."""
     x, wt, bt = _case(c_out, h, w, 3, 100 + c_out, cuda_device)
     x = x.to(torch.bfloat16)
-    if kernel == "mma":
-        got = tis.fused_conv1_pool_mma(x, wt, bt)
-    else:
-        got = tis.fused_conv1_pool_cuda(x, wt, bt, torch.bfloat16)
+    got = tis.fused_conv1_pool_mma(x, wt, bt)
     torch.cuda.synchronize()
     want = tis.fused_conv1_pool_plain(x, wt, bt, torch.bfloat16)
     assert got.dtype == want.dtype == torch.bfloat16
@@ -92,24 +88,20 @@ def test_input_stage_bf16_kernels_match_plain(cuda_device, c_out, h, w,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["f32", "cuda"])
 @pytest.mark.parametrize("c_out, h, w, misaligned", [
     (32, 64, 96, False), (8, 64, 96, False), (13, 34, 70, False),
     (1, 2, 2, False), (24, 36, 68, False), (32, 64, 96, True)])
 def test_input_stage_fp32_kernels_match_plain(cuda_device, c_out, h, w,
-                                              misaligned, kernel):
-    """Each fp32 kernel called directly (``f32``: the BITMATCH route; the
-    first CUDA-core kernel: the yardstick) against the plain version, atol
-    1e-5 (summation order only). W % 4 == 0 with an aligned x takes the
-    16-byte halo copies, the rest the 4-byte ones; 34x70 and 36x68 leave
-    ragged tiles, C = 13 and 24 pad the channel groups."""
+                                              misaligned):
+    """The fp32 kernel called directly (``f32``, the BITMATCH route)
+    against the plain version, atol 1e-5 (summation order only). W % 4 ==
+    0 with an aligned x takes the 16-byte halo copies, the rest the 4-byte
+    ones; 34x70 and 36x68 leave ragged tiles, C = 13 and 24 pad the
+    channel groups."""
     x, wt, bt = _case(c_out, h, w, 3, 200 + c_out, cuda_device)
     if misaligned:
         x = _unaligned(x)
-    if kernel == "f32":
-        got = tis.fused_conv1_pool_f32(x, wt, bt)
-    else:
-        got = tis.fused_conv1_pool_cuda(x, wt, bt, torch.float32)
+    got = tis.fused_conv1_pool_f32(x, wt, bt)
     torch.cuda.synchronize()
     want = tis.fused_conv1_pool_plain(x, wt, bt, torch.float32)
     assert got.dtype == want.dtype == torch.float32
@@ -190,10 +182,11 @@ def test_input_stage_mma_one_hot_taps(cuda_device, c_out):
 def test_input_stage_kernel_rejects_bad_shapes(cuda_device):
     x, wt, bt = _case(8, 6, 6, 1, 0, cuda_device)
     with pytest.raises(ValueError, match="even"):
-        tis.fused_conv1_pool_cuda(x[:, :5], wt, bt)
+        tis.fused_conv1_pool_mma(x[:, :5].to(torch.bfloat16), wt, bt)
     w33 = torch.zeros((33, 3, 3, 3), device=cuda_device)
     with pytest.raises(ValueError, match="C <= 32"):
-        tis.fused_conv1_pool_cuda(x, w33, torch.zeros(33, device=cuda_device))
+        tis.fused_conv1_pool_mma(x.to(torch.bfloat16), w33,
+                                 torch.zeros(33, device=cuda_device))
     with pytest.raises(ValueError, match="even"):
         tis.fused_conv1_pool_f32(x[:, :, :5], wt, bt)
     with pytest.raises(ValueError, match="fp32"):
@@ -222,9 +215,8 @@ def test_eval_step_cuda_matches_cpu_bitmatch(cuda_device):
                                              np.uint8)
     ws, hs = np.full(2, 80.0, np.float32), np.full(2, 72.0, np.float32)
     outs = {}
-    wrappers = (tis.fused_conv1_pool_f32, tis.fused_conv1_pool_mma,
-                tis.fused_conv1_pool_cuda)
-    n0 = [k.LAUNCHES for k in wrappers]
+    kernels = (tis.F32, tis.MMA)
+    n0 = [k.launches for k in kernels]
     for dev in ("cpu", "cuda"):
         cfg = EvalConfig(conf_thresh=0.01, max_detections=8,
                          nms_prefilter=32, precision=BITMATCH, device=dev)
@@ -232,7 +224,7 @@ def test_eval_step_cuda_matches_cpu_bitmatch(cuda_device):
         outs[dev] = [t.cpu().numpy() for t in
                      step(params_to(params, dev), imgs, ws, hs)]
     # the card's step went through the fp32 kernel, once
-    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [1, 0, 0]
+    assert [k.launches - n for k, n in zip(kernels, n0)] == [1, 0]
     (sc, vc, ac), (sg, vg, ag) = ((o[1], o[3], o[4]) for o in
                                   (outs["cpu"], outs["cuda"]))
     np.testing.assert_array_equal(vg, vc)
@@ -293,10 +285,6 @@ def test_topk_kernels_match_plain(cuda_device, case, unaligned):
     tau = torch.where(n_zero > 0, kth, 0)
     if case == "tau0_S24":
         assert (tau == 0).all()
-    for mid in (kth, (tau - 1).clamp_min(0), torch.zeros_like(kth),
-                torch.full_like(kth, 0x7FFFFFFF)):
-        got = ct.count_le_cuda(bits, seg, mid, S)
-        assert torch.equal(got, ct.count_le_plain(bits, seg, mid, S))
     per_chunk = ct.tie_counts_cuda(bits, seg, tau, S)
     assert torch.equal(per_chunk, ct.tie_counts_plain(bits, seg, tau, S))
     assert per_chunk.shape == (-(-bits.numel() // ct.CHUNK), S)
@@ -338,12 +326,11 @@ def _small_segments_case(device, unaligned):
 
 
 def _assert_radix_matches_plain(bits, seg, k, S):
-    n0, at0 = ct.radix_select_cuda.LAUNCHES, ct.radix_select_cuda \
-        .LAUNCHES_AT[S]
+    n0, at0 = ct.RADIX_SELECT.launches, ct.RADIX_SELECT.at[S]
     kth, n_below = ct.radix_select_cuda(bits, seg, k, S)
     torch.cuda.synchronize()
-    assert ct.radix_select_cuda.LAUNCHES - n0 == 5
-    assert ct.radix_select_cuda.LAUNCHES_AT[S] - at0 == 5
+    assert ct.RADIX_SELECT.launches - n0 == 5
+    assert ct.RADIX_SELECT.at[S] - at0 == 5
     want_kth, want_below = ct.radix_select_plain(bits, seg, k, S)
     assert kth.dtype == n_below.dtype == torch.int64
     assert torch.equal(kth, want_kth)
@@ -414,18 +401,17 @@ def test_tie_counts_and_apply_at_grid_chunk_match_plain(cuda_device, case):
 @pytest.mark.parametrize("case", ["ties_S24", "tau0_S24"])
 def test_prune_flat_cuda_matches_cpu(cuda_device, case, return_mask):
     """The whole prune on the card (kernels) equals the prune on the CPU
-    (plain versions), with 5 radix-select launches, no count launch, and
-    1 tie-count and 1 apply launch."""
+    (plain versions), with 5 radix-select launches, and 1 tie-count and 1
+    apply launch."""
     w, _, seg, n_zero, S = _topk_case(case, cuda_device, False)
-    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
-               ct.apply_threshold_cuda)
-    before = [k.LAUNCHES for k in kernels]
-    before_at = [k.LAUNCHES_AT[S] for k in kernels]
+    before = [k.launches for k in TOPK_KERNELS]
+    before_at = [k.at[S] for k in TOPK_KERNELS]
     got = ct.prune_flat(w, seg, n_zero, S, return_mask=return_mask)
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - b for k, b in zip(kernels, before)] == [5, 0, 1, 1]
-    assert [k.LAUNCHES_AT[S] - b
-            for k, b in zip(kernels, before_at)] == [5, 0, 1, 1]
+    assert [k.launches - b for k, b in zip(TOPK_KERNELS, before)] \
+        == [5, 1, 1]
+    assert [k.at[S] - b for k, b in zip(TOPK_KERNELS, before_at)] \
+        == [5, 1, 1]
     want = ct.prune_flat(w.cpu(), seg.cpu(), n_zero.cpu(), S,
                          return_mask=return_mask)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
@@ -449,9 +435,7 @@ def test_magnitude_masks_cuda_match_reference(cuda_device, mode):
 
 
 def _launch_counts(S):
-    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
-               ct.apply_threshold_cuda)
-    return [k.LAUNCHES_AT[S] for k in kernels]
+    return [k.at[S] for k in TOPK_KERNELS]
 
 
 @pytest.mark.cuda
@@ -460,9 +444,9 @@ def test_gmp_recompute_through_kernels_matches_plain(cuda_device,
                                                      per_layer):
     """A GMP mask update on the card (a due step; the old masks from an
     earlier recompute, so the intersection acts) equals the same update
-    on the CPU (the kernels' plain versions), with 5/0/1/1 radix select /
-    count / tie count / apply launches at S = convs + 1 (per layer) or
-    2 (global)."""
+    on the CPU (the kernels' plain versions), with 5/1/1 radix select /
+    tie count / apply launches at S = convs + 1 (per layer) or 2
+    (global)."""
     from modelcompression_tpu_torch.compress import gmp
     from modelcompression_tpu_torch.models import (
         init_params, params_to, tiny_yolov2_voc,
@@ -479,8 +463,7 @@ def test_gmp_recompute_through_kernels_matches_plain(cuda_device,
     got = gmp.gmp_mask_update(g, spec, card, {k: m.to(cuda_device)
                                               for k, m in old.items()}, 3)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_launch_counts(S), before)] == \
-        [5, 0, 1, 1]
+    assert [a - b for a, b in zip(_launch_counts(S), before)] == [5, 1, 1]
     want = gmp.gmp_mask_update(g, spec, cpu, old, 3)
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
@@ -491,7 +474,7 @@ def test_gmp_recompute_through_kernels_matches_plain(cuda_device,
 def test_lamp_cut_through_kernels_matches_plain(cuda_device, sparsity):
     """LAMP's global cut on the card (prune_flat at S = 2) equals its
     stable-argsort definition on the same card scores, and lamp_masks
-    launches 5/0/1/1 at S = 2 with exactly int(sparsity * n) zeros."""
+    launches 5/1/1 at S = 2 with exactly int(sparsity * n) zeros."""
     from modelcompression_tpu_torch.compress import lamp
     from modelcompression_tpu_torch.models import (
         init_params, params_to, tiny_yolov2_voc,
@@ -508,7 +491,7 @@ def test_lamp_cut_through_kernels_matches_plain(cuda_device, sparsity):
     before = _launch_counts(2)
     masks = lamp.lamp_masks(params, spec, sparsity)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_launch_counts(2), before)] == [5, 0, 1, 1]
+    assert [a - b for a, b in zip(_launch_counts(2), before)] == [5, 1, 1]
     assert sum(int((~m).sum()) for m in masks.values()) == int(sparsity * n)
 
 
@@ -547,13 +530,10 @@ def test_topk_kernels_at_yolov4_voc_layout_match_plain(cuda_device):
     assert torch.equal(got.view(torch.int32),
                        ct.apply_threshold_plain(ones, *args)
                        .view(torch.int32))
-    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
-               ct.apply_threshold_cuda)
-    before = [kn.LAUNCHES_AT[S] for kn in kernels]
+    before = _launch_counts(S)
     masks = ct.magnitude_masks_perlayer(params, spec, 0.75)
     torch.cuda.synchronize()
-    assert [kn.LAUNCHES_AT[S] - b
-            for kn, b in zip(kernels, before)] == [5, 0, 1, 1]
+    assert [a - b for a, b in zip(_launch_counts(S), before)] == [5, 1, 1]
     want = criteria.magnitude_masks_perlayer(params, spec, 0.75)
     for key, m in want.items():
         assert torch.equal(masks[key], m), key
@@ -588,7 +568,7 @@ def test_fpgm_scores_keep_fp32_under_global_tf32(cuda_device):
 def test_topk_kernels_reject_bad_inputs(cuda_device):
     w, bits, seg, n_zero, S = _topk_case("S24", cuda_device, False)
     with pytest.raises(ValueError, match="int32"):
-        ct.count_le_cuda(bits.long(), seg, n_zero, S)
+        ct.radix_select_cuda(bits.long(), seg, n_zero, S)
     with pytest.raises(ValueError, match="n_segments"):
         ct.tie_counts_cuda(bits, seg, torch.zeros(ct.MAX_SEGMENTS + 1),
                            ct.MAX_SEGMENTS + 1)
@@ -640,15 +620,13 @@ def test_evaluate_on_card_launches_mma_per_batch_and_equals_step(
     from modelcompression_tpu_torch.models import fold_batchnorm, params_to
     samples, classes, spec, params = _eval_fixture(tmp_path, 5, 64)
     cfg = EvalConfig(batch_size=2, max_detections=10, device="cuda")
-    wrappers = (tis.fused_conv1_pool_mma, tis.fused_conv1_pool_f32,
-                tis.fused_conv1_pool_cuda)
-    n0 = [k.LAUNCHES for k in wrappers]
-    c0 = tis.fused_conv1_pool_mma.LAUNCHES_AT[spec.layers[0].filters]
+    kernels = (tis.MMA, tis.F32)
+    n0 = [k.launches for k in kernels]
+    c0 = tis.MMA.at[spec.layers[0].filters]
     res = evaluate(params, spec, samples, classes, cfg)
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] == [3, 0, 0]
-    assert tis.fused_conv1_pool_mma.LAUNCHES_AT[spec.layers[0].filters] \
-        - c0 == 3
+    assert [k.launches - n for k, n in zip(kernels, n0)] == [3, 0]
+    assert tis.MMA.at[spec.layers[0].filters] - c0 == 3
     assert res.n_images == 5 and res.device.startswith("cuda")
     step = make_eval_step(spec, cfg)
     first = samples[:2]
@@ -700,21 +678,19 @@ def _finetune(cfg, weights, data, out, *extra):
 def test_finetune_iterate_magnitude_launches_topk_per_round(cuda_device,
                                                             tmp_path):
     """Two magnitude rounds recompute the masks through the kernels: the
-    radix select 5 times a round (the count kernel never), tie count and
-    apply once; every round's
+    radix select 5 times a round, tie count and apply once; every
+    round's
     eval runs the tensor-core input stage once per batch (8 images at
     batch 4); the written weights have floor(0.75 n) zeros per conv."""
     from modelcompression_tpu_torch.models import load_weights
     cfg, weights, data, spec = _finetune_fixture(tmp_path)
-    wrappers = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
-                ct.apply_threshold_cuda, tis.fused_conv1_pool_mma)
-    n0 = [k.LAUNCHES for k in wrappers]
+    kernels = TOPK_KERNELS + (tis.MMA,)
+    n0 = [k.launches for k in kernels]
     out = str(tmp_path / "mag.weights")
     assert _finetune(cfg, weights, data, out, "--iterate", "0.5,0.75",
                      "--iterate-mode", "magnitude") == 0
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - n for k, n in zip(wrappers, n0)] \
-        == [10, 0, 2, 2, 4]
+    assert [k.launches - n for k, n in zip(kernels, n0)] == [10, 2, 2, 4]
     got, seen = load_weights(out, spec)
     assert seen == 2 * 2 * 4
     for k, p in got.items():
@@ -728,13 +704,12 @@ def test_finetune_iterate_l1_filter_evals_at_each_width(cuda_device,
     rounds' evals launch the tensor-core input stage at C=8, then C=4 (two
     batches each)."""
     cfg, weights, data, _ = _finetune_fixture(tmp_path)
-    mma = tis.fused_conv1_pool_mma
-    at0 = dict(mma.LAUNCHES_AT)
+    at0 = dict(tis.MMA.at)
     out = str(tmp_path / "slim.weights")
     assert _finetune(cfg, weights, data, out, "--iterate", "0.5,0.75",
                      "--iterate-mode", "l1_filter") == 0
     torch.cuda.synchronize()
-    assert {c: mma.LAUNCHES_AT[c] - at0.get(c, 0) for c in (16, 8, 4)} \
+    assert {c: tis.MMA.at[c] - at0.get(c, 0) for c in (16, 8, 4)} \
         == {16: 0, 8: 2, 4: 2}
     assert (tmp_path / "slim.cfg").exists()
 
@@ -759,20 +734,18 @@ def _nms_case(b, n, c, seed, levels=None):
 def test_bisect_prefilter_kernels_match_plain(cuda_device, b, n, c,
                                               prefilter, levels):
     """The bisect prefilter on CUDA tensors launches radix select /
-    count / tie-count / apply 5 / 0 / 1 / 1 times and keeps exactly the
+    tie-count / apply 5 / 1 / 1 times and keeps exactly the
     plain route's set (the CPU run of the same function) in the same
     slots."""
     from modelcompression_tpu_torch.evaluation import nms as tnms
     boxes, scores = _nms_case(b, n, c, seed=n, levels=levels)
     want = tnms.batched_bisect_prefilter(boxes, scores, 0.01, prefilter)
-    kernels = (ct.radix_select_cuda, ct.count_le_cuda, ct.tie_counts_cuda,
-               ct.apply_threshold_cuda)
-    n0 = [k.LAUNCHES for k in kernels]
+    n0 = [k.launches for k in TOPK_KERNELS]
     got = tnms.batched_bisect_prefilter(boxes.to(cuda_device),
                                         scores.to(cuda_device), 0.01,
                                         prefilter)
     torch.cuda.synchronize()
-    assert [k.LAUNCHES - n for k, n in zip(kernels, n0)] == [5, 0, 1, 1]
+    assert [k.launches - n for k, n in zip(TOPK_KERNELS, n0)] == [5, 1, 1]
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     sel = tnms.batched_per_class_nms_prefiltered(
@@ -888,13 +861,13 @@ def test_conv_epilogue_kernel_matches_plain(cuda_device, b, c, h, w, kind,
     through the forward's unchecked ``launch``."""
     y, bias = _epilogue_case(b, c, h, w, c + h, cuda_device, misaligned)
     want = tce.bias_act_plain(y, bias, kind)
-    n0, at0 = tce.bias_act_cuda.LAUNCHES, tce.bias_act_cuda.LAUNCHES_AT[c]
+    n0, at0 = tce.KERNEL.launches, tce.KERNEL.at[c]
     ptr = y.data_ptr()
     got = getattr(tce, entry)(y, bias, kind)
     torch.cuda.synchronize()
     assert got.data_ptr() == ptr and got.shape == want.shape
-    assert tce.bias_act_cuda.LAUNCHES == n0 + 1
-    assert tce.bias_act_cuda.LAUNCHES_AT[c] == at0 + 1
+    assert tce.KERNEL.launches == n0 + 1
+    assert tce.KERNEL.at[c] == at0 + 1
     if kind == "mish":
         assert _bf16_ulps(got, want) <= 1.0
     else:
@@ -953,14 +926,12 @@ def test_folded_forward_launches_epilogue_per_conv(cuda_device):
                    generator=torch.Generator().manual_seed(0)).to(cuda_device)
 
     def launches(fn):
-        n0 = tce.bias_act_cuda.LAUNCHES
-        at0 = dict(tce.bias_act_cuda.LAUNCHES_AT)
+        n0, at0 = tce.KERNEL.launches, dict(tce.KERNEL.at)
         out = fn()
         torch.cuda.synchronize()
-        at = {c: n - at0.get(c, 0)
-              for c, n in tce.bias_act_cuda.LAUNCHES_AT.items()
+        at = {c: n - at0.get(c, 0) for c, n in tce.KERNEL.at.items()
               if n != at0.get(c, 0)}
-        return out, tce.bias_act_cuda.LAUNCHES - n0, at
+        return out, tce.KERNEL.launches - n0, at
 
     with torch.inference_mode():
         got, n, at = launches(lambda: darknet.forward_folded(
@@ -1000,7 +971,7 @@ def test_conv_epilogue_rejects_bad_inputs(cuda_device):
     device than y and a CPU y raise before any launch, y untouched."""
     y, bias = _epilogue_case(2, 16, 4, 4, 0, cuda_device)
     before = y.clone()
-    n0 = tce.bias_act_cuda.LAUNCHES
+    n0 = tce.KERNEL.launches
     cases = [
         (y.float(), bias, "bf16"),
         (y.contiguous(), bias, "channels-last"),
@@ -1013,36 +984,67 @@ def test_conv_epilogue_rejects_bad_inputs(cuda_device):
         with pytest.raises(ValueError, match=msg):
             tce.bias_act_cuda(yy, bb, "mish")
     torch.cuda.synchronize()
-    assert tce.bias_act_cuda.LAUNCHES == n0
+    assert tce.KERNEL.launches == n0
     assert torch.equal(y, before)
 
 
-@pytest.mark.cuda
-def test_conv_epilogue_launch_is_a_host_op_under_the_profiler(cuda_device):
-    """Under ``torch.profiler`` each launch of one FAST forward of the
-    YOLOv4-tiny fixture is a ``conv_epilogue`` host op with exactly one
-    device kernel linked to it, the epilogue's: the trace counts it as it
-    counts PyTorch's own ops."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _yolov4_tiny_forward(device):
+    """One FAST forward of the YOLOv4-tiny fixture on the card, and its
+    conv count: the conv epilogue's launches."""
     from modelcompression_tpu_torch.core.precision import FAST
     from modelcompression_tpu_torch.data.fixtures import tiny_yolo4_cfg
     from modelcompression_tpu_torch.models import darknet
     from modelcompression_tpu_torch.models.cfg import ConvLayer, parse_cfg
     spec = parse_cfg(tiny_yolo4_cfg(num_classes=3))
-    n_convs = sum(isinstance(l, ConvLayer) for l in spec.layers)
     folded = darknet.params_to(darknet.fold_batchnorm(
-        darknet.init_params(spec, seed=0), spec), cuda_device)
+        darknet.init_params(spec, seed=0), spec), device)
     x = torch.rand((2, spec.net.height, spec.net.width, 3),
-                   generator=torch.Generator().manual_seed(0)).to(cuda_device)
+                   generator=torch.Generator().manual_seed(0)).to(device)
+    n_convs = sum(isinstance(l, ConvLayer) for l in spec.layers)
+    return lambda: darknet.forward_folded(folded, x, spec, FAST), n_convs
+
+
+def _launching(source, device):
+    """A call that launches ``source``'s kernel, its launches, and a part
+    of the name of the device kernel each launch runs."""
+    if source == "conv_epilogue":
+        fn, n = _yolov4_tiny_forward(device)
+        return fn, n, "conv_epilogue_"
+    if source.startswith("input_stage"):
+        x, wt, bt = _case(16, 64, 64, 2, 0, device)
+        if source == "input_stage_mma":
+            x = x.to(torch.bfloat16)
+            return (lambda: tis.fused_conv1_pool_mma(x, wt, bt), 1,
+                    "conv1_pool_mma_kernel")
+        return (lambda: tis.fused_conv1_pool_f32(x, wt, bt), 1,
+                "conv1_pool_f32_kernel")
+    w, _, seg, n_zero, S = _topk_case("S24", device, False)
+    n, name = {"topk_radix_select": (5, "radix_"),
+               "topk_tie_counts": (1, "tie_counts_kernel"),
+               "topk_apply": (1, "apply_kernel")}[source]
+    return lambda: ct.prune_flat(w, seg, n_zero, S), n, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", [k.source for k in KERNELS])
+def test_conv_epilogue_launch_is_a_host_op_under_the_profiler(cuda_device,
+                                                             source):
+    """Under ``torch.profiler`` each launch of every csrc/ kernel (the
+    conv epilogue's in one FAST forward of the YOLOv4-tiny fixture, the
+    input stages' in one call, the top-k kernels' in one magnitude prune)
+    is a host op named after its source with exactly one device kernel
+    linked to it, its own: the trace counts it as it counts PyTorch's own
+    ops."""
+    from torch.profiler import ProfilerActivity, profile
+    fn, n, name = _launching(source, cuda_device)
     with torch.inference_mode():
-        darknet.forward_folded(folded, x, spec, FAST)  # built and warm
+        fn()  # built and warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            darknet.forward_folded(folded, x, spec, FAST)
+            fn()
             torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.name == "conv_epilogue"]
-    assert len(ops) == n_convs
-    assert all(len(e.kernels) == 1 and "conv_epilogue_" in e.kernels[0].name
+    ops = [e for e in prof.events() if e.name == source]
+    assert len(ops) == n
+    assert all(len(e.kernels) == 1 and name in e.kernels[0].name
                for e in ops), [[k.name for k in e.kernels] for e in ops]

@@ -127,8 +127,7 @@ def test_space_to_depth2_equals_jax():
 def test_dispatcher_uses_plain_on_cpu(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("kernel wrapper reached with a CPU tensor")
-    for name in ("fused_conv1_pool_cuda", "fused_conv1_pool_f32",
-                 "fused_conv1_pool_mma"):
+    for name in ("fused_conv1_pool_f32", "fused_conv1_pool_mma"):
         monkeypatch.setattr(tis, name, boom)
     x, w, b = _rand_case(8, h=8, w=8, seed=5)
     wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
@@ -159,14 +158,9 @@ def _spy_kernels(monkeypatch):
     def f32(x, w, b):
         calls.append("f32")
         return "f32-output"
-
-    def cuda(x, w, b, compute_dtype):
-        calls.append(("cuda", compute_dtype))
-        return "cuda-output"
     monkeypatch.setattr(tis, "fused_conv1_pool_plain", plain)
     monkeypatch.setattr(tis, "fused_conv1_pool_mma", mma)
     monkeypatch.setattr(tis, "fused_conv1_pool_f32", f32)
-    monkeypatch.setattr(tis, "fused_conv1_pool_cuda", cuda)
     return calls
 
 
@@ -184,7 +178,7 @@ def test_dispatcher_never_sends_cuda_tensor_to_plain(monkeypatch):
     (torch.bfloat16, "mma"), (torch.float32, "f32")])
 def test_dispatcher_routes_cuda_tensor_by_dtype(monkeypatch, dtype, want):
     """bf16 to the mma kernel, fp32 to the fp32 CUDA-core kernel, each
-    once; the first CUDA-core kernel (the yardstick) never."""
+    once."""
     calls = _spy_kernels(monkeypatch)
     tis.fused_conv1_pool(_fake_cuda_tensor(), None, None, dtype)
     assert calls == [want]
@@ -204,17 +198,20 @@ def test_dispatcher_rejects_other_devices():
         tis.fused_conv1_pool(x, torch.empty(8, 3, 3, 3), torch.empty(8))
 
 
-@pytest.mark.parametrize("shape, w_shape, msg", [
-    ((1, 4, 4, 3), (8, 3, 3, 3), "CUDA tensor"),
+@pytest.mark.parametrize("wrapper, kernel, dtype", [
+    ("fused_conv1_pool_mma", "MMA", torch.bfloat16),
+    ("fused_conv1_pool_f32", "F32", torch.float32),
 ])
-def test_kernel_wrapper_rejects_cpu_tensor(shape, w_shape, msg):
-    before = tis.fused_conv1_pool_cuda.LAUNCHES
-    before_at = dict(tis.fused_conv1_pool_cuda.LAUNCHES_AT)
-    with pytest.raises(ValueError, match=msg):
-        tis.fused_conv1_pool_cuda(torch.zeros(shape), torch.zeros(w_shape),
-                                  torch.zeros(w_shape[0]))
-    assert tis.fused_conv1_pool_cuda.LAUNCHES == before
-    assert dict(tis.fused_conv1_pool_cuda.LAUNCHES_AT) == before_at
+def test_kernel_wrapper_rejects_cpu_tensor(wrapper, kernel, dtype):
+    """A CPU tensor in the wrapper's own dtype raises before any launch
+    of its kernel is counted."""
+    k = getattr(tis, kernel)
+    before, before_at = k.launches, dict(k.at)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        getattr(tis, wrapper)(torch.zeros((1, 4, 4, 3), dtype=dtype),
+                              torch.zeros((8, 3, 3, 3)), torch.zeros(8))
+    assert k.launches == before
+    assert dict(k.at) == before_at
 
 
 def _bf16(shape):
@@ -230,13 +227,12 @@ def _bf16(shape):
 ])
 def test_mma_wrapper_rejects(x, w_shape, msg):
     """A CPU tensor, fp32, C = 33 and odd H or W raise before any launch."""
-    before = tis.fused_conv1_pool_mma.LAUNCHES
-    before_at = dict(tis.fused_conv1_pool_mma.LAUNCHES_AT)
+    before, before_at = tis.MMA.launches, dict(tis.MMA.at)
     with pytest.raises(ValueError, match=msg):
         tis.fused_conv1_pool_mma(x, torch.zeros(w_shape),
                                  torch.zeros(w_shape[0]))
-    assert tis.fused_conv1_pool_mma.LAUNCHES == before
-    assert dict(tis.fused_conv1_pool_mma.LAUNCHES_AT) == before_at
+    assert tis.MMA.launches == before
+    assert dict(tis.MMA.at) == before_at
 
 
 @pytest.mark.parametrize("x, w_shape, msg", [
@@ -249,13 +245,12 @@ def test_mma_wrapper_rejects(x, w_shape, msg):
 def test_f32_wrapper_rejects(x, w_shape, msg):
     """A CPU tensor, bf16 x, C = 33 and odd H or W raise before any
     launch."""
-    before = tis.fused_conv1_pool_f32.LAUNCHES
-    before_at = dict(tis.fused_conv1_pool_f32.LAUNCHES_AT)
+    before, before_at = tis.F32.launches, dict(tis.F32.at)
     with pytest.raises(ValueError, match=msg):
         tis.fused_conv1_pool_f32(x, torch.zeros(w_shape),
                                  torch.zeros(w_shape[0]))
-    assert tis.fused_conv1_pool_f32.LAUNCHES == before
-    assert dict(tis.fused_conv1_pool_f32.LAUNCHES_AT) == before_at
+    assert tis.F32.launches == before
+    assert dict(tis.F32.at) == before_at
 
 
 @pytest.mark.parametrize("c_out", [1, 8, 13, 32])

@@ -519,9 +519,10 @@ def test_finetune_cli_dp_matches_single_device(cli_fixture, capsys,
     with open(counts_dir / "rank1.json") as fh:
         counts = json.load(fh)
     # each kernel's counts, and the rank's collectives by kind
-    assert sorted(counts) == sorted([n for n, _ in KERNELS]
+    assert sorted(counts) == sorted([k.source for k in KERNELS]
                                     + ["collectives"])
-    assert all(counts[n] == {"launches": 0, "at": {}} for n, _ in KERNELS)
+    assert all(counts[k.source] == {"launches": 0, "at": {}}
+               for k in KERNELS)
     assert counts["collectives"]["all_reduce"]["calls"] > 0
     assert finetune.main(base + ["--dp", "2", "--subdivisions", "4",
                                  "--out", out]) == 2

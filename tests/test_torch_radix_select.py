@@ -99,11 +99,11 @@ def test_radix_select_dispatches_cpu_tensors_to_plain():
     w, seg, k, S = _case("prune")
     bits, tseg, tk = (ttm.abs_bits(torch.from_numpy(w)),
                       torch.from_numpy(seg), torch.from_numpy(k))
-    n0 = ct.radix_select_cuda.LAUNCHES
+    n0 = ct.RADIX_SELECT.launches
     got = ct.radix_select(bits, tseg, tk, S)
     want = ct.radix_select_plain(bits, tseg, tk, S)
     assert all(torch.equal(g, v) for g, v in zip(got, want))
-    assert ct.radix_select_cuda.LAUNCHES == n0
+    assert ct.RADIX_SELECT.launches == n0
 
 
 @pytest.mark.parametrize("n, chunk", [

@@ -170,17 +170,18 @@ def test_prune_flat_matches_pallas_prune_flat(return_mask):
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    _, bits, seg = _flat_case()
-    n0 = ct.count_le_cuda.LAUNCHES
-    r0 = ct.radix_select_cuda.LAUNCHES
+    w, bits, seg = _flat_case()
+    kernels = (ct.RADIX_SELECT, ct.TIE_COUNTS, ct.APPLY)
+    n0 = [k.launches for k in kernels]
     with pytest.raises(ValueError, match="CUDA"):
-        ct.count_le_cuda(_t(bits), _t(seg), torch.zeros(3), 3)
+        ct.apply_threshold_cuda(_t(w), _t(bits), _t(seg), torch.zeros(3),
+                                torch.zeros(3), torch.zeros(3),
+                                torch.zeros(1))
     with pytest.raises(ValueError, match="CUDA"):
         ct.tie_counts_cuda(_t(bits), _t(seg), torch.zeros(3), 3)
     with pytest.raises(ValueError, match="CUDA"):
         ct.radix_select_cuda(_t(bits), _t(seg), torch.zeros(3), 3)
-    assert ct.count_le_cuda.LAUNCHES == n0
-    assert ct.radix_select_cuda.LAUNCHES == r0
+    assert [k.launches for k in kernels] == n0
 
 
 # ---- masks on a network ------------------------------------------------------
